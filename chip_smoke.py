@@ -1,0 +1,371 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+Usage: ``python3 chip_smoke.py`` (no arguments; needs one CUDA card)
+
+Phases (any failure exits non-zero):
+
+1. device: CUDA present; torch/CUDA versions, card name and power limit;
+2. build: compile ``pano360_tpu_torch/csrc/*.cu`` with nvcc;
+3. kernel 1 (octave stack) vs its plain PyTorch version on the card, at
+   every octave of the bench images where the kernel runs (batch 4);
+4. kernel 2 (backward warp) vs its plain version at the bench's render
+   layout;
+5. the CLI main path (``cli.run_images``) on the bench dataset (15 views
+   of 864x1152, seed 42, overlap 0.45): a cold and a warm run, per-stage
+   seconds, peak device memory, kernel launch counts, registration
+   accuracy against the synthetic ground truth, and a cached re-run;
+6. profile: one more uncached run of the main path under
+   ``torch.profiler``: device busy time, the device's idle share, and
+   the device operations that take the most time.
+
+The last lines are one JSON object per kernel (``{"kernels": [...]}``),
+the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+BENCH_VIEWS, BENCH_SHAPE, BENCH_OVERLAP, BENCH_SEED = 15, (864, 1152), 0.45, 42
+REPS = 5
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0 and out.stdout.strip(),
+          f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed(fn, reps: int):
+    """Mean ms of ``fn()`` over ``reps`` runs, with CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def alternate(plain, kernel, reps: int = REPS):
+    """Times of plain and kernel taken in turns (plain, kernel, kernel,
+    plain) after one warm-up of each."""
+    import torch
+    plain()
+    kernel()
+    torch.cuda.synchronize()
+    tp = timed(plain, reps)
+    tk = timed(kernel, reps)
+    tk = (tk + timed(kernel, reps)) / 2
+    tp = (tp + timed(plain, reps)) / 2
+    return tk, tp
+
+
+def bench_dataset(synth):
+    imgs, rots, focal = synth.make_views(
+        n_views=BENCH_VIEWS, shape=BENCH_SHAPE, overlap=BENCH_OVERLAP,
+        seed=BENCH_SEED)
+    return [(im * 255).astype(np.uint8) for im in imgs], rots, focal
+
+
+def phase_octave(torch, u8):
+    from pano360_tpu_torch.features import sift as S
+    from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops.color import bgr2gray
+    cfg = S.SiftConfig()
+    taps = G.chain_taps(cfg.sigma, cfg.n_layers)
+    score_cfg = (0.5 * cfg.contrast_thresh / cfg.n_layers, cfg.edge_thresh,
+                 cfg.img_border)
+    stack = torch.as_tensor(np.stack(u8[:4]), device="cuda")
+    octv = S._base_image(bgr2gray(stack.float() / 255.0), cfg)
+    n_oct = S.n_octaves_for(BENCH_SHAPE)
+    worst = {"gauss": 0.0, "dog": 0.0, "score": 0.0}
+    t_kernel = t_plain = 0.0
+    n_shapes = 0
+    for o in range(n_oct):
+        h, w = octv.shape[1:]
+        if not G.reflect_legal(h, w, taps):
+            log(f"  octave {o} {h}x{w}: plain chain (reflect pad not legal)")
+            octv = S._gaussian_stack(octv, cfg)[:, 3, ::2, ::2].contiguous()
+            continue
+        out = G.octave_stack(octv, taps, score_cfg)
+        ref = G.octave_stack_ref(octv, taps, score_cfg)
+        torch.cuda.synchronize()
+        dg = float((out[0] - ref[0]).abs().max())
+        dd = float((out[1] - ref[1]).abs().max())
+        ds = float((out[2] - ref[2]).abs().max())
+        kz, rz = out[2] > 0, ref[2] > 0
+        n_cand = int(rz.sum())
+        diff = kz != rz
+        n_diff = int(diff.sum())
+        # a flipped candidate must sit where the stencil's inputs (the
+        # 3x3x3 DoG neighbourhood) differ, by at most 1e-6
+        n_far = 0
+        if n_diff:
+            dd3 = torch.nn.functional.max_pool3d(
+                (out[1] - ref[1]).abs()[:, None], 3, 1, padding=1)[:, 0]
+            dd3 = dd3[:, 1:-1]
+            near = (dd3 > 0) & (dd3 <= 1e-6)
+            n_far = int((diff & ~near).sum())
+        log(f"  octave {o} {h}x{w}: max|d| gauss {dg:.3g} dog {dd:.3g} "
+            f"score {ds:.3g}; candidates {n_cand}, flipped {n_diff} "
+            f"(not at a near-tie: {n_far})")
+        check(dg <= 1e-5 and dd <= 1e-5,
+              f"octave_stack octave {o}: gauss/dog differ by {dg}/{dd}")
+        check(n_diff <= 1e-3 * max(n_cand, 1) and n_far == 0,
+              f"octave_stack octave {o}: {n_diff} score flips")
+        worst["gauss"] = max(worst["gauss"], dg)
+        worst["dog"] = max(worst["dog"], dd)
+        worst["score"] = max(worst["score"], ds)
+        tk, tp = alternate(lambda: G.octave_stack_ref(octv, taps, score_cfg),
+                           lambda: G.octave_stack(octv, taps, score_cfg))
+        log(f"    kernel {tk:.3f} ms, plain {tp:.3f} ms")
+        t_kernel += tk
+        t_plain += tp
+        n_shapes += 1
+        octv = ref[0][:, 3, ::2, ::2].contiguous()
+        del out, ref
+    check(n_shapes > 0, "octave_stack ran on no octave")
+    return dict(max_abs_err=max(worst["gauss"], worst["dog"]),
+                ms=t_kernel, plain_ms=t_plain, shapes=n_shapes)
+
+
+def phase_warp(torch, u8, rots, focal):
+    from pano360_tpu_torch import render
+    from pano360_tpu_torch.ops import warp_kernel as W
+    from pano360_tpu_torch.register import PanoImage
+    intr = np.diag([focal, focal, 1.0])
+    regions = [PanoImage(im, r, intr.copy()) for im, r in zip(u8, rots)]
+    rgba, lay = render.prepare(regions, "multiband", render.MAX_RESOLUTION,
+                               torch.device("cuda"))
+    t = dict(dtype=torch.float32, device="cuda")
+    args = (rgba, torch.as_tensor(np.stack([r.proj() for r in regions]), **t),
+            torch.as_tensor(lay.bottoms, **t),
+            torch.as_tensor(lay.resolution, **t),
+            torch.as_tensor(lay.im_range[0], **t), lay.ph, lay.pw)
+    kw = dict(wins=torch.as_tensor(lay.wins, **t), period=lay.period)
+    kp, ki = W.backward_warp(*args, **kw)
+    rp, ri = W.backward_warp_ref(*args, **kw)
+    torch.cuda.synchronize()
+    diff = ki != ri
+    n_diff = int(diff.sum())
+    pad = torch.nn.functional.pad(ri[:, None].float(), (1, 1, 1, 1),
+                                  mode="replicate")[:, 0]
+    edge = ((pad[:, 1:-1, 2:] != pad[:, 1:-1, 1:-1])
+            | (pad[:, 1:-1, :-2] != pad[:, 1:-1, 1:-1])
+            | (pad[:, 2:, 1:-1] != pad[:, 1:-1, 1:-1])
+            | (pad[:, :-2, 1:-1] != pad[:, 1:-1, 1:-1]))
+    n_inner = int((diff & ~edge).sum())
+    both = ~ki & ~ri
+    err = float((kp - rp)[both].abs().max())
+    alpha_bad = float(kp[..., 3][ki].abs().max()) if bool(ki.any()) else 0.0
+    log(f"  layout: {len(regions)} patches of {lay.ph}x{lay.pw}, canvas "
+        f"{lay.shape}, period {lay.period}")
+    log(f"  mask flips {n_diff} of {ki.numel()} (off the boundary "
+        f"{n_inner}); patch max|d| {err:.3g}; alpha on invalid {alpha_bad}")
+    check(n_diff <= 1e-4 * ki.numel() and n_inner == 0,
+          f"backward_warp: {n_diff} mask flips ({n_inner} off the boundary)")
+    check(err <= 1e-4, f"backward_warp: patches differ by {err}")
+    check(alpha_bad == 0.0, "backward_warp: alpha nonzero on invalid pixels")
+    tk, tp = alternate(lambda: W.backward_warp_ref(*args, **kw),
+                       lambda: W.backward_warp(*args, **kw))
+    log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms")
+    return dict(max_abs_err=err, ms=tk, plain_ms=tp)
+
+
+def rel_rot_errors_deg(regs, rots):
+    errs = []
+    for i in range(len(regs) - 1):
+        est = regs[i + 1].rot @ regs[i].rot.T
+        true = rots[i + 1] @ rots[i].T
+        c = np.clip((np.trace(est @ true.T) - 1) / 2, -1, 1)
+        errs.append(np.degrees(np.arccos(c)))
+    return np.array(errs)
+
+
+def phase_slice(torch, u8, rots, focal):
+    from pano360_tpu_torch import cli
+    from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops import warp_kernel as W
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    runs = {}
+    launches = None
+    walls = {}
+    for label in ("cold", "warm"):
+        cache = os.path.join(work, label)
+        os.makedirs(cache)
+        args = cli.build_parser().parse_args(
+            [cache, "-s", "1", "--ba", "incr", "-b", "multiband",
+             "--cache-dir", cache])
+        timer = cli.StageTimer()
+        torch.cuda.reset_peak_memory_stats()
+        if label == "cold":
+            G.launches = W.launches = 0
+        t0 = time.time()
+        mosaic = cli.run_images(u8, args, "bench_s1.0", timer)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        walls[label] = total
+        if label == "cold":
+            launches = {"octave_stack": G.launches,
+                        "backward_warp": W.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stages = {k: round(v, 4) for k, v in timer.stages.items()}
+        log(f"  {label} run: {total:.3f} s; stages {stages}; peak device "
+            f"memory {peak:.2f} GiB")
+        runs[label] = (args, mosaic)
+    log(f"  launches on the cold run: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"main path did not launch every kernel: {launches}")
+
+    args, mosaic = runs["warm"]
+    regs = cli.load_ba_cache(os.path.join(args.cache_dir,
+                                          "ba_bench_s1.0.pkl"))
+    check(len(regs) == BENCH_VIEWS, f"{len(regs)} of {BENCH_VIEWS} placed")
+    foc = np.array([r.intr[0, 0] for r in regs])
+    f_err = float(np.abs(foc - focal).max() / focal)
+    r_err = rel_rot_errors_deg(regs, rots)
+    log(f"  focal max rel err {f_err:.5f}; rel-rot err mean "
+        f"{r_err.mean():.4f} max {r_err.max():.4f} deg")
+    check(f_err <= 0.005, f"focal error {f_err}")
+    check(r_err.mean() <= 0.1, f"mean relative rotation error {r_err.mean()}")
+    check(mosaic.dtype == np.uint8 and mosaic.ndim == 3
+          and mosaic.shape[2] == 3 and min(mosaic.shape[:2]) > 0,
+          f"mosaic {mosaic.shape} {mosaic.dtype}")
+    check(max(mosaic.shape[:2]) <= 1400, f"mosaic {mosaic.shape} > 1400")
+    check(mosaic.any(), "mosaic is empty")
+    again = cli.run_images(u8, args, "bench_s1.0")
+    check(np.array_equal(again, mosaic), "cached re-run differs")
+    log(f"  mosaic {mosaic.shape}; cached re-run identical")
+    return launches, walls["warm"]
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def phase_profile(torch, u8, warm_s: float):
+    """One more uncached main-path run under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pano360_tpu_torch import cli
+    cache = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    args = cli.build_parser().parse_args(
+        [cache, "-s", "1", "--ba", "incr", "-b", "multiband",
+         "--cache-dir", cache])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        cli.run_images(u8, args, "bench_s1.0")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        log(f"  profiled run {wall:.3f} s; device time not measured (the "
+            "profiler saw no device activity)")
+        return
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in dev])
+    log(f"  profiled run {wall:.3f} s; device busy {busy / 1e3:.1f} ms in "
+        f"{len(dev)} device operations; idle share "
+        f"{1 - busy / 1e6 / wall:.3f} of the profiled run, "
+        f"{1 - busy / 1e6 / warm_s:.3f} of the warm run's {warm_s:.3f} s")
+    by_name = {}
+    for e in dev:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"    {t / 1e3:8.2f} ms {c:6d}x  {name[:90]}")
+
+
+def main():
+    if len(sys.argv) > 1:
+        fail(f"takes no arguments, got {sys.argv[1:]}")
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    log("phase 1: device")
+    sys.path.insert(0, ROOT)
+    try:
+        from pano360_tpu_torch import _kernels
+        from pano360_tpu_torch._host import synth
+    except ImportError as exc:
+        fail(f"the port package is missing next to this script: {exc}")
+    smi = smi_line()
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    log(f"  nvidia-smi: {smi}")
+
+    log("phase 2: build")
+    t0 = time.time()
+    lib_path = _kernels.build()
+    _kernels.lib()
+    log(f"  built {os.path.relpath(lib_path, ROOT)} in "
+        f"{time.time() - t0:.1f} s")
+
+    u8, rots, focal = bench_dataset(synth)
+    log("phase 3: octave_stack kernel vs plain")
+    k1 = phase_octave(torch, u8)
+    log("phase 4: backward_warp kernel vs plain")
+    k2 = phase_warp(torch, u8, rots, focal)
+    log("phase 5: CLI main path on the bench dataset")
+    launches, warm_s = phase_slice(torch, u8, rots, focal)
+    log("phase 6: profile of one more main-path run")
+    phase_profile(torch, u8, warm_s)
+
+    kernels = [
+        dict(name="octave_stack", route="cuda",
+             source="pano360_tpu_torch/csrc/gauss_octave.cu",
+             replaces="pano360_tpu/ops/pallas_gauss.py:285",
+             launches=launches["octave_stack"],
+             max_abs_err=k1["max_abs_err"], ms=k1["ms"],
+             plain_ms=k1["plain_ms"]),
+        dict(name="backward_warp", route="cuda",
+             source="pano360_tpu_torch/csrc/backward_warp.cu",
+             replaces="pano360_tpu/ops/pallas_warp.py:398",
+             launches=launches["backward_warp"],
+             max_abs_err=k2["max_abs_err"], ms=k2["ms"],
+             plain_ms=k2["plain_ms"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,249 @@
+"""Command-line stitcher (counterpart of ``pano360_tpu.cli``).
+
+Same flags, defaults and cache files as the JAX package
+(``matches_{name}_s{shrink}.npz``, ``ba_{name}_s{shrink}.pkl``), plus
+``--device`` (default ``cuda``; the CPU runs only when named). Flags the
+port does not carry yet raise ``NotImplementedError`` naming their
+ROADMAP item instead of being ignored.
+
+``run`` = ``load_images`` + ``run_images(imgs, args, name)``; the latter
+is the entry point for in-memory images (``chip_smoke.py``).
+
+Usage: ``python -m pano360_tpu_torch.cli <dir> -s 1 -o mosaic.png``
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import logging
+import os
+import pickle
+import sys
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from pano360_tpu_torch import render, resolve_device
+from pano360_tpu_torch._host import StageTimer, profiling
+from pano360_tpu_torch.imageio import imread, imwrite, list_images
+from pano360_tpu_torch.pipeline import (idx_to_keypoints, matching,
+                                        upload_extract)
+from pano360_tpu_torch.register import traverse
+
+LOG = logging.getLogger(__name__)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Stitch images.")
+    parser.add_argument("path", type=str,
+                        help="directory with the images to process.")
+    parser.add_argument("-s", "--shrink", type=float, default=2,
+                        help="downsample the images by this amount.")
+    parser.add_argument("--ba", default="incr",
+                        choices=["none", "incr", "last"],
+                        help="bundle adjustment type.")
+    parser.add_argument("--equalize", "-e", action="store_true",
+                        help="equalize image gain before stitching.")
+    parser.add_argument("--crop", "-c", action="store_true",
+                        help="remove the black borders.")
+    parser.add_argument("--blend", "-b", default="multiband",
+                        choices=list(render.BLENDERS.keys()),
+                        help="blending algorithm.")
+    parser.add_argument("-o", "--out", type=str,
+                        help="save result to this file")
+    parser.add_argument("--detector", default="sift",
+                        choices=["sift", "msop"], help="feature detector.")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the RANSAC hypothesis generator.")
+    parser.add_argument("--cache-dir", default=".",
+                        help="directory for the match/BA cache files.")
+    parser.add_argument("--max-resolution", type=int,
+                        default=render.MAX_RESOLUTION,
+                        help="cap on the mosaic's longest side.")
+    parser.add_argument("--projection", default="spherical",
+                        choices=["spherical", "cylindrical"],
+                        help="output projection surface.")
+    parser.add_argument("--warp", default="auto",
+                        choices=["auto", "pallas", "xla"],
+                        help="warp policy: auto and xla run the exact "
+                             "backward-warp kernel; pallas (mip-sampled "
+                             "under minification) is not ported yet.")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="multi-device sharding (not ported yet).")
+    parser.add_argument("--show", action="store_true",
+                        help="display the mosaic in an image viewer.")
+    parser.add_argument("--profile", action="store_true",
+                        help="cProfile the host pipeline and print a "
+                             "per-stage wall-clock report.")
+    parser.add_argument("--trace-dir", type=str, default=None,
+                        help="write a torch.profiler (Chrome trace) of "
+                             "the run to this directory.")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda).")
+    return parser
+
+
+_NOT_PORTED = [
+    (lambda a: a.equalize, "-e/--equalize", "ROADMAP Queue 1: equalize"),
+    (lambda a: a.crop, "-c/--crop", "ROADMAP Queue 1: crop"),
+    (lambda a: a.detector == "msop", "--detector msop",
+     "ROADMAP Queue 1: MSOP"),
+    (lambda a: a.projection == "cylindrical", "--projection cylindrical",
+     "ROADMAP Queue 1: cylindrical projection"),
+    (lambda a: a.mesh and a.mesh > 1, "--mesh", "ROADMAP Queue 1: parallel/"),
+    (lambda a: a.warp == "pallas", "--warp pallas (mip-level warp path)",
+     "ROADMAP Queue 1: the forced mip-level warp path"),
+    (lambda a: a.max_resolution > render.MAX_RESOLUTION,
+     f"--max-resolution beyond {render.MAX_RESOLUTION}",
+     "ROADMAP Queue 1: --max-resolution beyond 1400"),
+]
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError for a flag the port does not carry."""
+    for test, flag, item in _NOT_PORTED:
+        if test(args):
+            raise NotImplementedError(f"{flag} is not ported yet ({item})")
+
+
+def load_images(path: str, shrink: float, device) -> List[np.ndarray]:
+    """uint8 BGR images of a directory, resized by 1/shrink (cv2 linear)."""
+    from pano360_tpu_torch.ops.resize import resize_bilinear
+    imgs = [imread(f) for f in list_images(path)]
+    if shrink > 1:
+        out = []
+        for im in imgs:
+            h, w = im.shape[:2]
+            small = resize_bilinear(
+                torch.as_tensor(im.astype(np.float32), device=device),
+                (round(h / shrink), round(w / shrink)))
+            out.append(np.clip(small.cpu().numpy(), 0, 255).astype(np.uint8))
+        imgs = out
+    return imgs
+
+
+class _CacheUnpickler(pickle.Unpickler):
+    """Loads only this package's classes and numpy's array helpers."""
+
+    _NUMPY = {"_reconstruct", "ndarray", "dtype", "_frombuffer", "scalar"}
+
+    def find_class(self, module, name):
+        root = module.split(".")[0]
+        if root == "pano360_tpu_torch" or (root == "numpy"
+                                           and name in self._NUMPY):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"BA cache holds {module}.{name}, which this package does not "
+            "load (a cache written by another package?): delete the cache")
+
+
+def load_ba_cache(path: str):
+    """Regions from a ``ba_*.pkl`` cache written by this package."""
+    with open(path, "rb") as fid:
+        return _CacheUnpickler(fid).load()
+
+
+def run_images(imgs: List[np.ndarray], args, name: str,
+               timer: Optional[StageTimer] = None, draw_fn=None):
+    """Stitch in-memory uint8 BGR images; ``name`` keys the caches.
+
+    ``draw_fn(pair_k, n_valid)``: optional RANSAC draws (tests inject the
+    JAX package's). Returns the uint8 BGR mosaic.
+    """
+    check_ported(args)
+    timer = timer or StageTimer()
+    device = resolve_device(args.device)
+    if not imgs:
+        raise ValueError("no images to process (empty directory?)")
+    if len({im.shape for im in imgs}) != 1:
+        raise NotImplementedError("mixed image shapes are not ported yet "
+                                  "(ROADMAP Queue 1: mixed image shapes)")
+
+    dev_images = None
+    match_cache = os.path.join(args.cache_dir, f"matches_{name}.npz")
+    try:
+        arr = np.load(match_cache, allow_pickle=True)
+        kpts, matches = arr["kpts"], arr["matches"]
+    except IOError:
+        with timer.stage("Matched features"):
+            dev_images, feats = upload_extract(imgs, device)
+            kpts, matches = matching(imgs, device, seed=args.seed,
+                                     feats=feats, draw_fn=draw_fn)
+            np.savez(match_cache, kpts=kpts, matches=matches)
+
+    ba_cache = os.path.join(args.cache_dir, f"ba_{name}.pkl")
+    try:
+        regions = load_ba_cache(ba_cache)
+    except IOError:
+        with timer.stage("Image registration"):
+            regions = traverse(imgs, idx_to_keypoints(matches, kpts),
+                               badjust=args.ba, device=device)
+        with open(ba_cache, "wb") as fid:
+            pickle.dump(regions, fid, protocol=pickle.HIGHEST_PROTOCOL)
+
+    if not regions:
+        raise SystemExit(
+            "no connected images: the match graph is empty (need "
+            "overlapping views with enough texture)")
+    with timer.stage("Built mosaic"):
+        mosaic = render.stitch(regions, blender=args.blend,
+                               dev_images=dev_images,
+                               max_resolution=args.max_resolution,
+                               device=device)
+    return mosaic
+
+
+def run(args, timer: Optional[StageTimer] = None) -> np.ndarray:
+    """Stitch the images of ``args.path`` (the CLI's main path)."""
+    check_ported(args)
+    timer = timer or StageTimer()
+    device = resolve_device(args.device)
+    name = f"{os.path.basename(os.path.normpath(args.path))}_s{args.shrink}"
+    with timer.stage("Loaded images"):
+        imgs = load_images(args.path, args.shrink, device)
+    return run_images(imgs, args, name, timer)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: Optional[str]):
+    """torch.profiler over the run, saved as a Chrome trace."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    timer = StageTimer()
+    with device_trace(args.trace_dir):
+        if args.profile:
+            mosaic = profiling.profile(run, args, timer)
+        else:
+            mosaic = run(args, timer)
+    if args.profile:
+        print(timer.report())
+    if args.out:
+        imwrite(args.out, mosaic)
+        print(f"saved {args.out} ({mosaic.shape[1]}x{mosaic.shape[0]})")
+    if args.show:
+        if os.environ.get("DISPLAY") or sys.platform == "darwin":
+            from PIL import Image
+            Image.fromarray(mosaic[..., ::-1]).show()
+        else:
+            LOG.warning("--show: no display available (headless host); "
+                        "use -o to save the mosaic instead")
+    return mosaic
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -1,0 +1,64 @@
+"""Carry state across from the JAX package, given as numpy arrays.
+
+These let one stage's JAX output feed the port's next stage (the tests
+hold each port stage against its JAX counterpart this way). Nothing here
+imports jax: the JAX objects are read through their attributes.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from pano360_tpu_torch.features.sift import SiftConfig, SiftFeatures
+from pano360_tpu_torch.register import PanoImage
+
+
+def sift_config_from_jax(cfg) -> SiftConfig:
+    """A ``pano360_tpu`` SiftConfig -> the port's. Raises on what the
+    port does not carry: ``gauss_mode='direct'``, a bfloat16
+    ``patch_dtype``, ``upscale=False`` or ``descr_mode='dense'``. The JAX
+    ``pallas`` and ``incremental`` modes are one scale space here (the
+    octave kernel and the chain agree to f32 rounding)."""
+    if cfg.gauss_mode not in ("pallas", "incremental"):
+        raise ValueError(f"gauss_mode {cfg.gauss_mode!r} is not ported")
+    if cfg.patch_dtype != "float32":
+        raise ValueError(f"patch_dtype {cfg.patch_dtype!r} is not ported")
+    if not cfg.upscale:
+        raise ValueError("upscale=False is not ported")
+    keep = ("n_layers", "sigma", "init_sigma", "contrast_thresh",
+            "edge_thresh", "max_kpts", "img_border",
+            "refine_iters", "n_orientations", "ori_bins", "descr_width",
+            "descr_ori_bins", "descr_samples", "descr_mag_thresh",
+            "sel_shift", "descr_mode")
+    return SiftConfig(**{k: getattr(cfg, k) for k in keep})
+
+
+def features_from_jax(feats, device="cpu") -> SiftFeatures:
+    """``SiftFeatures`` fields (arrays) -> the port's tensors."""
+    def t(a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return SiftFeatures(xy=t(feats.xy, torch.float32),
+                        size=t(feats.size, torch.float32),
+                        angle=t(feats.angle, torch.float32),
+                        response=t(feats.response, torch.float32),
+                        desc=t(feats.desc, torch.float32),
+                        valid=t(feats.valid, torch.bool))
+
+
+def regions_from_jax(regions) -> List[PanoImage]:
+    """Registered JAX ``PanoImage``s -> the port's (rot, focal, img)."""
+    return [PanoImage(np.asarray(r.img), np.asarray(r.rot, np.float64),
+                      np.asarray(r.intr, np.float64)) for r in regions]
+
+
+def matches_from_npz(path: str):
+    """(kpts, matches) from a ``matches_*.npz`` cache of either package
+    (the two share one structure)."""
+    arr = np.load(path, allow_pickle=True)
+    return arr["kpts"], arr["matches"]
+
+
+__all__ = ["sift_config_from_jax", "features_from_jax", "regions_from_jax",
+           "matches_from_npz"]

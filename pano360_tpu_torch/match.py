@@ -1,0 +1,260 @@
+"""Descriptor matching and RANSAC homographies (counterpart of
+``pano360_tpu.match``).
+
+Exact brute-force top-2 matching by L2 distance (one batched matrix
+product per chunk of pairs) with Lowe's ratio test, then a
+fixed-hypothesis parallel RANSAC: K 4-point samples -> closed-form
+homographies -> inlier counts -> argmax, and a weighted DLT +
+Gauss-Newton refit on the winning inlier set. Every function is batched
+over a leading pair axis B.
+
+Hypothesis draws: ``draws`` (B, K, 4) integers in [0, n_valid) may be
+given (the tests inject the JAX package's own draws); otherwise they
+come from a ``torch.Generator`` on the device.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from pano360_tpu_torch.geometry import inv3x3
+
+LOWE_RATIO = 0.7
+N_MIN_MATCH = 8
+RANSAC_THRESH = 3.0
+RANSAC_ITERS = 2048
+
+DrawFn = Callable[[int, int], torch.Tensor]
+
+
+class PairMatch(NamedTuple):
+    """Results for B ordered pairs (static shapes)."""
+
+    idx: torch.Tensor        # (B, M, 2) indices into (kpts1, kpts2)
+    inlier: torch.Tensor     # (B, M) ratio-test pass AND RANSAC inlier
+    hom: torch.Tensor        # (B, 3, 3) homography kpts1 -> kpts2
+    n_inliers: torch.Tensor  # (B,)
+    ok: torch.Tensor         # (B,) >= N_MIN_MATCH ratio matches, valid H
+
+
+def knn2_matches(desc1, desc2, valid1, valid2, ratio: float = LOWE_RATIO):
+    """Top-2 L2 matches of each desc1 row against desc2 (batched over B):
+    returns (best_idx (B, M1), good (B, M1))."""
+    d1 = desc1.to(torch.float32)
+    d2 = desc2.to(torch.float32)
+    sq1 = torch.sum(d1 * d1, dim=-1, keepdim=True)
+    sq2 = torch.sum(d2 * d2, dim=-1)
+    cross = torch.matmul(d1, d2.transpose(-1, -2))
+    dist2 = sq1 + sq2[..., None, :] - 2.0 * cross
+    dist2 = torch.clamp(dist2, min=0.0)
+    dist2 = torch.where(valid2[..., None, :], dist2, torch.inf)
+    d1min, best_idx = torch.min(dist2, dim=-1)
+    cols = torch.arange(dist2.shape[-1], device=dist2.device)
+    masked = torch.where(cols == best_idx[..., None], torch.inf, dist2)
+    d2min = torch.min(masked, dim=-1).values
+    best = torch.sqrt(d1min)
+    second = torch.sqrt(d2min)
+    good = valid1 & (best < ratio * second) & torch.isfinite(second)
+    return best_idx, good
+
+
+def _normalization(pts, w):
+    """Hartley similarity from weighted moments: (B, M, 2), (B, M) ->
+    (B, 3, 3)."""
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-8)
+    mean = torch.sum(pts * w[..., None], dim=-2) / wsum[..., None]
+    d = torch.sqrt(torch.sum((pts - mean[..., None, :]) ** 2, dim=-1))
+    scale = (2.0 ** 0.5) / torch.clamp(torch.sum(d * w, dim=-1) / wsum,
+                                       min=1e-8)
+    t = torch.zeros(pts.shape[:-2] + (3, 3), dtype=pts.dtype,
+                    device=pts.device)
+    t[..., 0, 0] = scale
+    t[..., 1, 1] = scale
+    t[..., 0, 2] = -scale * mean[..., 0]
+    t[..., 1, 2] = -scale * mean[..., 1]
+    t[..., 2, 2] = 1.0
+    return t
+
+
+def _dlt_rows(p1, p2):
+    """Two DLT rows per correspondence: (B, M, 2) x2 -> (B, 2M, 9)."""
+    x, y = p1[..., 0], p1[..., 1]
+    u, v = p2[..., 0], p2[..., 1]
+    z = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    r1 = torch.stack([x, y, o, z, z, z, -u * x, -u * y, -u], dim=-1)
+    r2 = torch.stack([z, z, z, x, y, o, -v * x, -v * y, -v], dim=-1)
+    return torch.cat([r1, r2], dim=-2)
+
+
+def _quad_to_basis(q):
+    """(..., 4, 2) -> 3x3 map sending the projective basis to the quad."""
+    qh = torch.cat([q, torch.ones(q.shape[:-1] + (1,), dtype=q.dtype,
+                                  device=q.device)], dim=-1)
+    m = qh[..., :3, :].transpose(-1, -2)
+    c = torch.matmul(inv3x3(m), qh[..., 3, :, None])[..., 0]
+    return m * c[..., None, :]
+
+
+def hom_from_4pts(p1, p2):
+    """Exact homography from 4 correspondences (..., 4, 2), closed form;
+    degenerate quads give inf/NaN entries (scored as zero inliers)."""
+    a = _quad_to_basis(p1)
+    b = _quad_to_basis(p2)
+    hom = torch.matmul(b, inv3x3(a))
+    z = hom[..., 2, 2]
+    z = torch.where(torch.abs(z) > 1e-20, z, torch.inf)
+    return hom / z[..., None, None]
+
+
+def _reproj_errors(hom, p1, p2):
+    """Squared forward reprojection error; hom (..., 3, 3) broadcasts
+    against points (..., M, 2)."""
+    h = hom[..., None, :, :]
+    x, y = p1[..., 0], p1[..., 1]
+    u = h[..., 0, 0] * x + h[..., 0, 1] * y + h[..., 0, 2]
+    v = h[..., 1, 0] * x + h[..., 1, 1] * y + h[..., 1, 2]
+    w = h[..., 2, 0] * x + h[..., 2, 1] * y + h[..., 2, 2]
+    okw = torch.abs(w) > 1e-12
+    inv_w = torch.where(okw, 1.0 / w, 0.0)
+    du = u * inv_w - p2[..., 0]
+    dv = v * inv_w - p2[..., 1]
+    return torch.where(okw, du * du + dv * dv, torch.inf)
+
+
+def refit_homography(p1, p2, w, gn_iters: int = 3):
+    """Weighted normalized DLT + Gauss-Newton polish (h33 fixed) on
+    (B, M) weights."""
+    t1 = _normalization(p1, w)
+    t2 = _normalization(p2, w)
+    n1 = p1 * t1[..., None, 0, 0, None] + t1[..., None, :2, 2]
+    n2 = p2 * t2[..., None, 0, 0, None] + t2[..., None, :2, 2]
+    rows = _dlt_rows(n1, n2)
+    ww = torch.cat([w, w], dim=-1)[..., None]
+    ata = torch.matmul(rows.transpose(-1, -2), rows * ww)
+    _, evecs = torch.linalg.eigh(ata)
+    h = evecs[..., :, 0].reshape(ata.shape[:-2] + (3, 3))
+    hom = inv3x3(t2) @ h @ t1
+    hom = hom / hom[..., 2:3, 2:3]
+
+    x, y = p1[..., 0], p1[..., 1]
+    eye8 = torch.eye(8, dtype=p1.dtype, device=p1.device)
+    for _ in range(gn_iters):
+        hv = (hom / hom[..., 2:3, 2:3]).reshape(hom.shape[:-2] + (9,))
+        h0, h1, h2, h3, h4, h5, h6, h7 = (hv[..., i, None] for i in range(8))
+        u0 = x * h0 + y * h1 + h2
+        u1 = x * h3 + y * h4 + h5
+        z = x * h6 + y * h7 + 1.0
+        r = torch.stack([(u0 / z - p2[..., 0]) * w,
+                         (u1 / z - p2[..., 1]) * w], dim=-1)
+        zero = torch.zeros_like(x)
+        a, b = x / z * w, y / z * w
+        c = w / z
+        z2 = z * z
+        j0 = torch.stack([a, b, c, zero, zero, zero,
+                          -u0 * x / z2 * w, -u0 * y / z2 * w], dim=-1)
+        j1 = torch.stack([zero, zero, zero, a, b, c,
+                          -u1 * x / z2 * w, -u1 * y / z2 * w], dim=-1)
+        jac = torch.stack([j0, j1], dim=-2).reshape(
+            x.shape[:-1] + (-1, 8))
+        rv = r.reshape(x.shape[:-1] + (-1,))
+        jtj = jac.transpose(-1, -2) @ jac + 1e-6 * eye8
+        delta = torch.linalg.solve(jtj, (jac.transpose(-1, -2)
+                                         @ rv[..., None])[..., 0])
+        new = hv[..., :8] - delta
+        newh = torch.cat([new, torch.ones_like(new[..., :1])],
+                         dim=-1).reshape(hom.shape)
+        okh = torch.isfinite(newh).reshape(newh.shape[:-2] + (9,)).all(-1)
+        hom = torch.where(okh[..., None, None], newh, hom)
+    return hom
+
+
+def _gather_rows(a, idx):
+    """a (B, M, C), idx (B, ...) -> (B, ..., C)."""
+    b, c = a.shape[0], a.shape[-1]
+    flat = idx.reshape(b, -1)
+    out = torch.gather(a, 1, flat[..., None].expand(-1, -1, c))
+    return out.reshape(idx.shape + (c,))
+
+
+def ransac_homography(p1, p2, valid, draws,
+                      thresh: float = RANSAC_THRESH):
+    """Parallel-hypothesis RANSAC over B pairs.
+
+    p1, p2: (B, M, 2) correspondences; valid: (B, M); draws: (B, K, 4)
+    ranks in [0, max(n_valid, 1)) among the valid rows. Returns
+    (hom (B, 3, 3), inlier mask (B, M), n_inliers (B,)).
+    """
+    bsz, m = valid.shape
+    dev = p1.device
+    cum = torch.cumsum(valid.to(torch.int64), dim=-1)
+    pos = torch.where(valid, cum - 1, m)
+    rank_map = torch.zeros((bsz, m + 1), dtype=torch.int64, device=dev)
+    rank_map.scatter_(1, pos, torch.arange(m, device=dev).expand(bsz, m))
+    sample_idx = torch.gather(rank_map, 1, draws.reshape(bsz, -1).to(
+        torch.int64)).reshape(draws.shape)
+    s1 = _gather_rows(p1, sample_idx)                     # (B, K, 4, 2)
+    s2 = _gather_rows(p2, sample_idx)
+    homs = hom_from_4pts(s1, s2)                          # (B, K, 3, 3)
+    errs = _reproj_errors(homs, p1[:, None], p2[:, None])  # (B, K, M)
+    inl = (errs < thresh * thresh) & valid[:, None, :]
+    finite = torch.isfinite(homs.reshape(homs.shape[:2] + (9,))).all(-1)
+    counts = torch.where(finite, inl.sum(-1), 0)
+    best = torch.argmax(counts, dim=-1)
+    ar = torch.arange(bsz, device=dev)
+    best_inl = inl[ar, best]
+    hom = refit_homography(p1, p2, best_inl.to(p1.dtype))
+    final_inl = (_reproj_errors(hom, p1, p2) < thresh * thresh) & valid
+    ok = torch.isfinite(hom.reshape(bsz, 9)).all(-1)
+    hom = torch.where(ok[:, None, None], hom, homs[ar, best])
+    final_inl = torch.where(ok[:, None], final_inl, best_inl)
+    return hom, final_inl, final_inl.sum(-1)
+
+
+def random_draws(n_valid, n_iters: int, generator: torch.Generator):
+    """(B, K, 4) uniform ranks in [0, n_valid) from a device generator."""
+    u = torch.rand((n_valid.shape[0], n_iters, 4), generator=generator,
+                   device=n_valid.device)
+    nv = n_valid.to(torch.float32)[:, None, None]
+    return torch.minimum(torch.floor(u * nv).to(torch.int64),
+                         n_valid[:, None, None] - 1)
+
+
+def match_pairs(kpts, desc, valid, pair_a, pair_b, first_pair: int = 0,
+                generator: Optional[torch.Generator] = None,
+                draw_fn: Optional[DrawFn] = None,
+                ratio: float = LOWE_RATIO, n_iters: int = RANSAC_ITERS,
+                thresh: float = RANSAC_THRESH) -> PairMatch:
+    """Match a chunk of ordered pairs: top-2 -> ratio -> RANSAC.
+
+    kpts/desc/valid: (N, K, ...) feature buffers; pair_a/pair_b: (B,)
+    image indices. ``draw_fn(k, n_valid)`` returns pair k's (K, 4) draws
+    (k counts from ``first_pair``); otherwise ``generator`` draws.
+    """
+    best_idx, good = knn2_matches(desc[pair_a], desc[pair_b], valid[pair_a],
+                                  valid[pair_b], ratio)
+    p1 = kpts[pair_a].to(torch.float32)
+    p2 = _gather_rows(kpts[pair_b].to(torch.float32), best_idx)
+    n_good = good.sum(-1)
+    n_valid = torch.clamp(n_good, min=1)
+    if draw_fn is not None:
+        nv = n_valid.tolist()
+        draws = torch.stack([
+            torch.as_tensor(draw_fn(first_pair + j, int(nv[j])))
+            for j in range(len(nv))]).to(p1.device)
+    else:
+        draws = random_draws(n_valid, n_iters, generator)
+    hom, inl, n_inl = ransac_homography(p1, p2, good, draws, thresh)
+    ok = ((n_good >= N_MIN_MATCH)
+          & torch.isfinite(hom.reshape(-1, 9)).all(-1) & (n_inl >= 4))
+    m = p1.shape[1]
+    ar = torch.arange(m, device=p1.device).expand_as(best_idx)
+    idx = torch.stack([ar, best_idx], dim=-1)
+    return PairMatch(idx=idx, inlier=inl & good, hom=hom, n_inliers=n_inl,
+                     ok=ok)
+
+
+__all__ = ["PairMatch", "knn2_matches", "hom_from_4pts", "refit_homography",
+           "ransac_homography", "random_draws", "match_pairs",
+           "LOWE_RATIO", "N_MIN_MATCH", "RANSAC_THRESH", "RANSAC_ITERS"]

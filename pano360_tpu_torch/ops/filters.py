@@ -1,0 +1,114 @@
+"""Separable Gaussian filtering (counterpart of ``pano360_tpu.ops.filters``).
+
+The 1-D correlation is a sum of shifted slices accumulated in ascending
+tap order, exactly as ``pano360_tpu.ops.filters._conv_axis`` does, so
+the two packages round alike. The reflect101 border (cv2's default) is
+built by index folding, which also covers pads wider than the image
+(tiny SIFT octaves), as ``jnp.pad(mode="reflect")`` does.
+
+Layouts: ``(H, W)``, ``(H, W, C)`` or ``(N, H, W, C)``; the two spatial
+axes are filtered.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def gaussian_kernel1d(sigma: float, ksize: int) -> np.ndarray:
+    """cv2.getGaussianKernel taps: built in f64, normalized, cast f32."""
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    return (k / np.sum(k)).astype(np.float32)
+
+
+def auto_ksize(sigma: float, depth8u: bool = False) -> int:
+    """cv2.GaussianBlur's automatic kernel size for ``ksize=(0, 0)``."""
+    return int(round(sigma * (3 if depth8u else 4) * 2 + 1)) | 1
+
+
+def reflect101_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Fold integer indices into [0, n) with cv2.BORDER_REFLECT_101."""
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * n - 2
+    m = torch.remainder(idx, period)
+    return torch.where(m < n, m, period - m)
+
+
+def pad_reflect101(x: torch.Tensor, dim: int, lo: int, hi: int):
+    """Reflect101-pad ``x`` along ``dim`` by (lo, hi), any widths."""
+    n = x.shape[dim]
+    idx = torch.arange(-lo, n + hi, device=x.device)
+    return torch.index_select(x, dim, reflect101_index(idx, n))
+
+
+def conv_axis(img_bhw: torch.Tensor, kernel: torch.Tensor, axis: int):
+    """Correlate (B, H, W) along ``axis`` (1 or 2) with a 1-D f32 kernel,
+    reflect101 border, ascending-tap slice sums."""
+    k = kernel.shape[0]
+    if k == 1:
+        return img_bhw * kernel[0]
+    lo = (k - 1) // 2
+    hi = k - 1 - lo
+    padded = pad_reflect101(img_bhw, axis, lo, hi)
+    n = img_bhw.shape[axis]
+    out = None
+    for i in range(k):
+        term = padded.narrow(axis, i, n) * kernel[i]
+        out = term if out is None else out + term
+    return out
+
+
+def _normalize(img: torch.Tensor):
+    """Any supported layout -> (B, H, W) plus the inverse reshape."""
+    if img.ndim == 2:
+        return img[None], lambda y: y[0]
+    if img.ndim == 3:                  # (H, W, C): channels as batch
+        return img.movedim(-1, 0), lambda y: y.movedim(0, -1)
+    if img.ndim == 4:                  # (N, H, W, C)
+        n, h, w, c = img.shape
+        flat = img.movedim(-1, 1).reshape(n * c, h, w)
+
+        def restore(y):
+            return y.reshape(n, c, y.shape[1], y.shape[2]).movedim(1, -1)
+        return flat, restore
+    raise ValueError(f"unsupported image rank {img.ndim}")
+
+
+def sep_filter2d(img: torch.Tensor, kx, ky) -> torch.Tensor:
+    """Separable 2-D correlation (``ky`` over rows, ``kx`` over cols),
+    reflect101 border."""
+    flat, restore = _normalize(img)
+    kx = torch.as_tensor(kx, dtype=flat.dtype, device=flat.device)
+    ky = torch.as_tensor(ky, dtype=flat.dtype, device=flat.device)
+    return restore(conv_axis(conv_axis(flat, ky, 1), kx, 2))
+
+
+def blur_bhw(img: torch.Tensor, sigma: float, ksize: int) -> torch.Tensor:
+    """Gaussian blur of a (B, H, W) stack over its two trailing axes."""
+    k = torch.as_tensor(gaussian_kernel1d(sigma, ksize), device=img.device)
+    return conv_axis(conv_axis(img, k, 1), k, 2)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float,
+                  ksize: Optional[int] = None) -> torch.Tensor:
+    """cv2.GaussianBlur-compatible separable smoothing, reflect101."""
+    if ksize is None:
+        ksize = auto_ksize(sigma)
+    flat, restore = _normalize(img)
+    return restore(blur_bhw(flat, sigma, ksize))
+
+
+def cv2_sift_ksize(sigma: float) -> int:
+    """cv2 SIFT's GaussianBlur kernel size on float images."""
+    return int(round(sigma * 4 * 2 + 1)) | 1
+
+
+__all__ = ["gaussian_kernel1d", "auto_ksize", "reflect101_index",
+           "pad_reflect101", "conv_axis", "sep_filter2d", "blur_bhw",
+           "gaussian_blur", "cv2_sift_ksize"]

@@ -1,0 +1,343 @@
+"""Panorama registration: traverse + incremental LM bundle adjustment
+(counterpart of ``pano360_tpu.register``).
+
+The best-first heap walk over the match graph runs on the host and fixes
+the order of adds up front (it depends only on match scores). The
+numbers then run as a PyTorch loop on the device: seed each new camera
+from its pair homography, gate its edges by initial RMSE (< 150), run
+the fixed-lambda LM (lambda 5, at most 100 iterations, accept only on a
+1e-3 RMSE gain, stop at the first rejection), then an adaptive-damping
+polish, the median Szeliski-Shum focal and straightening.
+
+Jacobians are written analytically: each edge's homography H(pa, pb)
+has a closed-form derivative (E x 9 x 12 numbers, ``_edge_hom_jac``),
+the per-point derivative of the projected residual w.r.t. H is written
+out, and the normal equations are assembled as dH/dp^T (sum over
+points) dH/dp per edge. (``torch.func.jacfwd`` computes the same numbers
+but measured ~10 s on its first call and ~20 ms a call after that on an
+H100; PERF.md.)
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pano360_tpu_torch import geometry as geo
+
+LM_LAMBDA = 5.0
+LM_MAX_ITER = 100
+LM_MIN_IMPROVE = 1e-3
+MIN_MATCH_ERROR = 150.0
+POLISH_MAX_ITER = 150
+POLISH_MAX_REJECTS = 12
+
+
+@dataclasses.dataclass
+class PanoImage:
+    """Host-side registered image (the BA cache's record)."""
+
+    img: Optional[np.ndarray]
+    rot: np.ndarray
+    intr: np.ndarray
+    range: tuple = (np.zeros(2), np.zeros(2))
+
+    def hom(self) -> np.ndarray:
+        """Pixel -> world-ray homography R^T K^-1."""
+        return self.rot.T.dot(np.linalg.inv(self.intr))
+
+    def proj(self) -> np.ndarray:
+        """World-ray -> pixel projection K R."""
+        return self.intr.dot(self.rot)
+
+
+def _np_exp_so3(rad: np.ndarray) -> np.ndarray:
+    ang = np.linalg.norm(rad)
+    if ang < 1e-12:
+        return np.eye(3)
+    x, y, z = rad / ang
+    cross = np.array([[0.0, -z, y], [z, 0.0, -x], [-y, x, 0.0]])
+    return np.eye(3) + np.sin(ang) * cross + (1 - np.cos(ang)) * cross @ cross
+
+
+def _np_camera_from_params(p: np.ndarray) -> PanoImage:
+    intr = np.array([[p[0], 0, p[1]], [0, p[0], p[2]], [0, 0, 1.0]])
+    return PanoImage(None, _np_exp_so3(p[3:6]), intr)
+
+
+def _edge_hom(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """Homography mapping camera b's pixels into camera a's (batched)."""
+    return geo.hom_to_from(geo.params_to_camera(pa),
+                           geo.params_to_camera(pb))
+
+
+def _exp_so3_jac(rad: torch.Tensor) -> torch.Tensor:
+    """dR/dr_i of ``geo.exp_so3`` = I + a K + b K^2: (..., 3) -> (..., 3
+    [i], 3, 3). With c1 = a'(t)/t and c2 = b'(t)/t,
+    dR_i = c1 r_i K + a [e_i]x + c2 r_i K^2 + b ([e_i]x K + K [e_i]x);
+    below t^2 = 1e-2 the coefficients come from their Taylor series."""
+    t2 = torch.sum(rad * rad, dim=-1)[..., None, None, None]
+    small = t2 < 1e-12
+    series = t2 < 1e-2
+    one = torch.ones_like(t2)
+    t = torch.sqrt(torch.where(small, one, t2))
+    a = torch.where(small, 1.0 - t2 / 6.0, torch.sin(t) / t)
+    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(t)) / t2)
+    safe = torch.where(series, one, t2)
+    c1 = torch.where(series, -1 / 3 + t2 / 30 - t2 * t2 / 840,
+                     (torch.cos(t) - a) / safe)
+    c2 = torch.where(series, -1 / 12 + t2 / 180 - t2 * t2 / 6720,
+                     (a - 2 * b) / safe)
+    k = geo.cross_mat(rad)[..., None, :, :]                   # (..., 1, 3, 3)
+    ei = geo.cross_mat(torch.eye(3, dtype=rad.dtype, device=rad.device))
+    r = rad[..., :, None, None]                               # (..., 3, 1, 1)
+    return (c1 * r * k + a * ei + c2 * r * (k @ k)
+            + b * (ei @ k + k @ ei))
+
+
+def _edge_hom_jac(pa: torch.Tensor, pb: torch.Tensor):
+    """dH/dpa, dH/dpb of ``_edge_hom`` for (E, 6) params: two (E, 9, 6).
+
+    H = K_a R_a R_b^T K_b^-1 with K = [[f, 0, cx], [0, f, cy], [0, 0, 1]];
+    dK/d(f, cx, cy) are constant basis matrices and
+    d(K^-1) = -K^-1 dK K^-1."""
+    ca, cb = geo.params_to_camera(pa), geo.params_to_camera(pb)
+    kb_inv = geo.inv3x3(cb.intr)
+    dev, dt = pa.device, pa.dtype
+    dk = torch.zeros((3, 3, 3), dtype=dt, device=dev)   # d K / d(f, cx, cy)
+    dk[0, 0, 0] = dk[0, 1, 1] = 1.0
+    dk[1, 0, 2] = 1.0
+    dk[2, 1, 2] = 1.0
+    rbt_kbi = cb.rot.transpose(-1, -2) @ kb_inv              # (E, 3, 3)
+    ka_ra = ca.intr @ ca.rot
+    m_a = ca.rot @ rbt_kbi                                    # R_a R_b^T Kb^-1
+    da_k = dk @ m_a[:, None]                                  # (E, 3, 3, 3)
+    da_r = ca.intr[:, None] @ _exp_so3_jac(pa[:, 3:6]) @ rbt_kbi[:, None]
+    ka_ra_rbt = ka_ra @ cb.rot.transpose(-1, -2)
+    db_k = -(ka_ra_rbt @ kb_inv)[:, None] @ dk @ kb_inv[:, None]
+    db_r = (ka_ra[:, None]
+            @ _exp_so3_jac(pb[:, 3:6]).transpose(-1, -2) @ kb_inv[:, None])
+    e = pa.shape[0]
+    ja = torch.cat([da_k, da_r], dim=1).reshape(e, 6, 9).transpose(1, 2)
+    jb = torch.cat([db_k, db_r], dim=1).reshape(e, 6, 9).transpose(1, 2)
+    return ja, jb
+
+
+class Problem:
+    """The bundle-adjustment problem: E edges of M padded match points.
+
+    ``pts`` (E, M, 6): [x_a, y_a, 1, x_b, y_b, 1] per match (camera a =
+    ``cam1``, b = ``cam2``); ``mask`` (E, M) 0/1.
+    """
+
+    def __init__(self, cam1, cam2, pts, mask, n_cams: int):
+        self.cam1, self.cam2, self.pts, self.mask = cam1, cam2, pts, mask
+        eye = torch.eye(n_cams, dtype=pts.dtype, device=pts.device)
+        self.sel1, self.sel2 = eye[cam1], eye[cam2]      # (E, C) one-hot
+
+    def residuals(self, params, mask):
+        """(E, M, 2) masked residuals and the (E, M, 3) projections."""
+        hom = _edge_hom(params[self.cam1], params[self.cam2])
+        u = torch.einsum("eij,emj->emi", hom, self.pts[..., 3:6])
+        z = torch.where(torch.abs(u[..., 2]) > 1e-12, u[..., 2], 1.0)
+        res = (self.pts[..., :2] - u[..., :2] / z[..., None]) * mask[..., None]
+        return res, u, z
+
+    def loss(self, params, mask) -> torch.Tensor:
+        res, _, _ = self.residuals(params, mask)
+        return torch.sqrt(torch.sum(res * res)
+                          / torch.clamp(2.0 * torch.sum(mask), min=1.0))
+
+    def edge_rmse(self, params) -> torch.Tensor:
+        res, _, _ = self.residuals(params, self.mask)
+        sq = torch.sum(res * res, dim=(1, 2))
+        return torch.sqrt(sq / torch.clamp(2.0 * torch.sum(self.mask, 1),
+                                           min=1.0))
+
+    def normal_equations(self, params, mask):
+        """(J^T J (6C, 6C), J^T r (6C,)) of the masked problem."""
+        c = params.shape[0]
+        res, u, z = self.residuals(params, mask)
+        q = self.pts[..., 3:6]
+        guard = (torch.abs(u[..., 2]) > 1e-12).to(q.dtype)
+        e, m = q.shape[:2]
+        # d res_i / d H: -q / z on row i, + u_i q / z^2 on row 2
+        dr = torch.zeros((e, m, 2, 3, 3), dtype=q.dtype, device=q.device)
+        inv_z = (1.0 / z)[..., None]
+        dr[:, :, 0, 0] = -q * inv_z
+        dr[:, :, 1, 1] = -q * inv_z
+        zz = (guard / (z * z))[..., None]
+        dr[:, :, 0, 2] = u[..., 0:1] * q * zz
+        dr[:, :, 1, 2] = u[..., 1:2] * q * zz
+        dr = dr.reshape(e, m, 2, 9) * mask[..., None, None]
+        gram = torch.einsum("emri,emrj->eij", dr, dr)          # (E, 9, 9)
+        grad = torch.einsum("emri,emr->ei", dr, res)           # (E, 9)
+        ja, jb = _edge_hom_jac(params[self.cam1], params[self.cam2])
+        jaa = ja.transpose(1, 2) @ gram @ ja
+        jbb = jb.transpose(1, 2) @ gram @ jb
+        jab = ja.transpose(1, 2) @ gram @ jb
+        ra = (ja.transpose(1, 2) @ grad[..., None])[..., 0]
+        rb = (jb.transpose(1, 2) @ grad[..., None])[..., 0]
+        s1, s2 = self.sel1, self.sel2
+        blocks = (torch.einsum("ea,eb,eij->aibj", s1, s1, jaa)
+                  + torch.einsum("ea,eb,eij->aibj", s2, s2, jbb)
+                  + torch.einsum("ea,eb,eij->aibj", s1, s2, jab)
+                  + torch.einsum("ea,eb,eji->aibj", s2, s1, jab))
+        jtr = (torch.einsum("ea,ei->ai", s1, ra)
+               + torch.einsum("ea,ei->ai", s2, rb))
+        return blocks.reshape(6 * c, 6 * c), jtr.reshape(-1)
+
+
+def _damped_step(jtj, jtr, lam: float, shape):
+    """Jacobi-preconditioned solve of (J^T J + lam I) delta = J^T r."""
+    a = jtj + lam * torch.eye(jtj.shape[0], dtype=jtj.dtype,
+                              device=jtj.device)
+    d = torch.rsqrt(torch.diagonal(a) + 1e-12)
+    # a singular system yields a non-finite step whose loss is rejected,
+    # as jnp.linalg.solve's does in the JAX package
+    delta, _ = torch.linalg.solve_ex(a * d[:, None] * d[None, :], jtr * d)
+    return (delta * d).reshape(shape)
+
+
+def lm_core(params, prob: Problem, mask, max_iter: int = LM_MAX_ITER):
+    """Fixed-lambda LM; with rollback-on-reject the state after the first
+    rejection is frozen, so the loop stops there (the JAX package's
+    ``_lm_core`` schedule). Returns the best params."""
+    best = params
+    best_err = np.float32(prob.loss(params, mask).item())
+    for _ in range(max_iter):
+        jtj, jtr = prob.normal_equations(best, mask)
+        trial = best - _damped_step(jtj, jtr, LM_LAMBDA, best.shape)
+        err = np.float32(prob.loss(trial, mask).item())
+        # f32 threshold arithmetic, as on the device in the JAX package
+        if not err < best_err - np.float32(LM_MIN_IMPROVE):
+            break
+        best, best_err = trial, err
+    return best
+
+
+def lm_polish(params, prob: Problem, mask):
+    """Adaptive-damping LM past the fixed-lambda stop: halve lambda on
+    accept, 4x on reject, stop after 12 consecutive rejects."""
+    best = params
+    best_err = np.float32(prob.loss(params, mask).item())
+    lam = np.float32(LM_LAMBDA)
+    rejects = 0
+    for _ in range(POLISH_MAX_ITER):
+        if rejects >= POLISH_MAX_REJECTS:
+            break
+        jtj, jtr = prob.normal_equations(best, mask)
+        trial = best - _damped_step(jtj, jtr, float(lam), best.shape)
+        err = np.float32(prob.loss(trial, mask).item())
+        if err < best_err:
+            best, best_err = trial, err
+            lam, rejects = lam * np.float32(0.5), 0
+        else:
+            lam, rejects = lam * np.float32(4.0), rejects + 1
+        lam = np.float32(np.clip(lam, np.float32(1e-5), np.float32(1e6)))
+    return best
+
+
+def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
+             use_straighten: bool = True, polish: bool = True,
+             device="cuda") -> List[PanoImage]:
+    """Best-first expansion over the match graph + bundle adjustment.
+
+    ``matches[i][j] = (kpt_pairs (M, 6), hom, n_inliers)`` (the cache's
+    rehydrated form). ``badjust``: ``incr`` (LM after every add),
+    ``last`` (one LM at the end) or ``none``.
+    """
+    if badjust not in ("incr", "last", "none"):
+        raise ValueError(f"badjust {badjust!r}")
+    device = torch.device(device)
+    pair_list = [(i, matches[i][j][1], matches[i][j][2])
+                 for i in matches.keys() for j in matches[i].keys()]
+    if not pair_list:
+        return []
+    ids, homs_all, scores = zip(*pair_list)
+    src = ids[int(np.argmax(scores))]
+
+    placed = {src}
+    adds: List[Tuple[int, int, np.ndarray]] = []
+    edges: List[Tuple[int, int, np.ndarray, int]] = []
+    qq = [(-matches[src][j][2], src, j) for j in matches[src].keys()]
+    heapq.heapify(qq)
+    while qq:
+        _, src_i, dst = heapq.heappop(qq)
+        if dst in placed:
+            continue
+        k = len(adds)
+        adds.append((dst, src_i, matches[src_i][dst][1]))
+        for other in range(len(imgs)):
+            if other in placed and other in matches.get(dst, {}):
+                edges.append((dst, other, matches[dst][other][0], k))
+        placed.add(dst)
+        for new in matches[dst].keys():
+            heapq.heappush(qq, (-matches[dst][new][2], dst, new))
+
+    n = len(imgs)
+    f32 = torch.float32
+    mp = max((m.shape[0] for _, _, m, _ in edges), default=1)
+    ne = max(len(edges), 1)
+    pts = np.zeros((ne, mp, 6), np.float32)
+    pts[..., 2] = 1.0    # benign homogeneous padding
+    pts[..., 5] = 1.0
+    mask = np.zeros((ne, mp), np.float32)
+    cam1 = np.zeros(ne, np.int64)
+    cam2 = np.zeros(ne, np.int64)
+    edge_add = np.full(ne, -1, np.int64)
+    for e, (c1, c2, m, k) in enumerate(edges):
+        cam1[e], cam2[e], edge_add[e] = c1, c2, k
+        pts[e, :len(m)] = m
+        mask[e, :len(m)] = 1.0
+    tt = dict(device=device)
+    prob = Problem(torch.as_tensor(cam1, **tt), torch.as_tensor(cam2, **tt),
+                   torch.as_tensor(pts, **tt), torch.as_tensor(mask, **tt),
+                   n)
+    edge_add_t = torch.as_tensor(edge_add, **tt)
+
+    homs_t = torch.as_tensor(np.stack(homs_all).astype(np.float32), **tt)
+    focal = torch.quantile(geo.focal_from_hom(homs_t), 0.5)
+    intr = geo.intrinsics(focal)
+    kinv = geo.inv3x3(intr)
+    lead = torch.stack([intr[0, 0], intr[0, 2], intr[1, 2]])
+    params = torch.zeros((n, 6), dtype=f32, device=device)
+    params[:, 0] = 1.0
+    params[src] = 0.0
+    params[src, :3] = lead
+    enabled = torch.zeros(ne, dtype=torch.bool, device=device)
+    for k, (dst, src_i, hom) in enumerate(adds):
+        r_src = geo.exp_so3(params[src_i, 3:6])
+        hom_t = torch.as_tensor(np.asarray(hom, np.float32), **tt)
+        r_rel = geo.nearest_rotation(geo.mm(geo.mm(kinv, hom_t), intr))
+        params = params.clone()
+        params[dst] = torch.cat([lead, geo.log_so3(geo.mm(r_rel, r_src))])
+        rmse = prob.edge_rmse(params)
+        enabled = enabled | ((edge_add_t == k) & (rmse < MIN_MATCH_ERROR))
+        if badjust == "incr":
+            params = lm_core(params, prob, prob.mask * enabled[:, None])
+    emask = prob.mask * enabled[:, None]
+    if badjust == "last":
+        params = lm_core(params, prob, emask)
+    if polish and badjust != "none":
+        params = lm_polish(params, prob, emask)
+    placed_idx = torch.as_tensor(sorted(placed), **tt)
+    if use_straighten:
+        rots = geo.exp_so3(params[placed_idx, 3:6])
+        params = params.clone()
+        params[placed_idx, 3:6] = geo.log_so3(geo.straighten(rots))
+    params = params.cpu().numpy().astype(np.float64)
+
+    cameras: List[Optional[PanoImage]] = [None] * n
+    for i in sorted(placed):
+        cam = _np_camera_from_params(params[i])
+        cam.img = imgs[i]
+        cameras[i] = cam
+    return [c for c in cameras if c is not None]
+
+
+__all__ = ["PanoImage", "traverse", "Problem", "lm_core", "lm_polish",
+           "LM_LAMBDA", "LM_MAX_ITER", "MIN_MATCH_ERROR"]

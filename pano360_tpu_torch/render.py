@@ -1,0 +1,412 @@
+"""Rendering: projection extents, layout, hat weights, backward warp,
+blenders (counterpart of ``pano360_tpu.render``, the main path).
+
+The host keeps the small data-dependent pieces (resolution rule, canvas
+and patch-window layout, periodic-seam bookkeeping) in numpy, exactly as
+the JAX package computes them; the device runs the border projection,
+the weights, the warp (``ops.warp_kernel.backward_warp``: the CUDA
+kernel on the card) and the blend. Multiband blends bands from DoGs of
+each patch with sigma = sqrt(2l+1)*4 and sharp argmax-weight seams;
+periodic canvases paste on an x-extended canvas and fold the spilled
+strip back.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pano360_tpu_torch import geometry as geo
+from pano360_tpu_torch.ops.filters import gaussian_blur
+from pano360_tpu_torch.ops.warp_kernel import backward_warp
+from pano360_tpu_torch.register import PanoImage
+
+MAX_RESOLUTION = 1400
+
+
+# ---------------------------------------------------------------------------
+# Projection extents & resolution
+# ---------------------------------------------------------------------------
+
+def _border_points(shape: Tuple[int, int], nel: int) -> np.ndarray:
+    """(4 nel, 3) center-relative border samples, f32 (built in f64)."""
+    h, w = np.float32(shape[0]), np.float32(shape[1])
+    frac = np.linspace(0.0, 1.0, nel)
+    zeros, ones = np.zeros(nel), np.ones(nel)
+    side_x = (frac * w).astype(np.float32)
+    side_y = (frac * h).astype(np.float32)
+    b = np.concatenate([
+        np.stack([zeros, side_y, ones], axis=1),
+        np.stack([np.full(nel, w), side_y, ones], axis=1),
+        np.stack([side_x, zeros, ones], axis=1),
+        np.stack([side_x, np.full(nel, h), ones], axis=1),
+    ]).astype(np.float32)
+    return b - np.array([w / 2, h / 2, 0.0], np.float32)
+
+
+def proj_img_range_border(shape: Tuple[int, int], homs: torch.Tensor,
+                          nel: int = 100) -> torch.Tensor:
+    """Projected extent of the image borders for (N, 3, 3) homs: one
+    (4, N, 2) array [rmin, rmax, uw_min, uw_max], where the ``uw`` pair
+    is the azimuth range unwrapped around each view's center direction
+    (a contiguous interval that may leave [-pi, pi) at the seam)."""
+    homs = homs.to(torch.float32)
+    borders = torch.as_tensor(_border_points(shape, nel), device=homs.device)
+    pts = geo.SphProj.hom2proj(torch.einsum("nij,kj->nki", homs, borders))
+    rmin = pts.min(dim=1).values
+    rmax = pts.max(dim=1).values
+    azc = geo.SphProj.hom2proj(homs[:, :, 2])[:, 0]
+    ax = pts[..., 0]
+    ax_u = azc[:, None] + torch.remainder(ax - azc[:, None] + torch.pi,
+                                          2 * torch.pi) - torch.pi
+    uw_min = torch.stack([ax_u.min(dim=1).values, rmin[:, 1]], dim=-1)
+    uw_max = torch.stack([ax_u.max(dim=1).values, rmax[:, 1]], dim=-1)
+    return torch.stack([rmin, rmax, uw_min, uw_max])
+
+
+def _np_hom2proj(pts: np.ndarray) -> np.ndarray:
+    hypot = np.hypot(pts[..., 0], pts[..., 2])
+    return np.stack([np.arctan2(pts[..., 0], pts[..., 2]),
+                     np.arctan2(pts[..., 1], hypot)], axis=-1)
+
+
+def proj_img_range_corners(shape: Tuple[int, int], hom: np.ndarray):
+    """Corner-based extent with wraparound fix. Host."""
+    height, width = shape
+    pts = np.array([[-width / 2, -height / 2, 1], [width / 2, -height / 2, 1],
+                    [-width / 2, height / 2, 1], [width / 2, height / 2, 1]])
+    pts = _np_hom2proj(pts @ hom.T)
+    xmin = min(pts[0, 0], pts[2, 0])
+    xmax = max(pts[1, 0], pts[3, 0])
+    ymin = min(pts[0, 1], pts[1, 1])
+    ymax = max(pts[2, 1], pts[3, 1])
+    if xmin > xmax:
+        xmax += 2 * np.pi
+    if ymin > ymax:
+        ymax += np.pi
+    return np.array([xmin, ymin]), np.array([xmax, ymax])
+
+
+def estimate_resolution(regions: List[PanoImage],
+                        max_resolution: int = MAX_RESOLUTION):
+    """Output resolution (rad/px) and global range. Host."""
+    min_r = np.min(np.stack([r.range[0] for r in regions]), axis=0)
+    max_r = np.max(np.stack([r.range[1] for r in regions]), axis=0)
+    size = max_r - min_r
+    mid = regions[len(regions) // 2]
+    im_shape = np.array(mid.img.shape[:2][::-1])
+    mid_range = proj_img_range_corners(mid.img.shape[:2], mid.hom())
+    resolution = (mid_range[1] - mid_range[0]) / im_shape
+    max_side = np.max(size / resolution)
+    if max_side > max_resolution:
+        resolution *= max_side / max_resolution
+    return resolution, (min_r, max_r)
+
+
+# ---------------------------------------------------------------------------
+# Weights
+# ---------------------------------------------------------------------------
+
+def hat(size: int, device=None) -> torch.Tensor:
+    """Triangular 0-0.5-0 ramp."""
+    xx = torch.arange(size, dtype=torch.float32, device=device) - size / 2
+    return 0.5 - torch.abs(xx / size)
+
+
+def add_weights(imgs: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 3) BGR [0, 1] -> (N, H, W, 4) with hat-product alpha."""
+    n, h, w, _ = imgs.shape
+    alpha = hat(h, imgs.device)[:, None] * hat(w, imgs.device)[None, :]
+    alpha = alpha.expand(n, h, w)
+    return torch.cat([imgs, alpha[..., None]], dim=-1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Blenders
+# ---------------------------------------------------------------------------
+
+def _ext(shape: Tuple[int, int], period: Optional[int], pw: int):
+    """Paste-canvas shape: x-extended past the full turn when periodic."""
+    if period is None:
+        return shape
+    return (shape[0], max(shape[1], period) + pw)
+
+
+def _windows(bottoms: np.ndarray, ph: int, pw: int):
+    return [(slice(int(y), int(y) + ph), slice(int(x), int(x) + pw))
+            for x, y in np.asarray(bottoms)]
+
+
+def _fold_add(acc: torch.Tensor, shape, period: Optional[int], pw: int):
+    if period is None:
+        return acc
+    out = acc[:, :shape[1]].clone()
+    out[:, :pw] += acc[:, period:period + pw]
+    return out
+
+
+def _to_u8(mosaic: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(mosaic * 255, 0, 255).to(torch.uint8)
+
+
+def blend_none(patches, masks, bottoms, shape, period=None):
+    """Sequential paste without blending (last writer wins)."""
+    n, ph, pw = patches.shape[:3]
+    dev = patches.device
+    acc = torch.zeros(_ext(shape, period, pw) + (4,), device=dev)
+    for k, win in enumerate(_windows(bottoms, ph, pw)):
+        tile = torch.cat([patches[k, ..., :3],
+                          torch.full((ph, pw, 1), k + 1.0, device=dev)], -1)
+        acc[win] = torch.where(masks[k][..., None], acc[win], tile)
+    if period is None:
+        return _to_u8(acc[..., :3])
+    marg = acc[:, period:period + pw]
+    main = acc[:, :shape[1]].clone()
+    take = (marg[..., 3] > main[:, :pw, 3])[..., None]
+    main[:, :pw] = torch.where(take, marg, main[:, :pw])
+    return _to_u8(main[..., :3])
+
+
+def blend_linear(patches, masks, bottoms, shape, period=None):
+    """Alpha-weighted average."""
+    n, ph, pw = patches.shape[:3]
+    acc = torch.zeros(_ext(shape, period, pw) + (4,), device=patches.device)
+    for k, win in enumerate(_windows(bottoms, ph, pw)):
+        p = patches[k]
+        tile = torch.where(masks[k][..., None], 0.0, p[..., :3])
+        acc[win] += torch.cat([tile * p[..., 3:], p[..., 3:]], dim=-1)
+    acc = _fold_add(acc, shape, period, pw)
+    wsum = torch.where(acc[..., 3] == 0, 1.0, acc[..., 3])
+    return _to_u8(acc[..., :3] / wsum[..., None])
+
+
+def blend_multiband(patches, masks, bottoms, shape, n_levels: int = 5,
+                    period: Optional[int] = None):
+    """Multi-band blending with sharp argmax-weight seams."""
+    n, ph, pw = patches.shape[:3]
+    dev = patches.device
+    ext = _ext(shape, period, pw)
+    wins = _windows(bottoms, ph, pw)
+
+    # 1) argmax-weight seam assignment (first writer wins ties)
+    best_w = torch.zeros(ext, device=dev)
+    best_i = torch.full(ext, -1.0, device=dev)
+    for k, win in enumerate(wins):
+        w_new = patches[k, ..., 3]
+        take = w_new > best_w[win]
+        best_w[win] = torch.where(take, w_new, best_w[win])
+        best_i[win] = torch.where(take, float(k), best_i[win])
+    if period is not None:
+        packed = torch.stack([best_w, best_i], dim=-1)
+        marg = packed[:, period:period + pw]
+        folded = packed[:, :shape[1]].clone()
+        take = (marg[..., 0] > folded[:, :pw, 0])[..., None]
+        folded[:, :pw] = torch.where(take, marg, folded[:, :pw])
+        if period > shape[1]:
+            folded = torch.cat([folded, packed[:, shape[1]:period]], dim=1)
+        packed = torch.cat([folded[:, :period],
+                            folded[:, :ext[1] - period]], dim=1)
+        best_i = packed[..., 1]
+    best_i = best_i.to(torch.int32)
+
+    # sharp masks: alpha := (argmax == k)
+    sharp = torch.stack([(best_i[win] == k).to(torch.float32)
+                         for k, win in enumerate(wins)])
+    patches = torch.cat([patches[..., :3], sharp[..., None]], dim=-1)
+
+    # union of valid pixels
+    allmask = torch.zeros(ext, dtype=torch.bool, device=dev)
+    for k, win in enumerate(wins):
+        allmask[win] |= ~masks[k]
+    if period is not None:
+        marg = allmask[:, period:period + pw]
+        allmask = allmask[:, :shape[1]].clone()
+        allmask[:, :pw] |= marg
+
+    mosaic = torch.zeros(shape + (3,), device=dev)
+    prevs = patches
+    for lvl in range(n_levels):
+        sigma = float(np.sqrt(2 * lvl + 1.0) * 4)
+        is_last = lvl == n_levels - 1
+        if not is_last:
+            blurred = gaussian_blur(patches, sigma)
+            tiles_rgb = prevs[..., :3] - blurred[..., :3]
+            tiles_a = blurred[..., 3]
+        else:
+            tiles_rgb = prevs[..., :3]
+            tiles_a = prevs[..., 3]
+        acc = torch.zeros(ext + (4,), device=dev)
+        for k, win in enumerate(wins):
+            acc[win] += torch.cat([tiles_rgb[k] * tiles_a[k][..., None],
+                                   tiles_a[k][..., None]], dim=-1)
+        acc = _fold_add(acc, shape, period, pw)
+        layer = torch.where(allmask[..., None], acc[..., :3], 0.0)
+        wsum = torch.where(acc[..., 3] == 0, 1.0, acc[..., 3])
+        mosaic = mosaic + layer / wsum[..., None]
+        if not is_last:
+            prevs = blurred
+    mosaic = torch.clamp(mosaic, 0.0, 1.0)
+    return (mosaic * 255).to(torch.uint8)
+
+
+BLENDERS = {
+    "none": blend_none,
+    "linear": blend_linear,
+    "multiband": blend_multiband,
+}
+
+
+# ---------------------------------------------------------------------------
+# Layout
+# ---------------------------------------------------------------------------
+
+class MosaicLayout(NamedTuple):
+    """Canvas + patch-window geometry of a render (host-side plan)."""
+
+    shape: Tuple[int, int]      # padded canvas (H, W) for the blenders
+    out_hw: Tuple[int, int]     # true output (H, W) sliced at the end
+    bottoms: np.ndarray         # (N, 2) int patch origins [x, y]
+    wins: np.ndarray            # (N, 4) true windows [lo_x, lo_y, hi_x, hi_y)
+    ph: int
+    pw: int
+    period: Optional[int]       # full-turn width when periodic, else None
+    resolution: np.ndarray      # (2,) rad/px
+    im_range: Tuple[np.ndarray, np.ndarray]
+
+
+def plan_layout(regions: List[PanoImage], ranges: np.ndarray, blender: str,
+                max_resolution: int) -> MosaicLayout:
+    """Canvas shape, patch windows and periodicity for a render: the JAX
+    package's plan (wrapped ranges set the canvas; seam-crossing views
+    take their unwrapped footprint modulo the full-turn width; canvas
+    padded to 64 px and patches to 32 px, the padding masked by ``wins``)."""
+    n = len(regions)
+    rmin, rmax, uw_min, uw_max = np.asarray(ranges, np.float64)
+    resolution, im_range = estimate_resolution(regions, max_resolution)
+    target = (im_range[1] - im_range[0]) / resolution
+    shape = tuple(int(t) for t in np.round(target))[::-1]
+
+    period = int(round(2 * np.pi / resolution[0]))
+    eps = 0.5 * float(resolution[0])
+    crossing = ((uw_min[:, 0] < im_range[0][0] - eps)
+                | (uw_max[:, 0] > im_range[1][0] + eps))
+    use_wrap = bool(crossing.any()) and period + 1 >= shape[1]
+
+    lo_r = np.where(crossing[:, None], uw_min, rmin) if use_wrap else rmin
+    hi_r = np.where(crossing[:, None], uw_max, rmax) if use_wrap else rmax
+    bottoms, tops = [], []
+    for k in range(n):
+        bottom = np.round((lo_r[k] - im_range[0]) / resolution)
+        top = np.round((hi_r[k] - im_range[0]) / resolution)
+        bottom, top = bottom.astype(np.int64), top.astype(np.int64)
+        if blender == "multiband":
+            bottom, top = bottom - 10, top + 10
+            bottom[1] = max(bottom[1], 0)
+            top[1] = min(top[1], int(target[1]))
+            if not use_wrap:
+                bottom[0] = max(bottom[0], 0)
+                top[0] = min(top[0], int(target[0]))
+        bottoms.append(bottom)
+        tops.append(top)
+    bottoms = np.stack(bottoms)
+    tops = np.stack(tops)
+    if use_wrap and int((tops[:, 0] - bottoms[:, 0]).max()) > period:
+        use_wrap = False
+        bottoms = np.round((rmin - im_range[0]) / resolution).astype(np.int64)
+        tops = np.round((rmax - im_range[0]) / resolution).astype(np.int64)
+        if blender == "multiband":
+            bottoms = np.maximum(bottoms - 10, 0)
+            tops = np.minimum(tops + 10, target.astype(np.int64))
+
+    ph = int((tops[:, 1] - bottoms[:, 1]).max())
+    pw = int((tops[:, 0] - bottoms[:, 0]).max())
+    out_hw = shape
+    shape = (-(-shape[0] // 64) * 64, -(-shape[1] // 64) * 64)
+    ph = -(-ph // 32) * 32
+    pw = -(-pw // 32) * 32
+    wins = np.concatenate([bottoms, tops], axis=1)
+    ph, pw = min(ph, shape[0]), min(pw, shape[1])
+    if use_wrap:
+        x0 = bottoms[:, 0] % period
+        shift = x0 - bottoms[:, 0]
+        wins[:, 0] += shift
+        wins[:, 2] += shift
+        bottoms[:, 0] = x0
+    else:
+        bottoms[:, 0] = np.clip(bottoms[:, 0], 0, shape[1] - pw)
+    bottoms[:, 1] = np.clip(bottoms[:, 1], 0, shape[0] - ph)
+    return MosaicLayout(shape, out_hw, bottoms, wins, ph, pw,
+                        period if use_wrap else None, resolution, im_range)
+
+
+# ---------------------------------------------------------------------------
+# Stitch
+# ---------------------------------------------------------------------------
+
+def prepare(regions: List[PanoImage], blender: str,
+            max_resolution: int, device, dev_images=None):
+    """Upload (or reuse) the images, set each region's range and plan the
+    layout: -> (imgs_rgba (N, H, W, 4) f32 on ``device``, layout)."""
+    shapes = {r.img.shape[:2] for r in regions}
+    if len(shapes) != 1:
+        raise NotImplementedError(
+            "mixed image shapes are not ported yet (ROADMAP Queue 1: "
+            "mixed image shapes)")
+    (h, w), = shapes
+    if dev_images is not None and dev_images.shape[0] == len(regions):
+        imgs = dev_images
+    else:
+        imgs = torch.as_tensor(np.stack([r.img for r in regions]),
+                               device=device)
+    if imgs.dtype == torch.uint8:
+        imgs = imgs.to(torch.float32) / 255.0
+    imgs = imgs.to(torch.float32)
+    homs = torch.as_tensor(np.stack([r.hom() for r in regions]),
+                           dtype=torch.float32, device=device)
+    ranges = proj_img_range_border((h, w), homs).cpu().numpy().astype(
+        np.float64)
+    for k, reg in enumerate(regions):
+        reg.range = (ranges[0][k], ranges[1][k])
+    layout = plan_layout(regions, ranges, blender, max_resolution)
+    return add_weights(imgs), layout
+
+
+def stitch(regions: List[PanoImage], blender: str = "multiband",
+           equalize: bool = False, crop: bool = False, dev_images=None,
+           max_resolution: int = MAX_RESOLUTION, device="cuda"
+           ) -> np.ndarray:
+    """Full render: ranges -> layout -> weights -> warp -> blend.
+
+    ``regions[k].img``: uint8 BGR (or float BGR in [0, 1]), one shape.
+    ``dev_images``: the (N, H, W, 3) uint8 stack already on the device.
+    Returns the uint8 BGR mosaic.
+    """
+    if equalize:
+        raise NotImplementedError(
+            "-e/--equalize is not ported yet (ROADMAP Queue 1: equalize)")
+    if crop:
+        raise NotImplementedError(
+            "-c/--crop is not ported yet (ROADMAP Queue 1: crop)")
+    device = torch.device(device)
+    imgs_rgba, layout = prepare(regions, blender, max_resolution, device,
+                                dev_images)
+    projs = np.stack([r.proj() for r in regions])
+    t = dict(dtype=torch.float32, device=device)
+    patches, invalid = backward_warp(
+        imgs_rgba, torch.as_tensor(projs, **t),
+        torch.as_tensor(layout.bottoms, **t),
+        torch.as_tensor(layout.resolution, **t),
+        torch.as_tensor(layout.im_range[0], **t), layout.ph, layout.pw,
+        wins=torch.as_tensor(layout.wins, **t), period=layout.period)
+    mosaic = BLENDERS[blender](patches, invalid, layout.bottoms,
+                               layout.shape, period=layout.period)
+    out_h, out_w = layout.out_hw
+    return mosaic.cpu().numpy()[:out_h, :out_w]
+
+
+__all__ = ["MAX_RESOLUTION", "proj_img_range_border",
+           "proj_img_range_corners", "estimate_resolution", "hat",
+           "add_weights", "MosaicLayout", "plan_layout", "prepare",
+           "blend_none", "blend_linear", "blend_multiband", "BLENDERS",
+           "stitch"]
