@@ -17,7 +17,19 @@ Phases (any failure exits non-zero):
    accuracy against the synthetic ground truth, and a cached re-run;
 6. profile: one more uncached run of the main path under
    ``torch.profiler``: device busy time, the device's idle share, and
-   the device operations that take the most time.
+   the device operations that take the most time;
+7. render options, each path with the kernel counts set to 0 just
+   before it and read just after:
+   B. ``-e -c --warp pallas`` on the bench views at known per-view
+      exposures (cold and warm, uncached): 15 of 15 placed, the
+      recovered gain ratios of adjacent views, the mip plan (``ok``,
+      at least 2 levels), kernel 3 (mip-sampled warp) vs its plain
+      version at that plan and its crop rectangle against the plain
+      warp's, the native crop library loaded;
+   C. ``--max-resolution 4000`` from phase 5's caches: a mosaic wider
+      than 1400 px;
+   D. ``--projection cylindrical -c`` from the same caches, and kernel 2
+      vs its plain version in cylindrical mode at D's layout.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -36,6 +48,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BENCH_VIEWS, BENCH_SHAPE, BENCH_OVERLAP, BENCH_SEED = 15, (864, 1152), 0.45, 42
 REPS = 5
+# phase 7 B: per-view exposure factors, and the bound on
+# max |log(g_i a_i / (g_j a_j))| over adjacent views. The JAX package's
+# estimate_gains reaches 0.0032 and 0.0020 on this world with the true
+# cameras at 216x288 and 432x576 (CPU); the bound is a few times above.
+EXPOSURE = np.random.default_rng(BENCH_SEED).uniform(0.7, 1.0, BENCH_VIEWS)
+GAIN_LOG_BOUND = 0.01
+CROP_SLACK_PX = 3
 
 
 def fail(msg: str):
@@ -90,10 +109,11 @@ def alternate(plain, kernel, reps: int = REPS):
 
 
 def bench_dataset(synth):
+    """-> (float BGR views, their uint8 cast, rotations, focal)."""
     imgs, rots, focal = synth.make_views(
         n_views=BENCH_VIEWS, shape=BENCH_SHAPE, overlap=BENCH_OVERLAP,
         seed=BENCH_SEED)
-    return [(im * 255).astype(np.uint8) for im in imgs], rots, focal
+    return imgs, [(im * 255).astype(np.uint8) for im in imgs], rots, focal
 
 
 def phase_octave(torch, u8):
@@ -158,22 +178,11 @@ def phase_octave(torch, u8):
                 ms=t_kernel, plain_ms=t_plain, shapes=n_shapes)
 
 
-def phase_warp(torch, u8, rots, focal):
-    from pano360_tpu_torch import render
-    from pano360_tpu_torch.ops import warp_kernel as W
-    from pano360_tpu_torch.register import PanoImage
-    intr = np.diag([focal, focal, 1.0])
-    regions = [PanoImage(im, r, intr.copy()) for im, r in zip(u8, rots)]
-    rgba, lay = render.prepare(regions, "multiband", render.MAX_RESOLUTION,
-                               torch.device("cuda"))
-    t = dict(dtype=torch.float32, device="cuda")
-    args = (rgba, torch.as_tensor(np.stack([r.proj() for r in regions]), **t),
-            torch.as_tensor(lay.bottoms, **t),
-            torch.as_tensor(lay.resolution, **t),
-            torch.as_tensor(lay.im_range[0], **t), lay.ph, lay.pw)
-    kw = dict(wins=torch.as_tensor(lay.wins, **t), period=lay.period)
-    kp, ki = W.backward_warp(*args, **kw)
-    rp, ri = W.backward_warp_ref(*args, **kw)
+def hold_warp(torch, name, kp, ki, rp, ri, invalid_rgb=False):
+    """Gates of a warp kernel against its plain version: mask flips only
+    on the plain mask's boundary and at most 1e-4 of the pixels, patches
+    within 1e-4 where both are valid (and, with ``invalid_rgb``, the RGB
+    where both are invalid), alpha 0 on invalid pixels. -> max |d|."""
     torch.cuda.synchronize()
     diff = ki != ri
     n_diff = int(diff.sum())
@@ -186,19 +195,56 @@ def phase_warp(torch, u8, rots, focal):
     n_inner = int((diff & ~edge).sum())
     both = ~ki & ~ri
     err = float((kp - rp)[both].abs().max())
+    if invalid_rgb and bool((ki & ri).any()):
+        err = max(err, float((kp - rp)[ki & ri][:, :3].abs().max()))
     alpha_bad = float(kp[..., 3][ki].abs().max()) if bool(ki.any()) else 0.0
-    log(f"  layout: {len(regions)} patches of {lay.ph}x{lay.pw}, canvas "
-        f"{lay.shape}, period {lay.period}")
     log(f"  mask flips {n_diff} of {ki.numel()} (off the boundary "
         f"{n_inner}); patch max|d| {err:.3g}; alpha on invalid {alpha_bad}")
     check(n_diff <= 1e-4 * ki.numel() and n_inner == 0,
-          f"backward_warp: {n_diff} mask flips ({n_inner} off the boundary)")
-    check(err <= 1e-4, f"backward_warp: patches differ by {err}")
-    check(alpha_bad == 0.0, "backward_warp: alpha nonzero on invalid pixels")
+          f"{name}: {n_diff} mask flips ({n_inner} off the boundary)")
+    check(err <= 1e-4, f"{name}: patches differ by {err}")
+    check(alpha_bad == 0.0, f"{name}: alpha nonzero on invalid pixels")
+    return err
+
+
+def warp_args(torch, render, regions, projection, max_resolution):
+    """The exact warp's arguments at a render layout on the card."""
+    from pano360_tpu_torch import geometry
+    proj = geometry.PROJECTIONS[projection]
+    rgba, lay = render.prepare(regions, "multiband", max_resolution,
+                               torch.device("cuda"), projection=proj)
+    t = dict(dtype=torch.float32, device="cuda")
+    args = (rgba, torch.as_tensor(np.stack([r.proj() for r in regions]), **t),
+            torch.as_tensor(lay.bottoms, **t),
+            torch.as_tensor(lay.resolution, **t),
+            torch.as_tensor(lay.im_range[0], **t), lay.ph, lay.pw)
+    kw = dict(wins=torch.as_tensor(lay.wins, **t), period=lay.period,
+              cylindrical=proj is geometry.CylProj)
+    log(f"  layout ({projection}): {len(regions)} patches of "
+        f"{lay.ph}x{lay.pw}, canvas {lay.shape}, period {lay.period}")
+    return args, kw, lay
+
+
+def hold_exact_warp(torch, regions, projection="spherical"):
+    """Kernel 2 vs its plain version at a render layout, timed in turns."""
+    from pano360_tpu_torch import render
+    from pano360_tpu_torch.ops import warp_kernel as W
+    args, kw, _ = warp_args(torch, render, regions, projection,
+                            render.MAX_RESOLUTION)
+    kp, ki = W.backward_warp(*args, **kw)
+    rp, ri = W.backward_warp_ref(*args, **kw)
+    err = hold_warp(torch, "backward_warp", kp, ki, rp, ri)
     tk, tp = alternate(lambda: W.backward_warp_ref(*args, **kw),
                        lambda: W.backward_warp(*args, **kw))
     log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms")
     return dict(max_abs_err=err, ms=tk, plain_ms=tp)
+
+
+def phase_warp(torch, u8, rots, focal):
+    from pano360_tpu_torch.register import PanoImage
+    intr = np.diag([focal, focal, 1.0])
+    regions = [PanoImage(im, r, intr.copy()) for im, r in zip(u8, rots)]
+    return hold_exact_warp(torch, regions)
 
 
 def rel_rot_errors_deg(regs, rots):
@@ -215,6 +261,7 @@ def phase_slice(torch, u8, rots, focal):
     from pano360_tpu_torch import cli
     from pano360_tpu_torch.ops import gauss_octave as G
     from pano360_tpu_torch.ops import warp_kernel as W
+    from pano360_tpu_torch.ops import warp_mip as M
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     runs = {}
     launches = None
@@ -228,7 +275,7 @@ def phase_slice(torch, u8, rots, focal):
         timer = cli.StageTimer()
         torch.cuda.reset_peak_memory_stats()
         if label == "cold":
-            G.launches = W.launches = 0
+            G.launches = W.launches = M.launches = 0
         t0 = time.time()
         mosaic = cli.run_images(u8, args, "bench_s1.0", timer)
         torch.cuda.synchronize()
@@ -237,6 +284,7 @@ def phase_slice(torch, u8, rots, focal):
         if label == "cold":
             launches = {"octave_stack": G.launches,
                         "backward_warp": W.launches}
+            check(M.launches == 0, "the default path took the mip warp")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         stages = {k: round(v, 4) for k, v in timer.stages.items()}
         log(f"  {label} run: {total:.3f} s; stages {stages}; peak device "
@@ -265,7 +313,142 @@ def phase_slice(torch, u8, rots, focal):
     again = cli.run_images(u8, args, "bench_s1.0")
     check(np.array_equal(again, mosaic), "cached re-run differs")
     log(f"  mosaic {mosaic.shape}; cached re-run identical")
-    return launches, walls["warm"]
+    return launches, walls["warm"], args.cache_dir
+
+
+def run_cli(torch, imgs, flags, cache, label):
+    """One ``cli.run_images`` with every kernel count set to 0 just
+    before it: -> (mosaic, {kernel: launches}, seconds)."""
+    from pano360_tpu_torch import cli
+    from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops import warp_kernel as W
+    from pano360_tpu_torch.ops import warp_mip as M
+    args = cli.build_parser().parse_args([cache, *flags, "--cache-dir",
+                                          cache])
+    timer = cli.StageTimer()
+    G.launches = W.launches = M.launches = 0
+    t0 = time.time()
+    mosaic = cli.run_images(imgs, args, "bench_s1.0", timer)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"octave_stack": G.launches, "backward_warp": W.launches,
+                "backward_warp_mip": M.launches}
+    stages = {k: round(v, 4) for k, v in timer.stages.items()}
+    log(f"  {label}: {' '.join(flags)}: {wall:.3f} s; stages {stages}; "
+        f"launches {launches}; mosaic {mosaic.shape}")
+    check(mosaic.dtype == np.uint8 and mosaic.ndim == 3
+          and mosaic.shape[2] == 3 and min(mosaic.shape[:2]) > 0
+          and mosaic.any(), f"{label}: mosaic {mosaic.shape} {mosaic.dtype}")
+    return mosaic, launches, wall
+
+
+def crop_rect(render, native, invalid, lay):
+    """The crop's valid canvas and its largest rectangle (top, left,
+    bottom, right), as ``render.stitch`` computes them."""
+    valid = render._crop_valid(invalid.cpu().numpy(), lay.bottoms, lay.ph,
+                               lay.pw, lay.shape, lay.period)
+    valid = valid[:lay.out_hw[0], :lay.out_hw[1]]
+    return valid, np.array(native.largest_rectangle(valid))
+
+
+def phase_options_b(torch, imgs_f):
+    """B: -e -c --warp pallas on the bench views at known exposures."""
+    from pano360_tpu_torch import cli, render
+    from pano360_tpu_torch._host import native
+    from pano360_tpu_torch.ops import warp_mip as M
+    u8 = [(im * a * 255).astype(np.uint8) for im, a in zip(imgs_f, EXPOSURE)]
+    flags = ["-s", "1", "--ba", "incr", "-b", "multiband", "-e", "-c",
+             "--warp", "pallas"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_b_")
+    for label in ("cold", "warm"):
+        cache = os.path.join(work, label)
+        os.makedirs(cache)
+        mosaic, launches, _ = run_cli(torch, u8, flags, cache,
+                                      f"B {label}")
+        if label == "cold":
+            cold_launches = launches
+            check(launches["octave_stack"] > 0
+                  and launches["backward_warp_mip"] > 0,
+                  f"B did not launch the octave and mip kernels: {launches}")
+    regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
+    check(len(regs) == BENCH_VIEWS, f"B: {len(regs)} of {BENCH_VIEWS} placed")
+
+    # the gains stitch computed, recomputed from the same registration
+    args, kw, lay = warp_args(torch, render, regs, "spherical",
+                              render.MAX_RESOLUTION)
+    gains = render.estimate_gains(regs, args[0])
+    ga = gains * EXPOSURE
+    log_ratio = np.abs(np.log(ga[:-1] / ga[1:]))
+    log(f"  gains {np.round(gains, 4).tolist()}; adjacent "
+        f"|log(g_i a_i / g_j a_j)| max {log_ratio.max():.5f} mean "
+        f"{log_ratio.mean():.5f} (bound {GAIN_LOG_BOUND})")
+    check(log_ratio.max() <= GAIN_LOG_BOUND,
+          f"B: gain ratios off by {log_ratio.max()}")
+
+    rgba = render.apply_gains(args[0], gains)
+    hw = tuple(rgba.shape[1:3])
+    projs = np.stack([r.proj() for r in regs])
+    origins, ok, wy, wx, nl = M.plan_windows(
+        projs, lay.bottoms, lay.resolution, lay.im_range[0], hw, lay.ph,
+        lay.pw, period=lay.period)
+    levels = np.bincount(origins[..., 2].ravel(), minlength=nl).tolist()
+    log(f"  mip plan: ok {ok}, window {wy}x{wx}, {nl} levels, tiles per "
+        f"level {levels}")
+    check(ok and nl >= 2, f"B: the mip plan has ok {ok}, {nl} levels")
+    mips = M.build_mips(rgba, nl, wy, wx)
+    margs = (mips, *args[1:5], origins, lay.ph, lay.pw, wy, wx, hw)
+    mkw = dict(wins=kw["wins"], period=lay.period)
+    kp, ki = M.backward_warp_mip(*margs, **mkw)
+    rp, ri = M.backward_warp_mip_ref(*margs, **mkw)
+    err = hold_warp(torch, "backward_warp_mip", kp, ki, rp, ri,
+                    invalid_rgb=True)
+    tk, tp = alternate(lambda: M.backward_warp_mip_ref(*margs, **mkw),
+                       lambda: M.backward_warp_mip(*margs, **mkw))
+    log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms")
+
+    valid, rect = crop_rect(render, native, ki, lay)
+    _, rect_plain = crop_rect(render, native, ri, lay)
+    top, left, bottom, right = rect
+    log(f"  crop rectangle {rect.tolist()} (plain warp's "
+        f"{rect_plain.tolist()}); native library loaded: "
+        f"{native._build() is not None}")
+    check(native._build() is not None, "B: the native crop library did not "
+          "load (g++ build failed?)")
+    check(mosaic.shape[:2] == (bottom - top + 1, right - left + 1),
+          f"B: cropped mosaic {mosaic.shape} is not the rectangle {rect}")
+    check(valid[top:bottom + 1, left:right + 1].all(),
+          "B: the crop leaves the valid mask")
+    check(np.abs(rect - rect_plain).max() <= CROP_SLACK_PX,
+          f"B: crop {rect} vs the plain warp's {rect_plain}")
+    return dict(max_abs_err=err, ms=tk, plain_ms=tp,
+                launches=cold_launches["backward_warp_mip"])
+
+
+def phase_options(torch, imgs_f, cache5):
+    """Phase 7: B, then C and D from phase 5's caches."""
+    from pano360_tpu_torch import cli, render
+    from pano360_tpu_torch import geometry
+    k3 = phase_options_b(torch, imgs_f)
+    u8 = [(im * 255).astype(np.uint8) for im in imgs_f]
+    base = ["-s", "1", "--ba", "incr", "-b", "multiband"]
+    mosaic, launches, _ = run_cli(torch, u8,
+                                  base + ["--max-resolution", "4000"],
+                                  cache5, "C")
+    check(launches["backward_warp"] > 0, f"C: launches {launches}")
+    check(mosaic.shape[1] > 1400, f"C: mosaic {mosaic.shape} not > 1400")
+
+    mosaic, launches, _ = run_cli(
+        torch, u8, base + ["--projection", "cylindrical", "-c"], cache5, "D")
+    check(launches["backward_warp"] > 0, f"D: launches {launches}")
+    regs = cli.load_ba_cache(os.path.join(cache5, "ba_bench_s1.0.pkl"))
+    _, lay = render.prepare(regs, "multiband", render.MAX_RESOLUTION,
+                            torch.device("cuda"),
+                            projection=geometry.CylProj)
+    check(mosaic.shape[0] <= lay.out_hw[0] and mosaic.shape[1]
+          <= lay.out_hw[1], f"D: crop {mosaic.shape} exceeds {lay.out_hw}")
+    log("  D: kernel 2 vs plain in cylindrical mode at D's layout")
+    k2c = hold_exact_warp(torch, regs, "cylindrical")
+    return k3, k2c
 
 
 def busy_us(intervals) -> float:
@@ -331,20 +514,22 @@ def main():
 
     log("phase 2: build")
     t0 = time.time()
-    lib_path = _kernels.build()
+    libs = _kernels.build()
     _kernels.lib()
-    log(f"  built {os.path.relpath(lib_path, ROOT)} in "
-        f"{time.time() - t0:.1f} s")
+    log(f"  built {', '.join(os.path.relpath(p, ROOT) for p in libs.values())}"
+        f" in {time.time() - t0:.1f} s (one nvcc per source, in parallel)")
 
-    u8, rots, focal = bench_dataset(synth)
+    imgs_f, u8, rots, focal = bench_dataset(synth)
     log("phase 3: octave_stack kernel vs plain")
     k1 = phase_octave(torch, u8)
     log("phase 4: backward_warp kernel vs plain")
     k2 = phase_warp(torch, u8, rots, focal)
     log("phase 5: CLI main path on the bench dataset")
-    launches, warm_s = phase_slice(torch, u8, rots, focal)
+    launches, warm_s, cache5 = phase_slice(torch, u8, rots, focal)
     log("phase 6: profile of one more main-path run")
     phase_profile(torch, u8, warm_s)
+    log("phase 7: render options")
+    k3, k2c = phase_options(torch, imgs_f, cache5)
 
     kernels = [
         dict(name="octave_stack", route="cuda",
@@ -357,8 +542,13 @@ def main():
              source="pano360_tpu_torch/csrc/backward_warp.cu",
              replaces="pano360_tpu/ops/pallas_warp.py:398",
              launches=launches["backward_warp"],
-             max_abs_err=k2["max_abs_err"], ms=k2["ms"],
-             plain_ms=k2["plain_ms"]),
+             max_abs_err=max(k2["max_abs_err"], k2c["max_abs_err"]),
+             ms=k2["ms"], plain_ms=k2["plain_ms"]),
+        dict(name="backward_warp_mip", route="cuda",
+             source="pano360_tpu_torch/csrc/backward_warp_mip.cu",
+             replaces="pano360_tpu/ops/pallas_warp.py:398 (n_levels > 1)",
+             launches=k3["launches"], max_abs_err=k3["max_abs_err"],
+             ms=k3["ms"], plain_ms=k3["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -4,9 +4,11 @@ A port of ``pano360_tpu`` (JAX/XLA/Pallas) to PyTorch, for one NVIDIA
 H100. Module names mirror the JAX package so each counterpart is easy to
 find; public functions keep the JAX layouts ((N, H, W[, C]) images,
 (N, 3, 3) cameras) so the two packages can be held against each other
-on the same inputs. The two Pallas kernels of the JAX package are CUDA
-kernels here (``csrc/``), each with a plain PyTorch version beside it
-(``ops/gauss_octave.py``, ``ops/warp_kernel.py``).
+on the same inputs. The JAX package's Pallas kernels are CUDA kernels
+here (``csrc/``): the SIFT octave stack, and the backward warp as an
+exact kernel and a mip-sampled one (``--warp pallas``), each with a
+plain PyTorch version beside it (``ops/gauss_octave.py``,
+``ops/warp_kernel.py``, ``ops/warp_mip.py``).
 
 Precision policy: float32 on the device, with TF32 off for matrix
 products and convolutions (the JAX code pins HIGHEST precision in its

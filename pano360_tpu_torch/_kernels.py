@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` into one shared
+Each source is compiled at first use with ``nvcc`` into its own shared
 library with a plain C interface, loaded through ``ctypes`` (no PyTorch
-headers, so the build takes seconds). The library is cached under
-``build/kernels/`` at the repository root and rebuilt when the sources
-change (a content hash names the file).
+headers, so a build takes seconds); the ``nvcc`` processes of all sources
+run at once. The libraries are cached under ``build/kernels/`` at the
+repository root and rebuilt when their source, the shared headers
+(``csrc/*.cuh``) or the flags change (a content hash names each file).
 
 Each C entry point takes raw device pointers, sizes and the CUDA stream
 and returns ``cudaGetLastError()`` after its launch; ``check`` turns a
@@ -18,12 +19,12 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-LIB_NAME = "libpano360_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -33,20 +34,33 @@ NVCC_FLAGS = [
 ]
 
 _LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[types.SimpleNamespace] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# entry points by source file (csrc/<stem>.cu)
 _SIGNATURES = {
-    # base, gauss, dog, score, n, h, w, taps(host), ksizes(host), n_lay,
-    # thresh, edge_r, border, stream
-    "p360_octave_stack": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
-                          _F, _F, _I, _P],
-    # imgs, projs, bottoms, wins, patches, invalid, n, h, w, ph, pw,
-    # res_x, res_y, rmin_x, rmin_y, period, stream
-    "p360_backward_warp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _F, _F, _F, _F, _I, _P],
+    "gauss_octave": {
+        # base, gauss, dog, score, n, h, w, taps(host), ksizes(host),
+        # n_lay, thresh, edge_r, border, stream
+        "p360_octave_stack": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I,
+                              _F, _F, _I, _P],
+    },
+    "backward_warp": {
+        # imgs, projs, bottoms, wins, patches, invalid, n, h, w, ph, pw,
+        # res_x, res_y, rmin_x, rmin_y, period, cylindrical, stream
+        "p360_backward_warp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _F, _F, _F, _F, _I, _I, _P],
+    },
+    "backward_warp_mip": {
+        # level_ptrs(host), level_dims(host), n_levels, origins, projs,
+        # bottoms, wins, patches, invalid, n, h, w, ph, pw, win_y, win_x,
+        # res_x, res_y, rmin_x, rmin_y, period, cylindrical, stream
+        "p360_backward_warp_mip": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I,
+                                   _F, _F, _F, _F, _I, _I, _P],
+    },
 }
 
 
@@ -62,47 +76,65 @@ def _nvcc() -> str:
     return found
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def library_path() -> Path:
+def library_path(stem: str) -> Path:
+    """The cached library of ``csrc/<stem>.cu`` (named by content hash)."""
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in [CSRC / f"{stem}.cu"] + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{LIB_NAME}_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libp360_{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` into the cached shared library (if stale)."""
-    out = library_path()
-    if out.exists():
+def build() -> Dict[str, Path]:
+    """Compile every stale ``csrc/*.cu`` into its cached library, all
+    ``nvcc`` processes at once; -> {stem: library path}."""
+    out = {stem: library_path(stem) for stem in _SIGNATURES}
+    stale = {stem: p for stem, p in out.items() if not p.exists()}
+    if not stale:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    procs: List = []
+    try:
+        for stem, path in stale.items():
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+            procs.append((cmd, tmp, path, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        errors = []
+        for cmd, tmp, path, proc in procs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+            else:
+                os.replace(tmp, path)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if errors:
+        raise RuntimeError("\n".join(errors))
     return out
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def lib() -> types.SimpleNamespace:
+    """Every kernel entry point by name (libraries built on first call)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _LIB = handle
+            fns = {}
+            for stem, path in build().items():
+                handle = ctypes.CDLL(str(path))
+                for name, argtypes in _SIGNATURES[stem].items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+            _LIB = types.SimpleNamespace(**fns)
         return _LIB
 
 

@@ -65,10 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["spherical", "cylindrical"],
                         help="output projection surface.")
     parser.add_argument("--warp", default="auto",
-                        choices=["auto", "pallas", "xla"],
+                        choices=list(render.WARP_POLICIES),
                         help="warp policy: auto and xla run the exact "
-                             "backward-warp kernel; pallas (mip-sampled "
-                             "under minification) is not ported yet.")
+                             "backward-warp kernel; pallas runs the "
+                             "mip-sampled kernel (anti-aliased under "
+                             "minification).")
     parser.add_argument("--mesh", type=int, default=0,
                         help="multi-device sharding (not ported yet).")
     parser.add_argument("--show", action="store_true",
@@ -85,18 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _NOT_PORTED = [
-    (lambda a: a.equalize, "-e/--equalize", "ROADMAP Queue 1: equalize"),
-    (lambda a: a.crop, "-c/--crop", "ROADMAP Queue 1: crop"),
     (lambda a: a.detector == "msop", "--detector msop",
      "ROADMAP Queue 1: MSOP"),
-    (lambda a: a.projection == "cylindrical", "--projection cylindrical",
-     "ROADMAP Queue 1: cylindrical projection"),
     (lambda a: a.mesh and a.mesh > 1, "--mesh", "ROADMAP Queue 1: parallel/"),
-    (lambda a: a.warp == "pallas", "--warp pallas (mip-level warp path)",
-     "ROADMAP Queue 1: the forced mip-level warp path"),
-    (lambda a: a.max_resolution > render.MAX_RESOLUTION,
-     f"--max-resolution beyond {render.MAX_RESOLUTION}",
-     "ROADMAP Queue 1: --max-resolution beyond 1400"),
 ]
 
 
@@ -188,8 +180,10 @@ def run_images(imgs: List[np.ndarray], args, name: str,
             "overlapping views with enough texture)")
     with timer.stage("Built mosaic"):
         mosaic = render.stitch(regions, blender=args.blend,
+                               equalize=args.equalize, crop=args.crop,
                                dev_images=dev_images,
                                max_resolution=args.max_resolution,
+                               warp=args.warp, projection=args.projection,
                                device=device)
     return mosaic
 

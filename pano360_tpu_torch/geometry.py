@@ -147,6 +147,25 @@ class SphProj:
                             torch.cos(pts[..., 0])], dim=-1)
 
 
+class CylProj:
+    """Forward/backward cylindrical projection, batched: the middle ray
+    coordinate is the height itself instead of ``tan`` of an angle."""
+
+    @staticmethod
+    def hom2proj(pts: torch.Tensor) -> torch.Tensor:
+        hypot = torch.sqrt(pts[..., 0] ** 2 + pts[..., 2] ** 2)
+        return torch.stack([torch.atan2(pts[..., 0], pts[..., 2]),
+                            pts[..., 1] / hypot], dim=-1)
+
+    @staticmethod
+    def proj2hom(pts: torch.Tensor) -> torch.Tensor:
+        return torch.stack([torch.sin(pts[..., 0]), pts[..., 1],
+                            torch.cos(pts[..., 0])], dim=-1)
+
+
+PROJECTIONS = {"spherical": SphProj, "cylindrical": CylProj}
+
+
 def _focal_from_two(v1, v2, d1, d2):
     swap = v1 < v2
     hi = torch.where(swap, v2, v1)
@@ -218,6 +237,6 @@ def straighten(rots: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "Camera", "cam_hom", "cam_proj", "hom_to_from", "intrinsics",
     "cross_mat", "exp_so3", "log_so3", "nearest_rotation", "SphProj",
-    "focal_from_hom", "params_to_camera",
+    "CylProj", "PROJECTIONS", "focal_from_hom", "params_to_camera",
     "camera_to_params", "straighten", "det3x3", "inv3x3",
 ]

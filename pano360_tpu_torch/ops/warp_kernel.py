@@ -1,4 +1,5 @@
-"""Backward warp of every region into its mosaic patch.
+"""Backward warp of every region into its mosaic patch, exact bilinear
+sampling, spherical or cylindrical.
 
 Counterpart of ``pano360_tpu.ops.pallas_warp.pallas_backward_warp`` at
 mip level 0, which computes ``pano360_tpu.render.backward_warp_all``.
@@ -14,7 +15,7 @@ from typing import Optional
 import torch
 
 from pano360_tpu_torch import _kernels
-from pano360_tpu_torch.geometry import SphProj
+from pano360_tpu_torch.geometry import CylProj, SphProj
 from pano360_tpu_torch.ops.warp import reflect_index, safe_floor
 
 launches = 0           # CUDA kernel launches (main-path evidence)
@@ -25,18 +26,12 @@ def _default_wins(n: int, device) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
-def backward_warp_ref(imgs, projs, bottoms, resolution, range_min,
-                      ph: int, pw: int, wins=None,
-                      period: Optional[int] = None):
-    """Plain PyTorch version. imgs: (N, H, W, 4) f32; projs: (N, 3, 3)
-    = K R; bottoms: (N, 2) patch origins [x, y]; resolution/range_min:
-    (2,); wins: optional (N, 4) [lo_x, lo_y, hi_x, hi_y) true windows;
-    period: full-turn width of a periodic canvas. Returns
-    (patches (N, ph, pw, 4), invalid (N, ph, pw) bool)."""
-    n, h, w, c = imgs.shape
-    dev = imgs.device
-    if wins is None:
-        wins = _default_wins(n, dev)
+def mosaic_coords(bottoms, resolution, range_min, ph: int, pw: int,
+                  period: Optional[int] = None):
+    """Mosaic pixel coordinates of every patch pixel and their
+    (azimuth, height) angles: -> px, py, xs, ys, each (N, ph, pw).
+    Columns past a periodic seam take their final column's azimuth."""
+    dev = bottoms.device
     bottoms = bottoms.to(torch.float32)
     y_i, x_i = torch.meshgrid(
         torch.arange(ph, dtype=torch.float32, device=dev),
@@ -46,17 +41,47 @@ def backward_warp_ref(imgs, projs, bottoms, resolution, range_min,
     px_s = px if period is None else px - period * (px >= period)
     xs = px_s * resolution[0] + range_min[0]
     ys = py * resolution[1] + range_min[1]
-    rays = SphProj.proj2hom(torch.stack([xs, ys], dim=-1))  # (N, ph, pw, 3)
+    return px, py, xs, ys
+
+
+def project_rays(projs, xs, ys, cylindrical: bool = False):
+    """K R times the spherical (or cylindrical) rays of angles (xs, ys):
+    -> (u, v, z), each (N, ph, pw)."""
+    proj = CylProj if cylindrical else SphProj
+    rays = proj.proj2hom(torch.stack([xs, ys], dim=-1))     # (N, ph, pw, 3)
     p = projs.to(torch.float32)[:, None, None]              # (N, 1, 1, 3, 3)
-    xx = [p[..., i, 0] * rays[..., 0] + p[..., i, 1] * rays[..., 1]
-          + p[..., i, 2] * rays[..., 2] for i in range(3)]
-    mask = xx[2] < 0
-    x_pr = xx[0] / xx[2] + w / 2
-    y_pr = xx[1] / xx[2] + h / 2
-    mask |= (x_pr < 0) | (x_pr > w - 1) | (y_pr < 0) | (y_pr > h - 1)
+    return [p[..., i, 0] * rays[..., 0] + p[..., i, 1] * rays[..., 1]
+            + p[..., i, 2] * rays[..., 2] for i in range(3)]
+
+
+def outside_windows(wins, px, py):
+    """Pixels outside each region's true window [lo_x, lo_y, hi_x, hi_y)."""
     wn = wins.to(torch.float32)[:, :, None, None]
-    mask |= (px < wn[:, 0]) | (py < wn[:, 1]) | (px >= wn[:, 2]) | \
+    return (px < wn[:, 0]) | (py < wn[:, 1]) | (px >= wn[:, 2]) | \
         (py >= wn[:, 3])
+
+
+def backward_warp_ref(imgs, projs, bottoms, resolution, range_min,
+                      ph: int, pw: int, wins=None,
+                      period: Optional[int] = None,
+                      cylindrical: bool = False):
+    """Plain PyTorch version. imgs: (N, H, W, 4) f32; projs: (N, 3, 3)
+    = K R; bottoms: (N, 2) patch origins [x, y]; resolution/range_min:
+    (2,); wins: optional (N, 4) [lo_x, lo_y, hi_x, hi_y) true windows;
+    period: full-turn width of a periodic canvas; cylindrical: the
+    cylindrical projection instead of the spherical one. Returns
+    (patches (N, ph, pw, 4), invalid (N, ph, pw) bool)."""
+    n, h, w, c = imgs.shape
+    if wins is None:
+        wins = _default_wins(n, imgs.device)
+    px, py, xs, ys = mosaic_coords(bottoms, resolution, range_min, ph, pw,
+                                   period)
+    u, v, z = project_rays(projs, xs, ys, cylindrical)
+    mask = z < 0
+    x_pr = u / z + w / 2
+    y_pr = v / z + h / 2
+    mask |= (x_pr < 0) | (x_pr > w - 1) | (y_pr < 0) | (y_pr > h - 1)
+    mask |= outside_windows(wins, px, py)
 
     x0, fx = safe_floor(x_pr, w)
     y0, fy = safe_floor(y_pr, h)
@@ -79,13 +104,14 @@ def backward_warp_ref(imgs, projs, bottoms, resolution, range_min,
 
 def backward_warp(imgs, projs, bottoms, resolution, range_min,
                   ph: int, pw: int, wins=None,
-                  period: Optional[int] = None):
+                  period: Optional[int] = None, cylindrical: bool = False):
     """The CUDA kernel for CUDA tensors, the plain version for CPU ones
     (same arguments and results as ``backward_warp_ref``)."""
     global launches
     if imgs.device.type == "cpu":
         return backward_warp_ref(imgs, projs, bottoms, resolution,
-                                 range_min, ph, pw, wins, period)
+                                 range_min, ph, pw, wins, period,
+                                 cylindrical)
     if imgs.device.type != "cuda":
         raise ValueError(f"backward_warp: unsupported device {imgs.device}")
     n, h, w, c = imgs.shape
@@ -114,10 +140,12 @@ def backward_warp(imgs, projs, bottoms, resolution, range_min,
         imgs.data_ptr(), projs_d.data_ptr(), bottoms_d.data_ptr(),
         wins_d.data_ptr(), patches.data_ptr(), invalid.data_ptr(), n, h, w,
         ph, pw, res[0], res[1], rmin[0], rmin[1],
-        -1 if period is None else int(period), _kernels.stream_ptr(dev))
+        -1 if period is None else int(period), int(bool(cylindrical)),
+        _kernels.stream_ptr(dev))
     _kernels.check(code, "p360_backward_warp")
     launches += 1
     return patches, invalid.bool()
 
 
-__all__ = ["backward_warp", "backward_warp_ref"]
+__all__ = ["backward_warp", "backward_warp_ref", "mosaic_coords",
+           "project_rays", "outside_windows"]

@@ -1,0 +1,337 @@
+"""Mip-sampled backward warp: the ``--warp pallas`` path under
+minification.
+
+Counterpart of ``pano360_tpu.ops.pallas_warp`` with ``n_levels > 1``.
+Each 32x128 output tile samples one (win_y, win_x) source window of one
+level of a 2x box mip pyramid, at the origin and level ``plan_windows``
+chose for it, with bilinear taps clamped into the window. The CUDA kernel
+(``csrc/backward_warp_mip.cu``) runs on CUDA tensors; the plain PyTorch
+version ``backward_warp_mip_ref`` is what a CPU tensor gets.
+
+The plan is the JAX package's, origins included: the window decides where
+taps are clamped, so it shapes the RGB that invalid pixels carry, which
+the multiband blender blurs into valid neighbours. Its caps (the
+``MAX_WIN_*`` budgets) are the level-choice rule. What was specific to
+the TPU (the VMEM window copy, the one-hot sampling matmuls) is gone:
+the card gathers directly from the level buffers.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pano360_tpu_torch import _kernels
+from pano360_tpu_torch.ops.warp_kernel import (_default_wins, mosaic_coords,
+                                               outside_windows, project_rays)
+
+TILE_Y = 32
+TILE_X = 128
+MAX_WIN_Y = 256          # window caps; plan_windows shrinks to the image
+MAX_WIN_X = 512
+MARGIN = 8
+MAX_LEVELS = 16          # the CUDA kernel's parameter block
+# |v| >= 2^23 holds only integers in float32: clamping there before the
+# int cast keeps every fraction
+_COORD_LIM = float(2 ** 24)
+
+launches = 0           # CUDA kernel launches (main-path evidence)
+
+
+def _level_dims(img_shape: Tuple[int, int], lvl: int):
+    """(true, padded) dims of mip level ``lvl`` (ceil-halved, then aligned
+    to 8 rows and 128 columns)."""
+    h, w = img_shape
+    hl = -(-h // (1 << lvl))
+    wl = -(-w // (1 << lvl))
+    return (hl, wl), ((-(-hl // 8)) * 8, (-(-wl // 128)) * 128)
+
+
+def plan_windows(projs: np.ndarray, bottoms: np.ndarray,
+                 resolution: np.ndarray, range_min: np.ndarray,
+                 img_shape: Tuple[int, int], ph: int, pw: int,
+                 period: Optional[int] = None, cylindrical: bool = False):
+    """Per-tile source windows with mip-level selection (host, numpy).
+
+    Returns ``(origins (N, nty, ntx, 3) int32 [y, x, level], ok, win_y,
+    win_x, n_levels)``. Each output tile samples the coarsest level whose
+    window of its projected corners (plus a margin) fits the caps; one
+    (win_y, win_x) window shape serves every tile, sized by the worst
+    need, and each origin is aligned down to (8, 128) and clamped into its
+    level's padded dims. ``ok`` is False when that window exceeds the
+    caps. ``img_shape`` is the TRUE (h, w).
+    """
+    h, w = img_shape
+    n = projs.shape[0]
+    nty = -(-ph // TILE_Y)
+    ntx = -(-pw // TILE_X)
+    # max level-0 extent that still fits the caps after alignment slack
+    budget_y = MAX_WIN_Y - 2 * 8
+    budget_x = MAX_WIN_X - 2 * 128
+
+    ys = np.arange(nty + 1) * TILE_Y
+    xs = np.arange(ntx + 1) * TILE_X
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")          # (nty+1, ntx+1)
+
+    origins = np.zeros((n, nty, ntx, 3), np.int32)
+    exts = []
+    max_lvl = 0
+    need = {}
+    for k in range(n):
+        gxa = gx + bottoms[k, 0]
+        if period is not None:
+            gxa = gxa - period * (gxa >= period)
+        mx = gxa * resolution[0] + range_min[0]
+        my = (gy + bottoms[k, 1]) * resolution[1] + range_min[1]
+        sxv, cxv = np.sin(mx), np.cos(mx)
+        txv = my if cylindrical else np.tan(my)
+        p = projs[k]
+        u = p[0, 0] * sxv + p[0, 1] * txv + p[0, 2] * cxv
+        v = p[1, 0] * sxv + p[1, 1] * txv + p[1, 2] * cxv
+        z = p[2, 0] * sxv + p[2, 1] * txv + p[2, 2] * cxv
+        zs = np.where(np.abs(z) > 1e-12, z, 1e-12)
+        px = np.clip(u / zs + w / 2, -1, w)
+        py = np.clip(v / zs + h / 2, -1, h)
+        valid = z > 0
+
+        for i in range(nty):
+            for j in range(ntx):
+                cpx = px[i:i + 2, j:j + 2]
+                cpy = py[i:i + 2, j:j + 2]
+                cval = valid[i:i + 2, j:j + 2]
+                if not cval.any():
+                    continue
+                x0 = float(np.floor(cpx[cval].min()))
+                x1 = float(np.ceil(cpx[cval].max()))
+                y0 = float(np.floor(cpy[cval].min()))
+                y1 = float(np.ceil(cpy[cval].max()))
+                lvl = 0
+                while ((y1 - y0) / (1 << lvl) + 2 * MARGIN > budget_y
+                       or (x1 - x0) / (1 << lvl) + 2 * MARGIN > budget_x):
+                    lvl += 1
+                max_lvl = max(max_lvl, lvl)
+                sy0 = np.floor((y0 + 0.5) / (1 << lvl) - 0.5) - MARGIN
+                sx0 = np.floor((x0 + 0.5) / (1 << lvl) - 0.5) - MARGIN
+                sy1 = np.ceil((y1 + 0.5) / (1 << lvl) - 0.5) + MARGIN
+                sx1 = np.ceil((x1 + 0.5) / (1 << lvl) - 0.5) + MARGIN
+                ny, nx = need.get(lvl, (1, 1))
+                need[lvl] = (max(ny, int(sy1 - sy0)),
+                             max(nx, int(sx1 - sx0)))
+                exts.append((k, i, j, sy0, sx0, lvl))
+
+    def round_up(v, m):
+        return -(-v // m) * m
+
+    need_y = max((v[0] for v in need.values()), default=1)
+    need_x = max((v[1] for v in need.values()), default=1)
+    _, (hp0, wp0) = _level_dims((h, w), 0)
+    win_y = min(round_up(need_y, 8) + 8, hp0)
+    win_x = min(round_up(need_x, 128) + 128, wp0)
+    ok = win_y <= MAX_WIN_Y and win_x <= MAX_WIN_X
+    for k, i, j, y0, x0, lvl in exts:
+        _, (hpl, wpl) = _level_dims((h, w), lvl)
+        max_oy = max(hpl - win_y, 0)
+        max_ox = max(wpl - win_x, 0)
+        oy = (int(np.clip(y0, 0, max_oy)) // 8) * 8
+        ox = (int(np.clip(x0, 0, max_ox)) // 128) * 128
+        origins[k, i, j] = (oy, ox, lvl)
+    return origins, ok, int(win_y), int(win_x), max_lvl + 1
+
+
+def _edge_pad(imgs: torch.Tensor, ht: int, wt: int) -> torch.Tensor:
+    """Edge-pad (N, H, W, C) to (ht, wt) by repeating the last row and
+    column."""
+    n, h, w, c = imgs.shape
+    if ht == h and wt == w:
+        return imgs
+    iy = torch.arange(ht, device=imgs.device).clamp(max=h - 1)
+    ix = torch.arange(wt, device=imgs.device).clamp(max=w - 1)
+    return imgs[:, iy][:, :, ix]
+
+
+def pad_to_tiling(imgs: torch.Tensor,
+                  min_shape: Tuple[int, int] = (8, 128)) -> torch.Tensor:
+    """Edge-pad (N, H, W, C) to (8, 128)-aligned H/W, and to at least
+    ``min_shape``, so every window origin can reach the trailing rows
+    and columns of an unaligned image."""
+    h, w = imgs.shape[1:3]
+    ht = max((-(-h // 8)) * 8, min_shape[0])
+    wt = max((-(-w // 128)) * 128, min_shape[1])
+    return _edge_pad(imgs, ht, wt)
+
+
+def build_mips(imgs: torch.Tensor, n_levels: int, win_y: int = 8,
+               win_x: int = 128) -> List[torch.Tensor]:
+    """2x box mip pyramid of an (N, H, W, 4) stack: each level the 2x2
+    mean of the one before, ceil-halved (edge-padded to even dims first),
+    then edge-padded to (8, 128) tiling and to at least the window.
+    -> ``n_levels`` contiguous (N, Hl, Wl, 4) tensors."""
+    levels = [pad_to_tiling(imgs, (win_y, win_x)).contiguous()]
+    cur = imgs
+    for _ in range(1, n_levels):
+        h, w = cur.shape[1:3]
+        cur = _edge_pad(cur, h + h % 2, w + w % 2)
+        cur = 0.25 * (cur[:, ::2, ::2] + cur[:, 1::2, ::2]
+                      + cur[:, ::2, 1::2] + cur[:, 1::2, 1::2])
+        levels.append(pad_to_tiling(cur, (win_y, win_x)).contiguous())
+    return levels
+
+
+def backward_warp_mip_ref(mips: List[torch.Tensor], projs, bottoms,
+                          resolution, range_min, origins, ph: int, pw: int,
+                          win_y: int, win_x: int,
+                          img_shape: Tuple[int, int], wins=None,
+                          period: Optional[int] = None,
+                          cylindrical: bool = False):
+    """Plain PyTorch version. mips: levels from ``build_mips``; projs
+    (N, 3, 3) = K R; bottoms (N, 2) patch origins [x, y];
+    resolution/range_min (2,); origins (N, nty, ntx, 3) [y, x, level]
+    and win_y/win_x from ``plan_windows``; img_shape: the TRUE level-0
+    (h, w), which alone decides validity; wins: optional (N, 4) true
+    windows; period: full-turn width of a periodic canvas. Returns
+    (patches (N, ph, pw, 4), invalid (N, ph, pw) bool)."""
+    n = mips[0].shape[0]
+    dev = mips[0].device
+    h, w = img_shape
+    if wins is None:
+        wins = _default_wins(n, dev)
+    org = torch.as_tensor(np.asarray(origins), device=dev).long()
+    ty = torch.arange(ph, device=dev) // TILE_Y
+    tx = torch.arange(pw, device=dev) // TILE_X
+    org = org[:, ty][:, :, tx]                             # (N, ph, pw, 3)
+    oy, ox, lvl = org[..., 0], org[..., 1], org[..., 2]
+
+    px, py, xs, ys = mosaic_coords(bottoms.to(dev), resolution, range_min,
+                                   ph, pw, period)
+    u, v, z = project_rays(projs.to(dev), xs, ys, cylindrical)
+    mask = z < 0
+    zs = torch.where(z.abs() > 1e-12, z, 1e-12)
+    x_pr = u / zs + w / 2
+    y_pr = v / zs + h / 2
+    mask |= (x_pr < 0) | (x_pr > w - 1) | (y_pr < 0) | (y_pr > h - 1)
+    mask |= outside_windows(wins.to(dev), px, py)
+
+    scale = torch.tensor([1.0 / (1 << lv) for lv in range(len(mips))],
+                         dtype=torch.float32, device=dev)[lvl]
+
+    def level_tap(coord, origin, win):
+        c = (coord + 0.5) * scale - 0.5 - origin.to(torch.float32)
+        c = torch.nan_to_num(c).clamp(-_COORD_LIM, _COORD_LIM)
+        c0 = torch.floor(c)
+        return (c0.long().clamp(0, win - 2) + origin), c - c0
+
+    x0, fx = level_tap(x_pr, ox, win_x)
+    y0, fy = level_tap(y_pr, oy, win_y)
+    fx, fy = fx[..., None], fy[..., None]
+
+    # all levels of an image in one flat buffer: a pixel's taps index it
+    # at its level's offset and row width
+    flat = torch.cat([m.reshape(n, -1, 4) for m in mips], dim=1)
+    sizes = [m.shape[1] * m.shape[2] for m in mips]
+    offs = torch.tensor(np.cumsum([0] + sizes[:-1]), device=dev)[lvl]
+    wps = torch.tensor([m.shape[2] for m in mips], device=dev)[lvl]
+
+    def tap(yy, xx):
+        idx = (offs + yy * wps + xx).reshape(n, -1, 1).expand(-1, -1, 4)
+        return torch.gather(flat, 1, idx).reshape(n, ph, pw, 4)
+
+    top = tap(y0, x0) * (1 - fx) + tap(y0, x0 + 1) * fx
+    bot = tap(y0 + 1, x0) * (1 - fx) + tap(y0 + 1, x0 + 1) * fx
+    out = top * (1 - fy) + bot * fy
+    out = torch.cat([out[..., :3], (out[..., 3] * (~mask))[..., None]],
+                    dim=-1)
+    return out, mask
+
+
+def _check_origins(origins: np.ndarray, n: int, ph: int, pw: int,
+                   dims: List[Tuple[int, int]], win_y: int, win_x: int):
+    shape = (n, -(-ph // TILE_Y), -(-pw // TILE_X), 3)
+    if origins.shape != shape:
+        raise ValueError(f"backward_warp_mip: origins must be {shape}, got "
+                         f"{origins.shape}")
+    oy, ox, lvl = origins[..., 0], origins[..., 1], origins[..., 2]
+    if lvl.min() < 0 or lvl.max() >= len(dims):
+        raise ValueError("backward_warp_mip: origins name a level outside "
+                         f"[0, {len(dims)})")
+    hp = np.array([d[0] for d in dims])[lvl]
+    wp = np.array([d[1] for d in dims])[lvl]
+    if (oy < 0).any() or (ox < 0).any() or (oy + win_y > hp).any() \
+            or (ox + win_x > wp).any():
+        raise ValueError("backward_warp_mip: a window at its origin "
+                         "leaves its level's buffer")
+
+
+def backward_warp_mip(mips: List[torch.Tensor], projs, bottoms, resolution,
+                      range_min, origins, ph: int, pw: int, win_y: int,
+                      win_x: int, img_shape: Tuple[int, int], wins=None,
+                      period: Optional[int] = None,
+                      cylindrical: bool = False):
+    """The CUDA kernel for CUDA tensors, the plain version for CPU ones
+    (same arguments and results as ``backward_warp_mip_ref``). Raises
+    when an origin names a missing level or puts its window outside its
+    level's buffer."""
+    global launches
+    dev = mips[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"backward_warp_mip: unsupported device {dev}")
+    n = mips[0].shape[0]
+    if not 1 <= len(mips) <= MAX_LEVELS:
+        raise ValueError(f"backward_warp_mip: 1 to {MAX_LEVELS} levels, got "
+                         f"{len(mips)}")
+    dims = [(int(m.shape[1]), int(m.shape[2])) for m in mips]
+    org = torch.as_tensor(origins).cpu().numpy()
+    if not np.issubdtype(org.dtype, np.integer):
+        raise ValueError(f"backward_warp_mip: integer origins, got "
+                         f"{org.dtype}")
+    _check_origins(org, n, ph, pw, dims, win_y, win_x)
+    if dev.type == "cpu":
+        return backward_warp_mip_ref(mips, projs, bottoms, resolution,
+                                     range_min, org, ph, pw, win_y, win_x,
+                                     img_shape, wins, period, cylindrical)
+    for m in mips:
+        if (m.dtype != torch.float32 or m.ndim != 4 or m.shape[0] != n
+                or m.shape[3] != 4 or not m.is_contiguous()
+                or m.device != dev):
+            raise ValueError("backward_warp_mip takes contiguous (N, Hl, "
+                             "Wl, 4) float32 levels on one device, got "
+                             f"{tuple(m.shape)} {m.dtype} {m.device}")
+    if wins is None:
+        wins = _default_wins(n, dev)
+    args = []
+    for name, t, shape in (("projs", projs, (n, 3, 3)),
+                           ("bottoms", bottoms, (n, 2)),
+                           ("wins", wins, (n, 4))):
+        t = torch.as_tensor(t)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"backward_warp_mip: {name} must be {shape}, "
+                             f"got {tuple(t.shape)}")
+        args.append(t.to(device=dev, dtype=torch.float32).contiguous())
+    projs_d, bottoms_d, wins_d = args
+    org_d = torch.as_tensor(org.astype(np.int32), device=dev).contiguous()
+    res = [float(v) for v in torch.as_tensor(resolution).reshape(2)]
+    rmin = [float(v) for v in torch.as_tensor(range_min).reshape(2)]
+    ptrs = (ctypes.c_void_p * len(mips))(*[m.data_ptr() for m in mips])
+    c_dims = (ctypes.c_int * (2 * len(mips)))(*[d for hw in dims
+                                                 for d in hw])
+    patches = torch.empty((n, ph, pw, 4), dtype=torch.float32, device=dev)
+    invalid = torch.empty((n, ph, pw), dtype=torch.uint8, device=dev)
+    h, w = img_shape
+    code = _kernels.lib().p360_backward_warp_mip(
+        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(c_dims,
+                                                        ctypes.c_void_p),
+        len(mips), org_d.data_ptr(), projs_d.data_ptr(),
+        bottoms_d.data_ptr(), wins_d.data_ptr(), patches.data_ptr(),
+        invalid.data_ptr(), n, int(h), int(w), ph, pw, int(win_y),
+        int(win_x), res[0], res[1], rmin[0], rmin[1],
+        -1 if period is None else int(period), int(bool(cylindrical)),
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "p360_backward_warp_mip")
+    launches += 1
+    return patches, invalid.bool()
+
+
+__all__ = ["plan_windows", "pad_to_tiling", "build_mips",
+           "backward_warp_mip", "backward_warp_mip_ref", "TILE_Y", "TILE_X",
+           "MAX_WIN_Y", "MAX_WIN_X"]

@@ -1,17 +1,20 @@
-"""Rendering: projection extents, layout, hat weights, backward warp,
-blenders (counterpart of ``pano360_tpu.render``, the main path).
+"""Rendering: projection extents, layout, hat weights, exposure gains,
+backward warp, blenders, crop (counterpart of ``pano360_tpu.render``).
 
 The host keeps the small data-dependent pieces (resolution rule, canvas
-and patch-window layout, periodic-seam bookkeeping) in numpy, exactly as
+and patch-window layout, periodic-seam bookkeeping, the per-pair overlap
+windows and the f64 gain solve, the crop rectangle) in numpy, exactly as
 the JAX package computes them; the device runs the border projection,
-the weights, the warp (``ops.warp_kernel.backward_warp``: the CUDA
-kernel on the card) and the blend. Multiband blends bands from DoGs of
-each patch with sigma = sqrt(2l+1)*4 and sharp argmax-weight seams;
-periodic canvases paste on an x-extended canvas and fold the spilled
-strip back.
+the weights, the pairwise overlap warps, the backward warp (the CUDA
+kernels on the card: ``ops.warp_kernel.backward_warp``, exact, and
+``ops.warp_mip.backward_warp_mip``, mip-sampled for ``warp="pallas"``)
+and the blend. Multiband blends bands from DoGs of each patch with
+sigma = sqrt(2l+1)*4 and sharp argmax-weight seams; periodic canvases
+paste on an x-extended canvas and fold the spilled strip back.
 """
 from __future__ import annotations
 
+import logging
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -19,10 +22,15 @@ import torch
 
 from pano360_tpu_torch import geometry as geo
 from pano360_tpu_torch.ops.filters import gaussian_blur
+from pano360_tpu_torch.ops.warp import bilinear_taps, perspective_maps
 from pano360_tpu_torch.ops.warp_kernel import backward_warp
+from pano360_tpu_torch.ops.warp_mip import (backward_warp_mip, build_mips,
+                                            plan_windows)
 from pano360_tpu_torch.register import PanoImage
 
 MAX_RESOLUTION = 1400
+WARP_POLICIES = ("auto", "pallas", "xla")
+LOG = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -46,6 +54,7 @@ def _border_points(shape: Tuple[int, int], nel: int) -> np.ndarray:
 
 
 def proj_img_range_border(shape: Tuple[int, int], homs: torch.Tensor,
+                          projection=geo.SphProj,
                           nel: int = 100) -> torch.Tensor:
     """Projected extent of the image borders for (N, 3, 3) homs: one
     (4, N, 2) array [rmin, rmax, uw_min, uw_max], where the ``uw`` pair
@@ -53,10 +62,10 @@ def proj_img_range_border(shape: Tuple[int, int], homs: torch.Tensor,
     (a contiguous interval that may leave [-pi, pi) at the seam)."""
     homs = homs.to(torch.float32)
     borders = torch.as_tensor(_border_points(shape, nel), device=homs.device)
-    pts = geo.SphProj.hom2proj(torch.einsum("nij,kj->nki", homs, borders))
+    pts = projection.hom2proj(torch.einsum("nij,kj->nki", homs, borders))
     rmin = pts.min(dim=1).values
     rmax = pts.max(dim=1).values
-    azc = geo.SphProj.hom2proj(homs[:, :, 2])[:, 0]
+    azc = projection.hom2proj(homs[:, :, 2])[:, 0]
     ax = pts[..., 0]
     ax_u = azc[:, None] + torch.remainder(ax - azc[:, None] + torch.pi,
                                           2 * torch.pi) - torch.pi
@@ -65,18 +74,21 @@ def proj_img_range_border(shape: Tuple[int, int], homs: torch.Tensor,
     return torch.stack([rmin, rmax, uw_min, uw_max])
 
 
-def _np_hom2proj(pts: np.ndarray) -> np.ndarray:
+def _np_hom2proj(pts: np.ndarray, projection=geo.SphProj) -> np.ndarray:
     hypot = np.hypot(pts[..., 0], pts[..., 2])
-    return np.stack([np.arctan2(pts[..., 0], pts[..., 2]),
-                     np.arctan2(pts[..., 1], hypot)], axis=-1)
+    theta = np.arctan2(pts[..., 0], pts[..., 2])
+    if projection is geo.CylProj:
+        return np.stack([theta, pts[..., 1] / hypot], axis=-1)
+    return np.stack([theta, np.arctan2(pts[..., 1], hypot)], axis=-1)
 
 
-def proj_img_range_corners(shape: Tuple[int, int], hom: np.ndarray):
+def proj_img_range_corners(shape: Tuple[int, int], hom: np.ndarray,
+                           projection=geo.SphProj):
     """Corner-based extent with wraparound fix. Host."""
     height, width = shape
     pts = np.array([[-width / 2, -height / 2, 1], [width / 2, -height / 2, 1],
                     [-width / 2, height / 2, 1], [width / 2, height / 2, 1]])
-    pts = _np_hom2proj(pts @ hom.T)
+    pts = _np_hom2proj(pts @ hom.T, projection)
     xmin = min(pts[0, 0], pts[2, 0])
     xmax = max(pts[1, 0], pts[3, 0])
     ymin = min(pts[0, 1], pts[1, 1])
@@ -89,14 +101,16 @@ def proj_img_range_corners(shape: Tuple[int, int], hom: np.ndarray):
 
 
 def estimate_resolution(regions: List[PanoImage],
-                        max_resolution: int = MAX_RESOLUTION):
+                        max_resolution: int = MAX_RESOLUTION,
+                        projection=geo.SphProj):
     """Output resolution (rad/px) and global range. Host."""
     min_r = np.min(np.stack([r.range[0] for r in regions]), axis=0)
     max_r = np.max(np.stack([r.range[1] for r in regions]), axis=0)
     size = max_r - min_r
     mid = regions[len(regions) // 2]
     im_shape = np.array(mid.img.shape[:2][::-1])
-    mid_range = proj_img_range_corners(mid.img.shape[:2], mid.hom())
+    mid_range = proj_img_range_corners(mid.img.shape[:2], mid.hom(),
+                                       projection)
     resolution = (mid_range[1] - mid_range[0]) / im_shape
     max_side = np.max(size / resolution)
     if max_side > max_resolution:
@@ -120,6 +134,135 @@ def add_weights(imgs: torch.Tensor) -> torch.Tensor:
     alpha = hat(h, imgs.device)[:, None] * hat(w, imgs.device)[None, :]
     alpha = alpha.expand(n, h, w)
     return torch.cat([imgs, alpha[..., None]], dim=-1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Exposure compensation
+# ---------------------------------------------------------------------------
+
+def find_gains(overlaps: np.ndarray, sizes: np.ndarray,
+               stdn: float = 0.1, stdg: float = 2.0) -> np.ndarray:
+    """Solve the Brown-Lowe eq.(29) gain system. Host, float64."""
+    nsize1 = (sizes + sizes.T) / (stdn * stdn)
+    nsize2 = sizes / (stdg * stdg)
+    aa = np.diag(np.sum(nsize1 * overlaps * overlaps + nsize2, axis=1))
+    aa -= nsize1 * overlaps * overlaps.T
+    return np.linalg.solve(aa, np.sum(nsize2, axis=1))
+
+
+def _pair_overlap_stats(imgs: torch.Tensor, homs_win: torch.Tensor,
+                        pair_i: torch.Tensor, pair_j: torch.Tensor,
+                        origins: torch.Tensor, wh: int, ww: int):
+    """Overlap mean intensities of all pairs in one batched warp.
+
+    Pair p works in its (wh, ww) window of image i's frame, at
+    ``origins[p]`` (oy, ox): image j is warped into the window by
+    ``homs_win[p]`` (j's pixels -> window pixels, cv2 convention) with a
+    zero constant border, and the overlap is where the warped alpha is
+    nonzero. imgs: (N, H, W, 4). Returns (mean_i, mean_j, count), each
+    (P,): the mean of i's and of j's RGB over the overlap.
+    """
+    map_x, map_y = perspective_maps(homs_win, (wh, ww))
+    overlap = bilinear_taps(imgs, map_x, map_y, "constant", 0.0,
+                            index=pair_j)                 # (P, wh, ww, 4)
+    mask = (overlap[..., 3] != 0)[..., None]
+    cnt = mask.sum(dim=(1, 2, 3))
+    dev = imgs.device
+    yy = origins[:, 0, None, None] + torch.arange(wh, device=dev)[:, None]
+    xx = origins[:, 1, None, None] + torch.arange(ww, device=dev)[None, :]
+    win_i = imgs[pair_i[:, None, None], yy, xx]           # (P, wh, ww, 4)
+    zero = torch.zeros((), device=dev)
+    sum_i = torch.where(mask, win_i[..., :3], zero).sum(dim=(1, 2, 3))
+    sum_j = torch.where(mask, overlap[..., :3], zero).sum(dim=(1, 2, 3))
+    denom = torch.clamp(cnt * 3, min=1)
+    return sum_i / denom, sum_j / denom, cnt
+
+
+def _np_hom_to_from(c1: PanoImage, c2: PanoImage) -> np.ndarray:
+    return (c1.intr @ c1.rot) @ (c2.rot.T @ np.linalg.inv(c2.intr))
+
+
+def overlap_matrices(regions: List[PanoImage], imgs_rgba: torch.Tensor):
+    """(overlaps, sizes) matrices feeding the gain solve: overlaps[i, j]
+    = mean intensity of image i over the (i, j) overlap, sizes[i, j] =
+    the overlap's pixel count. Pairs are pruned on the host (a warped
+    corner behind the camera, or a warped-quad bbox missing i's frame);
+    the rest share one window shape (64-px buckets), clamped into the
+    frame."""
+    n = len(regions)
+    height, width = imgs_rgba.shape[1:3]
+    pair_i, pair_j, homs, boxes = [], [], [], []
+    for i in range(n):
+        tr = np.array([[1, 0, width / 2], [0, 1, height / 2], [0, 0, 1]])
+        for j in range(i + 1, n):
+            inv_tr = np.array([[1, 0, -width / 2], [0, 1, -height / 2],
+                               [0, 0, 1]])
+            corners = np.array([[0, 0, 1], [width, 0, 1],
+                                [width, height, 1], [0, height, 1]])
+            hom = tr @ _np_hom_to_from(regions[i], regions[j]) @ inv_tr
+            pts = corners @ hom.T
+            if np.any(pts[:, 2] < 0):
+                continue
+            q = pts[:, :2] / pts[:, 2:3]
+            x0 = max(int(np.floor(q[:, 0].min())) - 2, 0)
+            y0 = max(int(np.floor(q[:, 1].min())) - 2, 0)
+            x1 = min(int(np.ceil(q[:, 0].max())) + 2, int(width))
+            y1 = min(int(np.ceil(q[:, 1].max())) + 2, int(height))
+            if x0 >= x1 or y0 >= y1:
+                continue
+            pair_i.append(i)
+            pair_j.append(j)
+            homs.append(hom)
+            boxes.append((y0, x0, y1, x1))
+    overlaps = np.zeros((n, n))
+    sizes = np.zeros((n, n))
+    if not homs:
+        return overlaps, sizes
+    boxes = np.array(boxes)
+    wh = min(-(-int((boxes[:, 2] - boxes[:, 0]).max()) // 64) * 64, height)
+    ww = min(-(-int((boxes[:, 3] - boxes[:, 1]).max()) // 64) * 64, width)
+    oy = np.minimum(boxes[:, 0], height - wh)
+    ox = np.minimum(boxes[:, 1], width - ww)
+    shift = [np.array([[1, 0, -x], [0, 1, -y], [0, 0, 1]])
+             for y, x in zip(oy, ox)]
+    homs_win = np.stack([s @ h for s, h in zip(shift, homs)])
+    dev = imgs_rgba.device
+    mi, mj, cnt = (t.cpu().numpy() for t in _pair_overlap_stats(
+        imgs_rgba, torch.as_tensor(homs_win, dtype=torch.float32,
+                                   device=dev),
+        torch.as_tensor(pair_i, device=dev),
+        torch.as_tensor(pair_j, device=dev),
+        torch.as_tensor(np.stack([oy, ox], axis=1), device=dev), wh, ww))
+    for k in range(len(homs)):
+        i, j = pair_i[k], pair_j[k]
+        if cnt[k] == 0:
+            continue
+        sizes[i, j] = sizes[j, i] = cnt[k]
+        overlaps[i, j] = mi[k]
+        overlaps[j, i] = mj[k]
+    return overlaps, sizes
+
+
+def estimate_gains(regions: List[PanoImage],
+                   imgs_rgba: torch.Tensor) -> np.ndarray:
+    """Per-image exposure gains over the pairwise overlaps: (N,)."""
+    gains = find_gains(*overlap_matrices(regions, imgs_rgba))
+    LOG.debug("Gains: %s", gains)
+    return gains
+
+
+def apply_gains(imgs_rgba: torch.Tensor, gains) -> torch.Tensor:
+    """Scale rgb by per-image gains, clipped to [0, 1]."""
+    g = torch.as_tensor(gains, dtype=torch.float32,
+                        device=imgs_rgba.device)[:, None, None, None]
+    rgb = torch.clamp(imgs_rgba[..., :3] * g, 0.0, 1.0)
+    return torch.cat([rgb, imgs_rgba[..., 3:]], dim=-1).contiguous()
+
+
+def equalize_gains(regions: List[PanoImage],
+                   imgs_rgba: torch.Tensor) -> torch.Tensor:
+    """Estimate and apply exposure gains: the corrected (N, H, W, 4)."""
+    return apply_gains(imgs_rgba, estimate_gains(regions, imgs_rgba))
 
 
 # ---------------------------------------------------------------------------
@@ -276,14 +419,15 @@ class MosaicLayout(NamedTuple):
 
 
 def plan_layout(regions: List[PanoImage], ranges: np.ndarray, blender: str,
-                max_resolution: int) -> MosaicLayout:
+                max_resolution: int, proj=geo.SphProj) -> MosaicLayout:
     """Canvas shape, patch windows and periodicity for a render: the JAX
     package's plan (wrapped ranges set the canvas; seam-crossing views
     take their unwrapped footprint modulo the full-turn width; canvas
     padded to 64 px and patches to 32 px, the padding masked by ``wins``)."""
     n = len(regions)
     rmin, rmax, uw_min, uw_max = np.asarray(ranges, np.float64)
-    resolution, im_range = estimate_resolution(regions, max_resolution)
+    resolution, im_range = estimate_resolution(regions, max_resolution,
+                                               proj)
     target = (im_range[1] - im_range[0]) / resolution
     shape = tuple(int(t) for t in np.round(target))[::-1]
 
@@ -340,12 +484,29 @@ def plan_layout(regions: List[PanoImage], ranges: np.ndarray, blender: str,
                         period if use_wrap else None, resolution, im_range)
 
 
+def _crop_valid(invalid: np.ndarray, bottoms: np.ndarray, ph: int,
+                pw: int, shape: Tuple[int, int],
+                period: Optional[int]) -> np.ndarray:
+    """Union of valid patch pixels on the canvas (host, for crop). With a
+    periodic canvas the spilled strip folds back as the blenders' pastes
+    do, on a canvas anchored at max(width, period) as in ``_ext``."""
+    ext_w = shape[1] if period is None else max(shape[1], period) + pw
+    valid = np.zeros((shape[0], ext_w), bool)
+    for k in range(invalid.shape[0]):
+        x0, y0 = bottoms[k]
+        valid[y0:y0 + ph, x0:x0 + pw] |= ~invalid[k]
+    if period is not None:
+        valid[:, :pw] |= valid[:, period:period + pw]
+    return valid[:, :shape[1]]
+
+
 # ---------------------------------------------------------------------------
 # Stitch
 # ---------------------------------------------------------------------------
 
 def prepare(regions: List[PanoImage], blender: str,
-            max_resolution: int, device, dev_images=None):
+            max_resolution: int, device, dev_images=None,
+            projection=geo.SphProj):
     """Upload (or reuse) the images, set each region's range and plan the
     layout: -> (imgs_rgba (N, H, W, 4) f32 on ``device``, layout)."""
     shapes = {r.img.shape[:2] for r in regions}
@@ -364,49 +525,89 @@ def prepare(regions: List[PanoImage], blender: str,
     imgs = imgs.to(torch.float32)
     homs = torch.as_tensor(np.stack([r.hom() for r in regions]),
                            dtype=torch.float32, device=device)
-    ranges = proj_img_range_border((h, w), homs).cpu().numpy().astype(
-        np.float64)
+    ranges = proj_img_range_border((h, w), homs, projection).cpu().numpy(
+        ).astype(np.float64)
     for k, reg in enumerate(regions):
         reg.range = (ranges[0][k], ranges[1][k])
-    layout = plan_layout(regions, ranges, blender, max_resolution)
+    layout = plan_layout(regions, ranges, blender, max_resolution,
+                         projection)
     return add_weights(imgs), layout
+
+
+def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
+                 layout: MosaicLayout, projection=geo.SphProj,
+                 warp: str = "auto"):
+    """Backward-warp every region into its patch: -> (patches (N, ph,
+    pw, 4), invalid (N, ph, pw)), alpha zeroed where invalid.
+
+    ``warp``: "auto" and "xla" take the exact kernel at any resolution;
+    "pallas" takes the mip-sampled kernel at ``plan_windows``'s levels,
+    or, when a tile's window fits the caps at no level, warns and takes
+    the exact kernel (the JAX package's policy).
+    """
+    if warp not in WARP_POLICIES:
+        raise ValueError(f"warp must be one of {WARP_POLICIES}, got {warp!r}")
+    cyl = projection is geo.CylProj
+    t = dict(dtype=torch.float32, device=imgs_rgba.device)
+    args = (torch.as_tensor(projs, **t),
+            torch.as_tensor(layout.bottoms, **t),
+            torch.as_tensor(layout.resolution, **t),
+            torch.as_tensor(layout.im_range[0], **t))
+    kw = dict(wins=torch.as_tensor(layout.wins, **t), period=layout.period,
+              cylindrical=cyl)
+    if warp == "pallas":
+        hw = tuple(imgs_rgba.shape[1:3])
+        origins, ok, win_y, win_x, n_levels = plan_windows(
+            projs, layout.bottoms, layout.resolution, layout.im_range[0], hw,
+            layout.ph, layout.pw, period=layout.period, cylindrical=cyl)
+        if ok:
+            mips = build_mips(imgs_rgba, n_levels, win_y, win_x)
+            return backward_warp_mip(mips, *args, origins, layout.ph,
+                                     layout.pw, win_y, win_x, hw, **kw)
+        LOG.warning("pallas warp requested but a tile source window "
+                    "cannot fit the window caps at any mip level; using "
+                    "the exact warp")
+    return backward_warp(imgs_rgba, *args, layout.ph, layout.pw, **kw)
 
 
 def stitch(regions: List[PanoImage], blender: str = "multiband",
            equalize: bool = False, crop: bool = False, dev_images=None,
-           max_resolution: int = MAX_RESOLUTION, device="cuda"
-           ) -> np.ndarray:
-    """Full render: ranges -> layout -> weights -> warp -> blend.
+           max_resolution: int = MAX_RESOLUTION, warp: str = "auto",
+           projection: str = "spherical", device="cuda") -> np.ndarray:
+    """Full render: ranges -> layout -> weights -> (gains) -> warp ->
+    blend -> (crop).
 
     ``regions[k].img``: uint8 BGR (or float BGR in [0, 1]), one shape.
     ``dev_images``: the (N, H, W, 3) uint8 stack already on the device.
-    Returns the uint8 BGR mosaic.
+    ``equalize``: exposure gains from the pairwise overlaps, applied
+    before the warp. ``crop``: cut to the largest rectangle of valid
+    pixels (the native library, else its Python fallback).
+    ``warp``: see ``warp_patches``. ``projection``: "spherical" or
+    "cylindrical". Returns the uint8 BGR mosaic.
     """
-    if equalize:
-        raise NotImplementedError(
-            "-e/--equalize is not ported yet (ROADMAP Queue 1: equalize)")
-    if crop:
-        raise NotImplementedError(
-            "-c/--crop is not ported yet (ROADMAP Queue 1: crop)")
+    proj = geo.PROJECTIONS[projection]
     device = torch.device(device)
     imgs_rgba, layout = prepare(regions, blender, max_resolution, device,
-                                dev_images)
+                                dev_images, proj)
+    if equalize:
+        imgs_rgba = equalize_gains(regions, imgs_rgba)
     projs = np.stack([r.proj() for r in regions])
-    t = dict(dtype=torch.float32, device=device)
-    patches, invalid = backward_warp(
-        imgs_rgba, torch.as_tensor(projs, **t),
-        torch.as_tensor(layout.bottoms, **t),
-        torch.as_tensor(layout.resolution, **t),
-        torch.as_tensor(layout.im_range[0], **t), layout.ph, layout.pw,
-        wins=torch.as_tensor(layout.wins, **t), period=layout.period)
+    patches, invalid = warp_patches(imgs_rgba, projs, layout, proj, warp)
     mosaic = BLENDERS[blender](patches, invalid, layout.bottoms,
                                layout.shape, period=layout.period)
     out_h, out_w = layout.out_hw
-    return mosaic.cpu().numpy()[:out_h, :out_w]
+    mosaic = mosaic.cpu().numpy()[:out_h, :out_w]
+    if crop:
+        from pano360_tpu_torch._host import native
+        valid = _crop_valid(invalid.cpu().numpy(), layout.bottoms, layout.ph,
+                            layout.pw, layout.shape, layout.period)
+        mosaic = native.crop_mosaic(mosaic, valid[:out_h, :out_w])
+    return mosaic
 
 
-__all__ = ["MAX_RESOLUTION", "proj_img_range_border",
+__all__ = ["MAX_RESOLUTION", "WARP_POLICIES", "proj_img_range_border",
            "proj_img_range_corners", "estimate_resolution", "hat",
-           "add_weights", "MosaicLayout", "plan_layout", "prepare",
-           "blend_none", "blend_linear", "blend_multiband", "BLENDERS",
-           "stitch"]
+           "add_weights", "find_gains", "overlap_matrices", "estimate_gains",
+           "apply_gains", "equalize_gains", "MosaicLayout", "plan_layout",
+           "prepare", "warp_patches", "blend_none", "blend_linear",
+           "blend_multiband", "BLENDERS", "stitch"]

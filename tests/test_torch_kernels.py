@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels and their wrappers (no jax in this file).
+"""The port's CUDA kernels and their wrappers (no jax in this file).
 
 On a CPU tensor each wrapper must take its plain PyTorch version and
 launch nothing; on another device it must raise. The ``gpu`` tests hold
@@ -8,8 +8,10 @@ they run on a GPU machine (which has no jax) with
 
 Tolerances on the card: Gaussian and DoG layers 1e-5 (separate
 multiply and add in both versions; the kernel is built with
--fmad=false), score flips <= 0.1% of candidates, warp masks equal on
->= 99.99% of pixels and patches within 1e-4 where both are valid.
+-fmad=false), score flips <= 0.1% of candidates, warp masks (exact and
+mip-sampled) equal on >= 99.99% of pixels and patches within 1e-4 where
+both are valid (the mip warp's RGB also where both are invalid: the
+multiband blender blurs it into valid pixels).
 """
 import math
 
@@ -22,6 +24,7 @@ from pano360_tpu_torch._host import synth
 from pano360_tpu_torch.features import sift as S
 from pano360_tpu_torch.ops import gauss_octave as G
 from pano360_tpu_torch.ops import warp_kernel as W
+from pano360_tpu_torch.ops import warp_mip as M
 from pano360_tpu_torch.ops.color import bgr2gray
 from pano360_tpu_torch.register import PanoImage
 
@@ -50,23 +53,79 @@ def octave_base():
     return _base((128, 128))
 
 
-@pytest.fixture(scope="module")
-def warp_scene():
-    """Ground-truth cameras of a 3-view sweep and their render layout."""
-    imgs, rots, focal = synth.make_views(n_views=3, shape=(120, 160),
-                                         overlap=0.5, seed=5)
+def _regions(n_views, shape, overlap, seed=5):
+    imgs, rots, focal = synth.make_views(n_views=n_views, shape=shape,
+                                         overlap=overlap, seed=seed)
     intr = np.diag([focal, focal, 1.0])
-    regions = [PanoImage((im * 255).astype(np.uint8), r, intr.copy())
-               for im, r in zip(imgs, rots)]
-    rgba, lay = render.prepare(regions, "multiband", 1400, "cpu")
-    projs = torch.as_tensor(np.stack([r.proj() for r in regions]),
-                            dtype=torch.float32)
-    args = (rgba, projs, torch.as_tensor(lay.bottoms, dtype=torch.float32),
-            torch.as_tensor(lay.resolution, dtype=torch.float32),
-            torch.as_tensor(lay.im_range[0], dtype=torch.float32),
-            lay.ph, lay.pw)
+    return [PanoImage((im * 255).astype(np.uint8), r, intr.copy())
+            for im, r in zip(imgs, rots)]
+
+
+def _warp_setup(regions, max_resolution, projection=None):
+    """(rgba, projs, bottoms, resolution, range_min), layout, numpy projs
+    of a render of ``regions`` (CPU tensors)."""
+    from pano360_tpu_torch import geometry
+    proj = geometry.PROJECTIONS[projection or "spherical"]
+    rgba, lay = render.prepare(regions, "multiband", max_resolution, "cpu",
+                               projection=proj)
+    projs = np.stack([r.proj() for r in regions])
+    t = dict(dtype=torch.float32)
+    args = (rgba, torch.as_tensor(projs, **t),
+            torch.as_tensor(lay.bottoms, **t),
+            torch.as_tensor(lay.resolution, **t),
+            torch.as_tensor(lay.im_range[0], **t))
+    return args, lay, projs
+
+
+@pytest.fixture(scope="module", params=["spherical", "cylindrical"])
+def warp_scene(request):
+    """Ground-truth cameras of a 3-view sweep and their render layout."""
+    args, lay, _ = _warp_setup(_regions(3, (120, 160), 0.5), 1400,
+                               request.param)
     wins = torch.as_tensor(lay.wins, dtype=torch.float32)
-    return args, wins, lay.period
+    return args + (lay.ph, lay.pw), wins, lay.period, \
+        request.param == "cylindrical"
+
+
+# two views of 300x700 under a 120-px cap (aperiodic), and a 401-degree
+# sweep of eight 120x320 views on a periodic 400-px canvas
+MIP_SCENES = {"aperiodic": ((2, (300, 700), 0.5), 120),
+              "periodic": ((8, (120, 320), 0.1), 400)}
+
+
+@pytest.fixture(scope="module", params=sorted(MIP_SCENES))
+def mip_scene(request):
+    """A mip plan whose tiles are spread over levels 0-3 (the plan's own
+    levels replaced by (k + i + j) % 4, origins clamped into each level),
+    on patches cut to ragged sizes (not multiples of the 32x128 tile)."""
+    view_args, max_res = MIP_SCENES[request.param]
+    (rgba, *args), lay, projs = _warp_setup(_regions(*view_args), max_res)
+    ph, pw = lay.ph - 3, lay.pw - 5
+    origins, ok, wy, wx, nl = M.plan_windows(
+        projs, lay.bottoms, lay.resolution, lay.im_range[0], rgba.shape[1:3],
+        ph, pw, period=lay.period)
+    assert ok and nl >= 2
+    mips = M.build_mips(rgba, 4, wy, wx)
+    k, i, j = np.meshgrid(*(np.arange(s) for s in origins.shape[:3]),
+                          indexing="ij")
+    lvl = (k + i + j) % 4
+    hp = np.array([m.shape[1] for m in mips])[lvl]
+    wp = np.array([m.shape[2] for m in mips])[lvl]
+    origins[..., 0] = np.minimum(origins[..., 0], hp - wy) // 8 * 8
+    origins[..., 1] = np.minimum(origins[..., 1], wp - wx) // 128 * 128
+    origins[..., 2] = lvl
+    wins = torch.as_tensor(lay.wins, dtype=torch.float32)
+    return dict(mips=mips, args=args, origins=origins, ph=ph, pw=pw,
+                win=(wy, wx), hw=tuple(rgba.shape[1:3]), wins=wins,
+                period=lay.period)
+
+
+def _mip_call(fn, sc, dev="cpu", **over):
+    kw = dict(sc, **over)
+    return fn([m.to(dev) for m in kw["mips"]],
+              *[a.to(dev) for a in kw["args"]], kw["origins"], kw["ph"],
+              kw["pw"], *kw["win"], kw["hw"], wins=kw["wins"].to(dev),
+              period=kw["period"])
 
 
 def _on(dev, args):
@@ -99,13 +158,40 @@ def test_octave_stack_ref_refuses_illegal_pad():
 
 
 def test_backward_warp_cpu_tensor_takes_plain_version(warp_scene):
-    args, wins, period = warp_scene
+    args, wins, period, cyl = warp_scene
     before = W.launches
-    a = W.backward_warp(*args, wins=wins, period=period)
-    b = W.backward_warp_ref(*args, wins=wins, period=period)
+    a = W.backward_warp(*args, wins=wins, period=period, cylindrical=cyl)
+    b = W.backward_warp_ref(*args, wins=wins, period=period,
+                            cylindrical=cyl)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert W.launches == before
     assert (~a[1]).sum() > 1000
+
+
+def test_backward_warp_mip_cpu_tensor_takes_plain_version(mip_scene):
+    before = M.launches
+    a = _mip_call(M.backward_warp_mip, mip_scene)
+    b = _mip_call(M.backward_warp_mip_ref, mip_scene)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert M.launches == before
+    assert (~a[1]).sum() > 500
+
+
+def test_backward_warp_mip_rejects_bad_origins(mip_scene):
+    """On every device: an origin naming a missing level, or putting its
+    window outside its level's buffer, or of the wrong shape."""
+    org = mip_scene["origins"]
+    bad_level = org.copy()
+    bad_level[0, 0, 0, 2] = len(mip_scene["mips"])
+    bad_row = org.copy()
+    bad_row[0, 0, 0, :] = (mip_scene["mips"][0].shape[1], 0, 0)
+    for origins, match in ((bad_level, "level"), (bad_row, "leaves"),
+                           (org[..., :2], "origins must be"),
+                           (org.astype(np.float32), "integer")):
+        with pytest.raises(ValueError, match=match):
+            _mip_call(M.backward_warp_mip, mip_scene, origins=origins)
+    with pytest.raises(ValueError, match="unsupported device"):
+        _mip_call(M.backward_warp_mip, mip_scene, dev="meta")
 
 
 def test_warp_ref_handles_rays_near_horizon():
@@ -171,9 +257,9 @@ def test_octave_stack_kernel_rejects_bad_input(octave_base):
 @pytest.mark.parametrize("periodic", [False, True])
 def test_backward_warp_kernel_matches_plain_on_card(warp_scene, periodic):
     dev = _cuda()
-    args, wins, period = warp_scene
+    args, wins, period, cyl = warp_scene
     args = _on(dev, args)
-    kw = dict(wins=wins.to(dev), period=period)
+    kw = dict(wins=wins.to(dev), period=period, cylindrical=cyl)
     if periodic:      # a seam-crossing window: fold columns past 1/3 turn
         kw["period"] = args[-1] // 3 + 7
     kp, ki = W.backward_warp(*args, **kw)
@@ -187,9 +273,41 @@ def test_backward_warp_kernel_matches_plain_on_card(warp_scene, periodic):
 
 
 @pytest.mark.gpu
+def test_backward_warp_mip_kernel_matches_plain_on_card(mip_scene):
+    dev = _cuda()
+    before = M.launches
+    kp, ki = _mip_call(M.backward_warp_mip, mip_scene, dev)
+    rp, ri = _mip_call(M.backward_warp_mip_ref, mip_scene, dev)
+    torch.cuda.synchronize()
+    assert M.launches == before + 1
+    assert float((ki != ri).float().mean()) <= 1e-4
+    both = ~ki & ~ri
+    assert int(both.sum()) > 500
+    assert float((kp - rp)[both].abs().max()) <= 1e-4
+    neither = ki & ri
+    assert float((kp - rp)[neither][:, :3].abs().max()) <= 1e-4
+    assert float(kp[ki][:, 3].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_backward_warp_mip_kernel_rejects_bad_input(mip_scene):
+    dev = _cuda()
+    with pytest.raises(ValueError, match="float32"):
+        _mip_call(M.backward_warp_mip, mip_scene, dev,
+                  mips=[m.double() for m in mip_scene["mips"]])
+    with pytest.raises(ValueError, match="projs"):
+        _mip_call(M.backward_warp_mip, mip_scene, dev,
+                  args=[mip_scene["args"][0][:1]] + mip_scene["args"][1:])
+    org = mip_scene["origins"].copy()
+    org[-1, -1, -1, 1] = 1 << 20
+    with pytest.raises(ValueError, match="leaves"):
+        _mip_call(M.backward_warp_mip, mip_scene, dev, origins=org)
+
+
+@pytest.mark.gpu
 def test_backward_warp_kernel_rejects_bad_input(warp_scene):
     dev = _cuda()
-    args, _, _ = warp_scene
+    args, _, _, _ = warp_scene
     args = _on(dev, args)
     with pytest.raises(ValueError, match="float32"):
         W.backward_warp(args[0][..., :3].contiguous(), *args[1:])

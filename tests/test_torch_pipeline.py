@@ -240,6 +240,21 @@ def test_other_blenders_render(ref, blender):
     assert _psnr(mosaic, jm) >= 70.0
 
 
+@pytest.mark.parametrize("opts", [
+    dict(equalize=True), dict(crop=True),
+    dict(projection="cylindrical", crop=True),
+], ids=["equalize", "crop", "cylindrical-crop"])
+def test_render_options_same_regions_match_jax(ref, opts):
+    """-e, -c and the cylindrical projection from the same registration:
+    the mosaic's shape exactly (crop included) and >= 70 dB."""
+    from pano360_tpu import render as jrender
+    mosaic = trender.stitch(convert.regions_from_jax(ref["regions"]),
+                            device="cpu", **opts)
+    jm = jrender.stitch(ref["regions"], **opts)
+    assert mosaic.shape == jm.shape and min(mosaic.shape[:2]) > 0
+    assert _psnr(mosaic, jm) >= 70.0
+
+
 @pytest.fixture(scope="module")
 def port_run(ref):
     cache = ref["root"] / "port"
@@ -267,6 +282,21 @@ def test_cli_slice_registration_quality(ref, port_run):
         est = regs[i + 1].rot @ regs[i].rot.T
         true = rots[i + 1] @ rots[i].T
         assert np.degrees(_rot_err(est, true)) < 0.5
+
+
+def test_cli_equalize_crop_matches_jax(ref, port_run):
+    """``-e -c`` through both CLIs, each on its own registration (the
+    port's run with JAX's RANSAC draws): the slice's 40-dB bar."""
+    args, _ = port_run
+    flags = ["-s", "1", "-e", "-c"]
+    ours = tcli.run_images(ref["u8"], tcli.build_parser().parse_args(
+        [args.path, *flags, "--cache-dir", args.cache_dir,
+         "--device", "cpu"]), NAME)
+    theirs = jcli.run(jcli.build_parser().parse_args(
+        [str(ref["root"] / "views"), *flags,
+         "--cache-dir", str(ref["jdir"])]))
+    assert ours.dtype == np.uint8 and ours.shape == theirs.shape
+    assert _psnr(ours, theirs) >= 40.0
 
 
 def test_cli_run_from_caches_reproduces(ref, port_run):
