@@ -6,11 +6,15 @@ Usage: ``python3 chip_smoke.py`` (no arguments; needs one CUDA card)
 Phases (any failure exits non-zero):
 
 1. device: CUDA present; torch/CUDA versions, card name and power limit;
-2. build: compile ``pano360_tpu_torch/csrc/*.cu`` with nvcc;
+2. build: compile ``pano360_tpu_torch/csrc/*.cu`` with nvcc, and print
+   ptxas's report (registers, spills) of the octave kernel (its dynamic
+   shared memory per launch is in phase 3);
 3. kernel 1 (octave stack) vs its plain PyTorch version on the card, at
-   every octave of the bench images where the kernel runs (batch 4);
+   every octave of the bench images where the kernel runs (batch 4):
+   bit for bit and no score flip at every octave; each octave's kernel
+   time, its bound and the share of the bound;
 4. kernel 2 (backward warp) vs its plain version at the bench's render
-   layout;
+   layout, its bound, and ``grid_sample``'s gather on its sample grid;
 5. the CLI main path (``cli.run_images``) on the bench dataset (15 views
    of 864x1152, seed 42, overlap 0.45): a cold and a warm run, per-stage
    seconds, peak device memory, kernel launch counts, registration
@@ -24,12 +28,22 @@ Phases (any failure exits non-zero):
       exposures (cold and warm, uncached): 15 of 15 placed, the
       recovered gain ratios of adjacent views, the mip plan (``ok``,
       at least 2 levels), kernel 3 (mip-sampled warp) vs its plain
-      version at that plan and its crop rectangle against the plain
-      warp's, the native crop library loaded;
+      version at that plan (with its bound and ``grid_sample``'s
+      gather), and its crop rectangle against the plain warp's, the
+      native crop library loaded;
    C. ``--max-resolution 4000`` from phase 5's caches: a mosaic wider
       than 1400 px;
    D. ``--projection cylindrical -c`` from the same caches, and kernel 2
       vs its plain version in cylindrical mode at D's layout.
+
+Times: CUDA events over ``REPS`` calls, kernel and plain version in
+turns. ``bound_ms`` is the least time of the same work on an H100
+(bytes over 3.35 TB/s or operations over the f32 peak, counted from this
+run's inputs by the ops modules' ``*_cost`` helpers). ``library_ms``
+times ``torch.nn.functional.grid_sample`` (bilinear, reflection,
+align_corners=False) on each warp's own sample grid, built outside the
+timed window: the gather alone, without the ray mapping, the mask or
+the seam; no PyTorch call computes the octave stack (null).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -46,7 +60,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-BENCH_VIEWS, BENCH_SHAPE, BENCH_OVERLAP, BENCH_SEED = 15, (864, 1152), 0.45, 42
+BENCH_VIEWS, BENCH_SEED = 15, 42     # measure.bench_views's world
 REPS = 5
 # phase 7 B: per-view exposure factors, and the bound on
 # max |log(g_i a_i / (g_j a_j))| over adjacent views. The JAX package's
@@ -81,101 +95,68 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed(fn, reps: int):
-    """Mean ms of ``fn()`` over ``reps`` runs, with CUDA events."""
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def alternate(plain, kernel, reps: int = REPS):
-    """Times of plain and kernel taken in turns (plain, kernel, kernel,
-    plain) after one warm-up of each."""
-    import torch
-    plain()
-    kernel()
-    torch.cuda.synchronize()
-    tp = timed(plain, reps)
-    tk = timed(kernel, reps)
-    tk = (tk + timed(kernel, reps)) / 2
-    tp = (tp + timed(plain, reps)) / 2
-    return tk, tp
-
-
-def bench_dataset(synth):
-    """-> (float BGR views, their uint8 cast, rotations, focal)."""
-    imgs, rots, focal = synth.make_views(
-        n_views=BENCH_VIEWS, shape=BENCH_SHAPE, overlap=BENCH_OVERLAP,
-        seed=BENCH_SEED)
-    return imgs, [(im * 255).astype(np.uint8) for im in imgs], rots, focal
-
-
 def phase_octave(torch, u8):
     from pano360_tpu_torch.features import sift as S
+    from pano360_tpu_torch.measure import alternate, octave_bases
     from pano360_tpu_torch.ops import gauss_octave as G
-    from pano360_tpu_torch.ops.color import bgr2gray
     cfg = S.SiftConfig()
     taps = G.chain_taps(cfg.sigma, cfg.n_layers)
     score_cfg = (0.5 * cfg.contrast_thresh / cfg.n_layers, cfg.edge_thresh,
                  cfg.img_border)
-    stack = torch.as_tensor(np.stack(u8[:4]), device="cuda")
-    octv = S._base_image(bgr2gray(stack.float() / 255.0), cfg)
-    n_oct = S.n_octaves_for(BENCH_SHAPE)
-    worst = {"gauss": 0.0, "dog": 0.0, "score": 0.0}
-    t_kernel = t_plain = 0.0
-    n_shapes = 0
-    for o in range(n_oct):
-        h, w = octv.shape[1:]
-        if not G.reflect_legal(h, w, taps):
-            log(f"  octave {o} {h}x{w}: plain chain (reflect pad not legal)")
-            octv = S._gaussian_stack(octv, cfg)[:, 3, ::2, ::2].contiguous()
-            continue
+    t_kernel = t_plain = bytes_ms = flops_ms = 0.0
+    bases = octave_bases(u8, cfg)
+    for o, octv in bases:
+        n, h, w = octv.shape
         out = G.octave_stack(octv, taps, score_cfg)
         ref = G.octave_stack_ref(octv, taps, score_cfg)
         torch.cuda.synchronize()
-        dg = float((out[0] - ref[0]).abs().max())
-        dd = float((out[1] - ref[1]).abs().max())
-        ds = float((out[2] - ref[2]).abs().max())
-        kz, rz = out[2] > 0, ref[2] > 0
-        n_cand = int(rz.sum())
-        diff = kz != rz
-        n_diff = int(diff.sum())
-        # a flipped candidate must sit where the stencil's inputs (the
-        # 3x3x3 DoG neighbourhood) differ, by at most 1e-6
-        n_far = 0
-        if n_diff:
-            dd3 = torch.nn.functional.max_pool3d(
-                (out[1] - ref[1]).abs()[:, None], 3, 1, padding=1)[:, 0]
-            dd3 = dd3[:, 1:-1]
-            near = (dd3 > 0) & (dd3 <= 1e-6)
-            n_far = int((diff & ~near).sum())
-        log(f"  octave {o} {h}x{w}: max|d| gauss {dg:.3g} dog {dd:.3g} "
-            f"score {ds:.3g}; candidates {n_cand}, flipped {n_diff} "
-            f"(not at a near-tie: {n_far})")
-        check(dg <= 1e-5 and dd <= 1e-5,
-              f"octave_stack octave {o}: gauss/dog differ by {dg}/{dd}")
-        check(n_diff <= 1e-3 * max(n_cand, 1) and n_far == 0,
-              f"octave_stack octave {o}: {n_diff} score flips")
-        worst["gauss"] = max(worst["gauss"], dg)
-        worst["dog"] = max(worst["dog"], dd)
-        worst["score"] = max(worst["score"], ds)
-        tk, tp = alternate(lambda: G.octave_stack_ref(octv, taps, score_cfg),
-                           lambda: G.octave_stack(octv, taps, score_cfg))
-        log(f"    kernel {tk:.3f} ms, plain {tp:.3f} ms")
+        err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        n_cand = int((ref[2] > 0).sum())
+        flips = int(((out[2] > 0) != (ref[2] > 0)).sum())
+        check(err == 0.0 and flips == 0,
+              f"octave_stack octave {o}: max|d| {err}, {flips} score flips")
+        tp, tk = alternate(lambda: G.octave_stack_ref(octv, taps, score_cfg),
+                           lambda: G.octave_stack(octv, taps, score_cfg),
+                           REPS)
+        cost = G.octave_stack_cost(n, h, w, taps)
+        ty, tx, smem = G.kernel_tile(taps, n, h, w)
+        log(f"  octave {o} {h}x{w}: max|d| {err}, candidates {n_cand}, "
+            f"flips {flips}; kernel {tk:.4f} ms, plain {tp:.3f} ms, bound "
+            f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}), share "
+            f"{cost['bound_ms'] / tk:.3f}; tile {ty}x{tx} ({smem} bytes "
+            f"shared), {G.kernel_taps_per_px(n, h, w, taps):.1f} taps per px")
         t_kernel += tk
         t_plain += tp
-        n_shapes += 1
-        octv = ref[0][:, 3, ::2, ::2].contiguous()
+        bytes_ms += cost["bytes_ms"]
+        flops_ms += cost["flops_ms"]
         del out, ref
-    check(n_shapes > 0, "octave_stack ran on no octave")
-    return dict(max_abs_err=max(worst["gauss"], worst["dog"]),
-                ms=t_kernel, plain_ms=t_plain, shapes=n_shapes)
+    check(len(bases) > 0, "octave_stack ran on no octave")
+    bound = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    log(f"  octaves {bases[0][0]}-{bases[-1][0]}: kernel {t_kernel:.4f} ms, "
+        f"plain {t_plain:.3f} ms, bound {bound:.4f} ms ({bound_by}), share "
+        f"{bound / t_kernel:.3f}")
+    return dict(max_abs_err=0.0, ms=t_kernel, plain_ms=t_plain,
+                bound_ms=bound, bound_by=bound_by, library_ms=None)
+
+
+def grid_sample_ms(torch, img_nhwc, x, y):
+    """ms of one ``grid_sample`` (bilinear, reflection, align_corners
+    False) of an (N, H, W, 4) stack at pixel coordinates x, y (N, ph,
+    pw); the grid is built before the timed window."""
+    from pano360_tpu_torch.measure import timed
+    _, h, w, _ = img_nhwc.shape
+    inp = img_nhwc.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([(2 * x + 1) / w - 1, (2 * y + 1) / h - 1],
+                       dim=-1).float().contiguous()
+
+    def run():
+        return torch.nn.functional.grid_sample(
+            inp, grid, mode="bilinear", padding_mode="reflection",
+            align_corners=False)
+    run()
+    torch.cuda.synchronize()
+    return timed(run, REPS)
 
 
 def hold_warp(torch, name, kp, ki, rp, ri, invalid_rgb=False):
@@ -231,13 +212,21 @@ def hold_exact_warp(torch, regions, projection="spherical"):
     from pano360_tpu_torch.ops import warp_kernel as W
     args, kw, _ = warp_args(torch, render, regions, projection,
                             render.MAX_RESOLUTION)
+    from pano360_tpu_torch.measure import alternate
     kp, ki = W.backward_warp(*args, **kw)
     rp, ri = W.backward_warp_ref(*args, **kw)
     err = hold_warp(torch, "backward_warp", kp, ki, rp, ri)
-    tk, tp = alternate(lambda: W.backward_warp_ref(*args, **kw),
-                       lambda: W.backward_warp(*args, **kw))
-    log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms")
-    return dict(max_abs_err=err, ms=tk, plain_ms=tp)
+    tp, tk = alternate(lambda: W.backward_warp_ref(*args, **kw),
+                       lambda: W.backward_warp(*args, **kw), REPS)
+    cost = W.backward_warp_cost(*args, **kw)
+    x, y, _ = W.sample_points(tuple(args[0].shape[1:3]), *args[1:], **kw)
+    lib_ms = grid_sample_ms(torch, args[0], x, y)
+    log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms, bound "
+        f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}: "
+        f"{cost['bytes']} bytes), grid_sample gather {lib_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=tk, plain_ms=tp,
+                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
+                library_ms=lib_ms)
 
 
 def phase_warp(torch, u8, rots, focal):
@@ -354,7 +343,7 @@ def crop_rect(render, native, invalid, lay):
 def phase_options_b(torch, imgs_f):
     """B: -e -c --warp pallas on the bench views at known exposures."""
     from pano360_tpu_torch import cli, render
-    from pano360_tpu_torch._host import native
+    from pano360_tpu_torch import native
     from pano360_tpu_torch.ops import warp_mip as M
     u8 = [(im * a * 255).astype(np.uint8) for im, a in zip(imgs_f, EXPOSURE)]
     flags = ["-s", "1", "--ba", "incr", "-b", "multiband", "-e", "-c",
@@ -402,9 +391,20 @@ def phase_options_b(torch, imgs_f):
     rp, ri = M.backward_warp_mip_ref(*margs, **mkw)
     err = hold_warp(torch, "backward_warp_mip", kp, ki, rp, ri,
                     invalid_rgb=True)
-    tk, tp = alternate(lambda: M.backward_warp_mip_ref(*margs, **mkw),
-                       lambda: M.backward_warp_mip(*margs, **mkw))
-    log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms")
+    from pano360_tpu_torch.measure import alternate
+    tp, tk = alternate(lambda: M.backward_warp_mip_ref(*margs, **mkw),
+                       lambda: M.backward_warp_mip(*margs, **mkw), REPS)
+    cost = M.backward_warp_mip_cost(*margs, **mkw)
+    lib_ms = None
+    if sum(v > 0 for v in levels) == 1:      # one level: one gather
+        lvl = int(np.argmax(levels))
+        x, y, *_ = M.mip_sample_points(mips, *args[1:5], origins, lay.ph,
+                                       lay.pw, hw, **mkw)
+        lib_ms = grid_sample_ms(torch, mips[lvl], x, y)
+    log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms, bound "
+        f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}: "
+        f"{cost['bytes']} bytes), grid_sample gather on level "
+        f"{int(np.argmax(levels))}: {lib_ms} ms")
 
     valid, rect = crop_rect(render, native, ki, lay)
     _, rect_plain = crop_rect(render, native, ri, lay)
@@ -421,6 +421,8 @@ def phase_options_b(torch, imgs_f):
     check(np.abs(rect - rect_plain).max() <= CROP_SLACK_PX,
           f"B: crop {rect} vs the plain warp's {rect_plain}")
     return dict(max_abs_err=err, ms=tk, plain_ms=tp,
+                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
+                library_ms=lib_ms,
                 launches=cold_launches["backward_warp_mip"])
 
 
@@ -493,6 +495,9 @@ def phase_profile(torch, u8, warm_s: float):
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"    {t / 1e3:8.2f} ms {c:6d}x  {name[:90]}")
+    for name, (t, c) in by_name.items():
+        if "octave_stack_kernel" in name:
+            log(f"  octave kernel: {t / 1e3:.2f} ms in {c} launches")
 
 
 def main():
@@ -504,7 +509,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from pano360_tpu_torch import _kernels
-        from pano360_tpu_torch._host import synth
+        from pano360_tpu_torch.measure import bench_views
     except ImportError as exc:
         fail(f"the port package is missing next to this script: {exc}")
     smi = smi_line()
@@ -518,8 +523,12 @@ def main():
     _kernels.lib()
     log(f"  built {', '.join(os.path.relpath(p, ROOT) for p in libs.values())}"
         f" in {time.time() - t0:.1f} s (one nvcc per source, in parallel)")
+    report = [ln.strip() for ln in _kernels.build_log(
+        "gauss_octave").splitlines() if ": Used" in ln or "spill" in ln]
+    check(bool(report), "no ptxas report for gauss_octave.cu")
+    log("  ptxas -v, gauss_octave.cu:" + "\n    ".join([""] + report))
 
-    imgs_f, u8, rots, focal = bench_dataset(synth)
+    imgs_f, u8, rots, focal = bench_views()
     log("phase 3: octave_stack kernel vs plain")
     k1 = phase_octave(torch, u8)
     log("phase 4: backward_warp kernel vs plain")
@@ -537,18 +546,21 @@ def main():
              replaces="pano360_tpu/ops/pallas_gauss.py:285",
              launches=launches["octave_stack"],
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
-             plain_ms=k1["plain_ms"]),
+             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=k1["library_ms"]),
         dict(name="backward_warp", route="cuda",
              source="pano360_tpu_torch/csrc/backward_warp.cu",
              replaces="pano360_tpu/ops/pallas_warp.py:398",
              launches=launches["backward_warp"],
              max_abs_err=max(k2["max_abs_err"], k2c["max_abs_err"]),
-             ms=k2["ms"], plain_ms=k2["plain_ms"]),
+             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=k2["library_ms"]),
         dict(name="backward_warp_mip", route="cuda",
              source="pano360_tpu_torch/csrc/backward_warp_mip.cu",
              replaces="pano360_tpu/ops/pallas_warp.py:398 (n_levels > 1)",
              launches=k3["launches"], max_abs_err=k3["max_abs_err"],
-             ms=k3["ms"], plain_ms=k3["plain_ms"]),
+             ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=k3["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

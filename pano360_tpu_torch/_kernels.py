@@ -9,7 +9,9 @@ repository root and rebuilt when their source, the shared headers
 
 Each C entry point takes raw device pointers, sizes and the CUDA stream
 and returns ``cudaGetLastError()`` after its launch; ``check`` turns a
-non-zero code into an exception.
+non-zero code into an exception. ``build_log`` returns what ``nvcc``
+(with ptxas's ``-v`` report of registers, shared memory and spills)
+printed when it built a library, kept in a ``.log`` file beside it.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ NVCC_FLAGS = [
     # no a*b+c contraction: the blur chain and the warp keep the JAX
     # package's separate multiply-then-add rounding
     "-fmad=false",
+    "-Xptxas=-v",
 ]
 
 _LOCK = threading.Lock()
@@ -100,16 +103,17 @@ def build() -> Dict[str, Path]:
         for stem, path in stale.items():
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
-            procs.append((cmd, tmp, path, subprocess.Popen(
+            procs.append((stem, cmd, tmp, path, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
         errors = []
-        for cmd, tmp, path, proc in procs:
+        for stem, cmd, tmp, path, proc in procs:
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"nvcc failed ({proc.returncode}):\n"
                               f"{' '.join(cmd)}\n{stdout}\n{stderr}")
             else:
+                path.with_suffix(".log").write_text(stdout + stderr)
                 os.replace(tmp, path)
     finally:
         for *_, proc in procs:
@@ -119,6 +123,12 @@ def build() -> Dict[str, Path]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return out
+
+
+def build_log(stem: str) -> str:
+    """What nvcc and ptxas printed when ``csrc/<stem>.cu`` was built."""
+    log = library_path(stem).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def lib() -> types.SimpleNamespace:
@@ -150,4 +160,4 @@ def stream_ptr(device) -> int:
 
 
 __all__ = ["build", "lib", "check", "stream_ptr", "library_path",
-           "BUILD_DIR"]
+           "build_log", "BUILD_DIR", "NVCC_FLAGS"]

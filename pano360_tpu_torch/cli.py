@@ -24,11 +24,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from pano360_tpu_torch import render, resolve_device
-from pano360_tpu_torch._host import StageTimer, profiling
+from pano360_tpu_torch import profiling, render, resolve_device
 from pano360_tpu_torch.imageio import imread, imwrite, list_images
 from pano360_tpu_torch.pipeline import (idx_to_keypoints, matching,
                                         upload_extract)
+from pano360_tpu_torch.profiling import StageTimer
 from pano360_tpu_torch.register import traverse
 
 LOG = logging.getLogger(__name__)

@@ -24,6 +24,18 @@ from pano360_tpu_torch import _kernels
 MAX_TAPS = 64          # per-layer tap capacity of the CUDA kernel
 launches = 0           # CUDA kernel launches (main-path evidence)
 
+# the card's peaks for the bound (NVIDIA H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# operations of one score pixel, as the kernel does them: 27-value max
+# and min (54), the extremum test (4), dxx/dyy (3 each), dxy (4), trace
+# (1), determinant (3), edge test (5), |DoG| (1)
+SCORE_OPS = 78
+
+# the kernel's tile choice (csrc/gauss_octave.cu, pick_tile), mirrored
+_TILE_X_MAX, _TILE_Y_MAX, _BAND, _R_MAX, _SMEM_MAX = 192, 96, 16, 8, 232448
+_SMS = 132             # SMs of an H100 SXM
+
 
 def chain_taps(sigma: float, n_layers: int) -> Tuple[Tuple[float, ...], ...]:
     """The incremental chain's per-layer 1-D taps (f64 -> normalize -> f32)."""
@@ -48,6 +60,94 @@ def chain_halo(taps: Sequence[Sequence[float]]) -> int:
 def reflect_legal(h: int, w: int, taps) -> bool:
     """The single reflect101 extension is defined (halo < min(h, w))."""
     return chain_halo(taps) < min(h, w)
+
+
+def _smem_bytes(ty: int, tx: int, m0: int) -> int:
+    need = tx + 2 * m0
+    pb = need + (33 - need % 32) % 32
+    return 4 * ((ty + 2 * m0) * (tx + 2 * m0) + 3 * (ty + 2) * (tx + 2)
+                + _BAND * pb + _R_MAX)
+
+
+def _block_cost(ty: int, tx: int, ksizes) -> int:
+    """The kernel's issue-time model of one block (``block_cost``)."""
+    cost = 0
+    m = sum(k // 2 for k in ksizes) + 1
+    for k in ksizes:
+        r = 8 if k <= 31 else 4
+        mn = m - k // 2
+        vtasks = -(-(tx + 2 * m) // 32) * (_BAND // r)
+        nch = -(-(tx + 2 * mn) // r)
+        pair = 16 // r
+        htasks = -(-nch // (2 * pair)) * pair
+        bands = -(-(ty + 2 * mn) // _BAND)
+        cost += bands * (-(-vtasks // 4) + -(-htasks // 4)) * (
+            2 * r * k + r + k)
+        m = mn
+    return cost
+
+
+def kernel_tile(taps, n: int, h: int, w: int
+                ) -> Optional[Tuple[int, int, int]]:
+    """The CUDA kernel's (tile height, tile width, shared bytes) for a
+    chain on an (n, h, w) base: of the tiles whose buffers fit a block
+    (width a multiple of 32 up to 192, height a multiple of 8 up to 96),
+    the one whose waves of blocks cost the least by the kernel's issue
+    model; None if none fits."""
+    return _kernel_tile(tuple(len(t) for t in taps), n, h, w)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tile(ksizes, n, h, w):
+    m0 = sum(k // 2 for k in ksizes) + 1
+    best = None
+    for tx in range(_TILE_X_MAX, 31, -32):
+        for ty in range(_TILE_Y_MAX, 7, -8):
+            nbytes = _smem_bytes(ty, tx, m0)
+            if nbytes > _SMEM_MAX:
+                continue
+            blocks = n * -(-h // ty) * -(-w // tx)
+            cost = -(-blocks // _SMS) * _block_cost(ty, tx, ksizes)
+            if best is None or cost < best[0]:
+                best = (cost, ty, tx, nbytes)
+    return None if best is None else best[1:]
+
+
+def kernel_taps_per_px(n: int, h: int, w: int, taps) -> float:
+    """Taps per output pixel the CUDA kernel computes on an (n, h, w)
+    base, counted from its loop bounds: every block blurs its tile and
+    the shrinking ring, the vertical pass over the wider columns."""
+    ty, tx, _ = kernel_tile(taps, n, h, w)
+    m = chain_halo(taps) + 1
+    per_block = 0
+    for t in taps:
+        mn = m - len(t) // 2
+        per_block += len(t) * (ty + 2 * mn) * ((tx + 2 * m) + (tx + 2 * mn))
+        m = mn
+    return per_block * -(-h // ty) * -(-w // tx) / (h * w)
+
+
+def octave_stack_cost(n: int, h: int, w: int, taps, score: bool = True):
+    """The least work of one ``octave_stack`` call on an (n, h, w) base:
+    bytes (the base read once, every output plane written once), float
+    operations (a multiply and an add per tap of both passes, the DoG
+    subtraction, ``SCORE_OPS`` per score pixel) and the bound in ms, the
+    larger of bytes over the H100's memory rate and operations over its
+    f32 peak. -> dict(bytes, flops, bytes_ms, flops_ms, bound_ms,
+    bound_by)."""
+    nl = len(taps)
+    px = n * h * w
+    planes = 1 + (nl + 1) + nl + (nl - 2 if score else 0)
+    nbytes = 4 * px * planes
+    ops = sum(4 * len(t) for t in taps) + nl
+    if score:
+        ops += SCORE_OPS * (nl - 2)
+    flops = px * ops
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bytes=nbytes, flops=flops, bytes_ms=bytes_ms,
+                flops_ms=flops_ms, bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations")
 
 
 def _extrema_score(dog: torch.Tensor, thresh: float, edge_r: float,
@@ -126,9 +226,18 @@ def octave_stack_ref(base: torch.Tensor, taps, score_cfg=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _c_taps(taps):
-    """The kernel's (taps, ksizes) host arrays: (n_lay, MAX_TAPS) f32
-    zero-padded, and the per-layer kernel sizes."""
+def _c_taps(taps, n: int, h: int, w: int):
+    """Checks a chain on an (n, h, w) base once -> the kernel's (taps,
+    ksizes) host arrays: (n_lay, MAX_TAPS) f32 zero-padded, and the
+    per-layer kernel sizes."""
+    if not 3 <= len(taps) <= 8 or max(len(t) for t in taps) > MAX_TAPS:
+        raise ValueError("octave_stack supports 3..8 layers of <= "
+                         f"{MAX_TAPS} taps")
+    if not reflect_legal(h, w, taps):
+        raise ValueError("octave_stack needs halo < min(H, W)")
+    if kernel_tile(taps, n, h, w) is None:
+        raise ValueError(f"octave_stack: halo {chain_halo(taps)} leaves no "
+                         "tile whose buffers fit a block's shared memory")
     nl = len(taps)
     flat = (ctypes.c_float * (nl * MAX_TAPS))()
     for i, t in enumerate(taps):
@@ -136,17 +245,14 @@ def _c_taps(taps):
     return flat, (ctypes.c_int * nl)(*[len(t) for t in taps])
 
 
-def _check_base(base: torch.Tensor, taps) -> None:
+def _check_base(base: torch.Tensor, taps):
+    """-> the kernel's host arrays for this chain and base shape."""
     if base.dtype != torch.float32 or base.ndim != 3:
         raise ValueError("octave_stack takes an (N, H, W) float32 base, got "
                          f"{tuple(base.shape)} {base.dtype}")
     if not base.is_contiguous():
         raise ValueError("octave_stack takes a contiguous base")
-    if not 3 <= len(taps) <= 8 or max(len(t) for t in taps) > MAX_TAPS:
-        raise ValueError("octave_stack supports 3..8 layers of <= "
-                         f"{MAX_TAPS} taps")
-    if not reflect_legal(base.shape[1], base.shape[2], taps):
-        raise ValueError("octave_stack needs halo < min(H, W)")
+    return _c_taps(tuple(map(tuple, taps)), *base.shape)
 
 
 def octave_stack(base: torch.Tensor, taps, score_cfg=None):
@@ -157,10 +263,18 @@ def octave_stack(base: torch.Tensor, taps, score_cfg=None):
         return octave_stack_ref(base, taps, score_cfg)
     if base.device.type != "cuda":
         raise ValueError(f"octave_stack: unsupported device {base.device}")
-    _check_base(base, taps)
+    out = launch(_kernels.lib().p360_octave_stack, base, taps, score_cfg)
+    launches += 1
+    return out
+
+
+def launch(entry, base: torch.Tensor, taps, score_cfg=None):
+    """Run ``entry`` (a ``p360_octave_stack`` C entry point: this
+    package's, or another build of the source with the same interface)
+    on a CUDA base; allocates the outputs. Counts no launch."""
+    c_taps, c_ksizes = _check_base(base, taps)
     n, h, w = base.shape
     nl = len(taps)
-    c_taps, c_ksizes = _c_taps(tuple(tuple(t) for t in taps))
     gauss = torch.empty((n, nl + 1, h, w), dtype=base.dtype,
                         device=base.device)
     dog = torch.empty((n, nl, h, w), dtype=base.dtype, device=base.device)
@@ -170,19 +284,17 @@ def octave_stack(base: torch.Tensor, taps, score_cfg=None):
         thresh, edge_r, border = score_cfg
         score = torch.empty((n, nl - 2, h, w), dtype=base.dtype,
                             device=base.device)
-    code = _kernels.lib().p360_octave_stack(
+    code = entry(
         base.data_ptr(), gauss.data_ptr(), dog.data_ptr(),
         score.data_ptr() if score is not None else None, n, h, w,
-        ctypes.cast(c_taps, ctypes.c_void_p),
-        ctypes.cast(c_ksizes, ctypes.c_void_p), nl,
-        float(thresh), float(edge_r), int(border),
+        c_taps, c_ksizes, nl, float(thresh), float(edge_r), int(border),
         _kernels.stream_ptr(base.device))
     _kernels.check(code, "p360_octave_stack")
-    launches += 1
     if score is None:
         return gauss, dog
     return gauss, dog, score
 
 
 __all__ = ["chain_taps", "chain_halo", "reflect_legal", "octave_stack",
-           "octave_stack_ref"]
+           "octave_stack_ref", "octave_stack_cost", "kernel_tile",
+           "kernel_taps_per_px"]

@@ -19,6 +19,11 @@ from pano360_tpu_torch.geometry import CylProj, SphProj
 from pano360_tpu_torch.ops.warp import reflect_index, safe_floor
 
 launches = 0           # CUDA kernel launches (main-path evidence)
+# float operations of one patch pixel, as the plain version does them:
+# mosaic coordinates (8), the ray (7), K R times it (15), the projection
+# and the validity tests (20), floor and fraction (8), reflect indices
+# (16), the bilinear blend of 4 channels (38), the alpha mask (1)
+OPS_PER_PX = 113
 
 
 def _default_wins(n: int, device) -> torch.Tensor:
@@ -61,6 +66,68 @@ def outside_windows(wins, px, py):
         (py >= wn[:, 3])
 
 
+def sample_points(img_hw, projs, bottoms, resolution, range_min, ph: int,
+                  pw: int, wins=None, period: Optional[int] = None,
+                  cylindrical: bool = False):
+    """Where every patch pixel samples its region, and whether it is
+    invalid: -> (x_pr, y_pr, invalid), each (N, ph, pw)."""
+    h, w = img_hw
+    if wins is None:
+        wins = _default_wins(projs.shape[0], bottoms.device)
+    px, py, xs, ys = mosaic_coords(bottoms, resolution, range_min, ph, pw,
+                                   period)
+    u, v, z = project_rays(projs, xs, ys, cylindrical)
+    mask = z < 0
+    x_pr = u / z + w / 2
+    y_pr = v / z + h / 2
+    mask |= (x_pr < 0) | (x_pr > w - 1) | (y_pr < 0) | (y_pr > h - 1)
+    mask |= outside_windows(wins, px, py)
+    return x_pr, y_pr, mask
+
+
+def _taps(x_pr, y_pr, h: int, w: int):
+    """Bilinear tap rows and columns (BORDER_REFLECT) and fractions:
+    -> ((iy0, iy1, ix0, ix1), fx, fy)."""
+    x0, fx = safe_floor(x_pr, w)
+    y0, fy = safe_floor(y_pr, h)
+    return ((reflect_index(y0, h), reflect_index(y0 + 1, h),
+             reflect_index(x0, w), reflect_index(x0 + 1, w)), fx, fy)
+
+
+def warp_cost(n_px: int, n_texels: int):
+    """The least work of a warp that writes ``n_px`` patch pixels (RGBA
+    f32 and a mask byte) from ``n_texels`` distinct RGBA f32 source
+    texels: bytes (each read once, each output written once), operations
+    (``OPS_PER_PX``) and the bound in ms on the H100 (as
+    ``gauss_octave.octave_stack_cost``)."""
+    from pano360_tpu_torch.ops.gauss_octave import (F32_FLOPS_PER_S,
+                                                    HBM_BYTES_PER_S)
+    nbytes = 16 * n_texels + 17 * n_px
+    flops = OPS_PER_PX * n_px
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bytes=nbytes, flops=flops, bytes_ms=bytes_ms,
+                flops_ms=flops_ms, bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def backward_warp_cost(imgs, projs, bottoms, resolution, range_min,
+                       ph: int, pw: int, wins=None,
+                       period: Optional[int] = None,
+                       cylindrical: bool = False):
+    """``warp_cost`` of one ``backward_warp`` call on these inputs: the
+    texels are the distinct bilinear taps of every patch pixel."""
+    n, h, w, _ = imgs.shape
+    x_pr, y_pr, _ = sample_points((h, w), projs, bottoms, resolution,
+                                  range_min, ph, pw, wins, period,
+                                  cylindrical)
+    (iy0, iy1, ix0, ix1), _, _ = _taps(x_pr, y_pr, h, w)
+    img = torch.arange(n, device=x_pr.device)[:, None, None] * (h * w)
+    idx = torch.stack([img + iy * w + ix for iy in (iy0, iy1)
+                       for ix in (ix0, ix1)])
+    return warp_cost(n * ph * pw, int(torch.unique(idx).numel()))
+
+
 def backward_warp_ref(imgs, projs, bottoms, resolution, range_min,
                       ph: int, pw: int, wins=None,
                       period: Optional[int] = None,
@@ -72,22 +139,11 @@ def backward_warp_ref(imgs, projs, bottoms, resolution, range_min,
     cylindrical projection instead of the spherical one. Returns
     (patches (N, ph, pw, 4), invalid (N, ph, pw) bool)."""
     n, h, w, c = imgs.shape
-    if wins is None:
-        wins = _default_wins(n, imgs.device)
-    px, py, xs, ys = mosaic_coords(bottoms, resolution, range_min, ph, pw,
-                                   period)
-    u, v, z = project_rays(projs, xs, ys, cylindrical)
-    mask = z < 0
-    x_pr = u / z + w / 2
-    y_pr = v / z + h / 2
-    mask |= (x_pr < 0) | (x_pr > w - 1) | (y_pr < 0) | (y_pr > h - 1)
-    mask |= outside_windows(wins, px, py)
-
-    x0, fx = safe_floor(x_pr, w)
-    y0, fy = safe_floor(y_pr, h)
+    x_pr, y_pr, mask = sample_points((h, w), projs, bottoms, resolution,
+                                     range_min, ph, pw, wins, period,
+                                     cylindrical)
+    (iy0, iy1, ix0, ix1), fx, fy = _taps(x_pr, y_pr, h, w)
     fx, fy = fx[..., None], fy[..., None]
-    ix0, ix1 = reflect_index(x0, w), reflect_index(x0 + 1, w)
-    iy0, iy1 = reflect_index(y0, h), reflect_index(y0 + 1, h)
     flat = imgs.reshape(n, h * w, c)
 
     def tap(iy, ix):
@@ -148,4 +204,5 @@ def backward_warp(imgs, projs, bottoms, resolution, range_min,
 
 
 __all__ = ["backward_warp", "backward_warp_ref", "mosaic_coords",
-           "project_rays", "outside_windows"]
+           "project_rays", "outside_windows", "sample_points", "warp_cost",
+           "backward_warp_cost", "OPS_PER_PX"]

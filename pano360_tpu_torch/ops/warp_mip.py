@@ -25,7 +25,8 @@ import torch
 
 from pano360_tpu_torch import _kernels
 from pano360_tpu_torch.ops.warp_kernel import (_default_wins, mosaic_coords,
-                                               outside_windows, project_rays)
+                                               outside_windows, project_rays,
+                                               warp_cost)
 
 TILE_Y = 32
 TILE_X = 128
@@ -193,6 +194,36 @@ def backward_warp_mip_ref(mips: List[torch.Tensor], projs, bottoms,
     windows; period: full-turn width of a periodic canvas. Returns
     (patches (N, ph, pw, 4), invalid (N, ph, pw) bool)."""
     n = mips[0].shape[0]
+    idx, wps, fx, fy, mask = _mip_taps(mips, projs, bottoms, resolution,
+                                       range_min, origins, ph, pw, win_y,
+                                       win_x, img_shape, wins, period,
+                                       cylindrical)
+    fx, fy = fx[..., None], fy[..., None]
+    # all levels of an image in one flat buffer: a pixel's taps index it
+    # at its level's offset and row width
+    flat = torch.cat([m.reshape(n, -1, 4) for m in mips], dim=1)
+
+    def tap(off):
+        i = (idx + off).reshape(n, -1, 1).expand(-1, -1, 4)
+        return torch.gather(flat, 1, i).reshape(n, ph, pw, 4)
+
+    top = tap(0) * (1 - fx) + tap(1) * fx
+    bot = tap(wps) * (1 - fx) + tap(wps + 1) * fx
+    out = top * (1 - fy) + bot * fy
+    out = torch.cat([out[..., :3], (out[..., 3] * (~mask))[..., None]],
+                    dim=-1)
+    return out, mask
+
+
+def mip_sample_points(mips: List[torch.Tensor], projs, bottoms, resolution,
+                      range_min, origins, ph: int, pw: int,
+                      img_shape: Tuple[int, int], wins=None,
+                      period: Optional[int] = None,
+                      cylindrical: bool = False):
+    """Where every patch pixel samples its tile's level, in that level's
+    own pixel coordinates (before the window clamp): -> (x, y, level,
+    oy, ox, invalid), each (N, ph, pw)."""
+    n = mips[0].shape[0]
     dev = mips[0].device
     h, w = img_shape
     if wins is None:
@@ -215,34 +246,51 @@ def backward_warp_mip_ref(mips: List[torch.Tensor], projs, bottoms,
 
     scale = torch.tensor([1.0 / (1 << lv) for lv in range(len(mips))],
                          dtype=torch.float32, device=dev)[lvl]
+    return ((x_pr + 0.5) * scale - 0.5, (y_pr + 0.5) * scale - 0.5, lvl,
+            oy, ox, mask)
 
-    def level_tap(coord, origin, win):
-        c = (coord + 0.5) * scale - 0.5 - origin.to(torch.float32)
+
+def _mip_taps(mips, projs, bottoms, resolution, range_min, origins, ph, pw,
+              win_y, win_x, img_shape, wins, period, cylindrical):
+    """Each pixel's top-left tap as an index into its image's levels laid
+    end to end, its level's row width, the fractions and the invalid
+    mask: -> (idx, wps, fx, fy, invalid)."""
+    dev = mips[0].device
+    cx, cy, lvl, oy, ox, mask = mip_sample_points(
+        mips, projs, bottoms, resolution, range_min, origins, ph, pw,
+        img_shape, wins, period, cylindrical)
+
+    def level_tap(c, origin, win):
+        c = c - origin.to(torch.float32)
         c = torch.nan_to_num(c).clamp(-_COORD_LIM, _COORD_LIM)
         c0 = torch.floor(c)
         return (c0.long().clamp(0, win - 2) + origin), c - c0
 
-    x0, fx = level_tap(x_pr, ox, win_x)
-    y0, fy = level_tap(y_pr, oy, win_y)
-    fx, fy = fx[..., None], fy[..., None]
-
-    # all levels of an image in one flat buffer: a pixel's taps index it
-    # at its level's offset and row width
-    flat = torch.cat([m.reshape(n, -1, 4) for m in mips], dim=1)
+    x0, fx = level_tap(cx, ox, win_x)
+    y0, fy = level_tap(cy, oy, win_y)
     sizes = [m.shape[1] * m.shape[2] for m in mips]
     offs = torch.tensor(np.cumsum([0] + sizes[:-1]), device=dev)[lvl]
     wps = torch.tensor([m.shape[2] for m in mips], device=dev)[lvl]
+    return offs + y0 * wps + x0, wps, fx, fy, mask
 
-    def tap(yy, xx):
-        idx = (offs + yy * wps + xx).reshape(n, -1, 1).expand(-1, -1, 4)
-        return torch.gather(flat, 1, idx).reshape(n, ph, pw, 4)
 
-    top = tap(y0, x0) * (1 - fx) + tap(y0, x0 + 1) * fx
-    bot = tap(y0 + 1, x0) * (1 - fx) + tap(y0 + 1, x0 + 1) * fx
-    out = top * (1 - fy) + bot * fy
-    out = torch.cat([out[..., :3], (out[..., 3] * (~mask))[..., None]],
-                    dim=-1)
-    return out, mask
+def backward_warp_mip_cost(mips: List[torch.Tensor], projs, bottoms,
+                           resolution, range_min, origins, ph: int, pw: int,
+                           win_y: int, win_x: int,
+                           img_shape: Tuple[int, int], wins=None,
+                           period: Optional[int] = None,
+                           cylindrical: bool = False):
+    """``warp_kernel.warp_cost`` of one ``backward_warp_mip`` call on
+    these inputs: the texels are the distinct level taps of every patch
+    pixel (the pyramid's build is not counted)."""
+    n = mips[0].shape[0]
+    idx, wps, _, _, _ = _mip_taps(mips, projs, bottoms, resolution,
+                                  range_min, origins, ph, pw, win_y, win_x,
+                                  img_shape, wins, period, cylindrical)
+    per_img = sum(m.shape[1] * m.shape[2] for m in mips)
+    idx = idx + torch.arange(n, device=idx.device)[:, None, None] * per_img
+    taps = torch.stack([idx, idx + 1, idx + wps, idx + wps + 1])
+    return warp_cost(n * ph * pw, int(torch.unique(taps).numel()))
 
 
 def _check_origins(origins: np.ndarray, n: int, ph: int, pw: int,
@@ -333,5 +381,6 @@ def backward_warp_mip(mips: List[torch.Tensor], projs, bottoms, resolution,
 
 
 __all__ = ["plan_windows", "pad_to_tiling", "build_mips",
-           "backward_warp_mip", "backward_warp_mip_ref", "TILE_Y", "TILE_X",
+           "backward_warp_mip", "backward_warp_mip_ref", "mip_sample_points",
+           "backward_warp_mip_cost", "TILE_Y", "TILE_X",
            "MAX_WIN_Y", "MAX_WIN_X"]

@@ -598,7 +598,7 @@ def stitch(regions: List[PanoImage], blender: str = "multiband",
     out_h, out_w = layout.out_hw
     mosaic = mosaic.cpu().numpy()[:out_h, :out_w]
     if crop:
-        from pano360_tpu_torch._host import native
+        from pano360_tpu_torch import native
         valid = _crop_valid(invalid.cpu().numpy(), layout.bottoms, layout.ph,
                             layout.pw, layout.shape, layout.period)
         mosaic = native.crop_mosaic(mosaic, valid[:out_h, :out_w])

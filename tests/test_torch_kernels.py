@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from pano360_tpu_torch import render
-from pano360_tpu_torch._host import synth
+from pano360_tpu_torch import synth
 from pano360_tpu_torch.features import sift as S
 from pano360_tpu_torch.ops import gauss_octave as G
 from pano360_tpu_torch.ops import warp_kernel as W
@@ -211,18 +211,32 @@ def test_warp_ref_handles_rays_near_horizon():
 # Kernels on the card
 # ---------------------------------------------------------------------------
 
-def _check_octave(base, score_cfg):
+def _check_octave(base, score_cfg, taps=TAPS, exact=False):
+    """The kernel against its plain version: within 1e-5 and 0.1 % score
+    flips, or (``exact``) every output plane bit for bit."""
     before = G.launches
-    outs = G.octave_stack(base, TAPS, score_cfg)
-    refs = G.octave_stack_ref(base, TAPS, score_cfg)
+    outs = G.octave_stack(base, taps, score_cfg)
+    refs = G.octave_stack_ref(base, taps, score_cfg)
     torch.cuda.synchronize()
     assert G.launches == before + 1
+    if exact:
+        assert len(outs) == len(refs)
+        for a, b in zip(outs, refs):
+            assert a.shape == b.shape
+            assert float((a - b).abs().max()) == 0.0
+        return
     for a, b in zip(outs[:2], refs[:2]):
         assert a.shape == b.shape
         assert float((a - b).abs().max()) <= 1e-5
     if score_cfg is not None:
         flips = int(((outs[2] > 0) != (refs[2] > 0)).sum())
         assert flips <= 1e-3 * max(int((refs[2] > 0).sum()), 1)
+
+
+def _gray(shape, n=2, seed=7):
+    """(n, H, W) gray synthetic views at exactly ``shape`` (no upscale)."""
+    imgs, _, _ = synth.make_views(n_views=n, shape=shape, seed=seed)
+    return bgr2gray(torch.as_tensor(np.stack(imgs))).contiguous()
 
 
 @pytest.mark.gpu
@@ -240,6 +254,34 @@ def test_octave_stack_kernel_ragged_tiles(shape, n):
 @pytest.mark.gpu
 def test_octave_stack_kernel_without_score(octave_base):
     _check_octave(octave_base.to(_cuda()), None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers", [4, 5])
+def test_octave_stack_kernel_other_chains_exact(n_layers):
+    """sigma 2.0 with 4 or 5 layers: other tap counts (K 11-25) and a
+    6- or 7-layer chain through the kernel's K dispatch, bit for bit."""
+    taps = G.chain_taps(2.0, n_layers)
+    score_cfg = (0.5 * 0.04 / n_layers, 10.0, 5)
+    _check_octave(_gray((180, 300)).to(_cuda()), score_cfg, taps,
+                  exact=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,shape", [(4, (479, 385)), (4, (801, 287))])
+def test_octave_stack_kernel_tile_edges_exact(n, shape):
+    """Bases one pixel below and above multiples of the 80x96 tile the
+    kernel picks for them (6 x 4 tiles -1/+1 px, 10 x 3 tiles +1/-1 px)."""
+    assert G.kernel_tile(TAPS, n, *shape)[:2] == (80, 96)
+    assert (shape[0] % 80, shape[1] % 96) in ((79, 1), (1, 95))
+    _check_octave(_gray(shape, n=n).to(_cuda()), SCORE_CFG, exact=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n", [((43, 43), 2), ((100, 150), 1)])
+def test_octave_stack_kernel_small_and_single_exact(shape, n):
+    """The smallest legal octave (halo 42 + 1) and a batch of one."""
+    _check_octave(_gray(shape, n=n).to(_cuda()), SCORE_CFG, exact=True)
 
 
 @pytest.mark.gpu

@@ -12,6 +12,7 @@ geometry in float64 to 1e-9.
 """
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,6 +45,7 @@ torch.set_num_threads(1)
 
 DENSE_TOL = 1e-5
 RNG = np.random.default_rng(1234)
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _t(a):
@@ -235,6 +237,51 @@ def test_extrema_score_matches_jax_dense_path(octave_base):
     assert jset == tset and len(jset) > 50
 
 
+BENCH_OCTAVES = [(1728 >> o, 2304 >> o) for o in range(6)]
+
+
+def test_octave_stack_cost_matches_hand_count():
+    """A batch of 4 over octaves 0-5 of a 1728x2304 base: 21.2 Mpx read
+    once and 14 f32 planes written, 1.274 GB, 0.380 ms at 3.35 TB/s; the
+    178 taps per pixel (a multiply and an add each) bound it less."""
+    costs = [TG.octave_stack_cost(4, h, w, TAPS) for h, w in BENCH_OCTAVES]
+    px = 4 * sum(h * w for h, w in BENCH_OCTAVES)
+    nbytes = sum(c["bytes"] for c in costs)
+    assert nbytes == 4 * 15 * px
+    assert abs(nbytes / 1e9 - 1.274) < 5e-4
+    assert abs(sum(c["bound_ms"] for c in costs) - 0.380) < 5e-4
+    assert all(c["bound_by"] == "bytes" for c in costs)
+    assert costs[0]["flops"] == 4 * 1728 * 2304 * (
+        2 * 178 + 5 + 3 * TG.SCORE_OPS)
+    assert sum(c["flops_ms"] for c in costs) < 0.2
+    no_score = TG.octave_stack_cost(4, 1728, 2304, TAPS, score=False)
+    assert no_score["bytes"] == 4 * 12 * 4 * 1728 * 2304
+
+
+def test_kernel_tile_and_taps_per_pixel():
+    """The kernel's tile per launch (its issue model: 80x96 on the
+    largest octaves, smaller tiles on more SMs for the small ones), its
+    overdraw counted from the loop bounds (389.3 taps per pixel on whole
+    80x96 tiles, 396.5 at octave 0, 412 over the bench octaves, against
+    687 for the first version's 32x64 tile), and a tile for every chain
+    the wrapper admits."""
+    tiles = [TG.kernel_tile(TAPS, 4, h, w) for h, w in BENCH_OCTAVES]
+    assert [t[:2] for t in tiles] == [(80, 96), (80, 96), (40, 96),
+                                      (24, 96), (24, 32), (8, 32)]
+    assert tiles[0][2] == 229664 and all(t[2] <= 232448 for t in tiles)
+    assert TG.kernel_taps_per_px(4, 1680, 2304, TAPS) == pytest.approx(
+        389.3, abs=0.05)
+    assert TG.kernel_taps_per_px(4, 1728, 2304, TAPS) == pytest.approx(
+        396.5, abs=0.05)
+    px = sum(h * w for h, w in BENCH_OCTAVES)
+    per_px = sum(TG.kernel_taps_per_px(4, h, w, TAPS) * h * w
+                 for h, w in BENCH_OCTAVES) / px
+    assert 405 < per_px < 420
+    for n_layers, sigma in ((4, 2.0), (5, 2.0), (6, 2.0), (3, 3.0)):
+        assert TG.kernel_tile(TG.chain_taps(sigma, n_layers), 1, 300,
+                              400) is not None
+
+
 # ---------------------------------------------------------------------------
 # Kernel 2: the backward warp
 # ---------------------------------------------------------------------------
@@ -285,6 +332,36 @@ def test_backward_warp_ref_matches_jax_gather(warp_scene):
     assert (tp.numpy()[ji][:, 3] == 0).all()
 
 
+def test_backward_warp_cost_counts_distinct_taps(warp_scene):
+    """The bound's bytes: every distinct source texel the bilinear taps
+    touch (counted here in numpy) read once, RGBA and mask written."""
+    _, rgba, projs, lay, (h, w) = warp_scene
+    bottoms, res, rmin = _warp_args(lay)
+    args = (_t(projs), _t(bottoms), _t(res), _t(rmin), lay.ph, lay.pw)
+    kw = dict(wins=_t(lay.wins.astype(np.float32)), period=lay.period)
+    cost = TW.backward_warp_cost(_t(rgba), *args, **kw)
+    x, y, _ = TW.sample_points((h, w), *args, **kw)
+
+    def taps(c, n):
+        c = np.clip(np.nan_to_num(c.numpy(), nan=0.0, posinf=4.0 * n,
+                                  neginf=-4.0 * n), -4.0 * n, 4.0 * n)
+        c0 = np.floor(c).astype(np.int64)
+        out = []
+        for i in (c0, c0 + 1):
+            m = np.mod(i, 2 * n)
+            out.append(np.where(m < n, m, 2 * n - 1 - m))
+        return out
+
+    k = np.broadcast_to(np.arange(len(rgba))[:, None, None], x.shape)
+    texels = {(kk, iy, ix) for yy in taps(y, h) for xx in taps(x, w)
+              for kk, iy, ix in zip(k.ravel(), yy.ravel(), xx.ravel())}
+    n_px = len(rgba) * lay.ph * lay.pw
+    assert cost["bytes"] == 16 * len(texels) + 17 * n_px
+    assert cost["flops"] == TW.OPS_PER_PX * n_px
+    assert cost["bound_by"] == "bytes"
+    assert cost["bound_ms"] == pytest.approx(cost["bytes"] / 3.35e9)
+
+
 def test_backward_warp_ref_matches_pallas_level0_interpret(warp_scene):
     regions, rgba, projs, lay, hw = warp_scene
     bottoms, res, rmin = _warp_args(lay)
@@ -311,14 +388,74 @@ def test_backward_warp_ref_matches_pallas_level0_interpret(warp_scene):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_no_jax():
+    """Neither by module name nor by file path: after importing the
+    port's entry points and host modules and building the native
+    library, no loaded module is jax or lies under ``pano360_tpu/``."""
     code = ("import sys\n"
+            "from pathlib import Path\n"
+            "import numpy as np\n"
             "import pano360_tpu_torch, pano360_tpu_torch.cli\n"
             "import pano360_tpu_torch.convert, pano360_tpu_torch._kernels\n"
-            "bad = [m for m in sys.modules if m == 'jax' "
+            "from pano360_tpu_torch import native, profiling, render, synth\n"
+            "assert native.largest_rectangle(np.ones((4, 5))) == (0, 0, 3, 4)\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'pano360_tpu') "
             "or m.startswith(('jax.', 'pano360_tpu.'))]\n"
-            "assert not bad, bad\n")
-    subprocess.run([sys.executable, "-c", code], check=True,
-                   cwd=str(__import__("pathlib").Path(__file__).parents[1]))
+            "assert not bad, bad\n"
+            "ref = Path('pano360_tpu').resolve()\n"
+            "files = [Path(getattr(m, '__file__', None) or '/').resolve() "
+            "for m in list(sys.modules.values())]\n"
+            "inside = [str(f) for f in files if ref in f.parents]\n"
+            "assert not inside, inside\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(ROOT))
+
+
+def test_port_synth_equals_jax_synth():
+    from pano360_tpu_torch import synth as tsynth
+    a_imgs, a_rots, a_focal = tsynth.make_views(n_views=3, shape=(48, 64),
+                                                overlap=0.4, seed=11)
+    b_imgs, b_rots, b_focal = synth.make_views(n_views=3, shape=(48, 64),
+                                               overlap=0.4, seed=11)
+    assert a_focal == b_focal
+    assert a_rots.tobytes() == b_rots.tobytes()
+    for a, b in zip(a_imgs, b_imgs):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+def _seeded_mask(seed=21, shape=(37, 53)):
+    """A random valid mask with a large valid core and ragged borders."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random(shape) > 0.04
+    mask[:rng.integers(2, 6)] = False
+    mask[:, -rng.integers(2, 6):] = False
+    return mask
+
+
+@pytest.mark.parametrize("fallback", [False, True])
+def test_port_crop_matches_jax(fallback):
+    from pano360_tpu import native as jnative
+    from pano360_tpu_torch import native as tnative
+    mask = _seeded_mask()
+    mosaic = np.random.default_rng(3).integers(
+        0, 255, mask.shape + (3,), dtype=np.uint8)
+    want = jnative.largest_rectangle(mask)
+    assert want[2] > want[0] and want[3] > want[1]
+    if fallback:
+        assert tnative._largest_rectangle_py(mask.astype(np.uint8)) == want
+        return
+    assert tnative.largest_rectangle(mask) == want
+    np.testing.assert_array_equal(tnative.crop_mosaic(mosaic, mask),
+                                  jnative.crop_mosaic(mosaic, mask))
+
+
+def test_port_native_builds_under_build_dir():
+    from pano360_tpu_torch import native as tnative
+    assert tnative._build() is not None
+    path = tnative.library_path()
+    assert path.exists()
+    assert path.parent == ROOT / "build" / "native"
+    assert (ROOT / "pano360_tpu") not in path.parents
+    assert tnative.SRC.parent == ROOT / "pano360_tpu_torch" / "native"
 
 
 def test_ba_cache_loader_refuses_jax_pickle(tmp_path):

@@ -165,6 +165,38 @@ def test_backward_warp_mip_ref_matches_pallas_interpret(mip_scene):
     assert (tp.numpy()[pi][:, 3] == 0).all()
 
 
+def test_backward_warp_mip_cost_counts_level_taps(mip_scene):
+    """The bound's bytes for the mip warp: the distinct window-clamped
+    level texels (counted here in numpy) read once, RGBA and mask
+    written; at these plans far fewer than four per output pixel."""
+    lay = mip_scene["layout"]
+    origins, _, wy, wx, nl = mip_scene["plan"]
+    args = tuple(_t(a) for a in _mip_args(mip_scene))
+    mips = TM.build_mips(_t(mip_scene["rgba"]), nl, wy, wx)
+    call = (mips, *args, origins, lay.ph, lay.pw)
+    cost = TM.backward_warp_mip_cost(*call, wy, wx, mip_scene["hw"],
+                                     period=lay.period)
+    x, y, lvl, oy, ox, _ = TM.mip_sample_points(*call, mip_scene["hw"],
+                                                period=lay.period)
+
+    def taps(c, o, win):
+        c = np.clip(np.nan_to_num(c.numpy() - o.numpy()), -2.0 ** 24,
+                    2.0 ** 24)
+        c0 = np.clip(np.floor(c).astype(np.int64), 0, win - 2) + o.numpy()
+        return c0, c0 + 1
+
+    k = np.broadcast_to(np.arange(len(mips[0]))[:, None, None], x.shape)
+    lv = lvl.numpy()
+    texels = {(kk, ll, iy, ix) for yy in taps(y, oy, wy)
+              for xx in taps(x, ox, wx)
+              for kk, ll, iy, ix in zip(k.ravel(), lv.ravel(), yy.ravel(),
+                                        xx.ravel())}
+    n_px = len(mips[0]) * lay.ph * lay.pw
+    assert cost["bytes"] == 16 * len(texels) + 17 * n_px
+    assert len(texels) < 4 * n_px
+    assert cost["bound_by"] == "bytes"
+
+
 def test_backward_warp_mip_folds_true_windows(mip_scene):
     """``wins`` invalidates pixels outside each region's true window and
     zeroes their alpha, as ``render._mask_and_blend`` does after the
