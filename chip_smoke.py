@@ -14,30 +14,41 @@ Phases (any failure exits non-zero):
    bit for bit and no score flip at every octave; each octave's kernel
    time, its bound and the share of the bound;
 4. kernel 2 (backward warp) vs its plain version at the bench's render
-   layout, its bound, and ``grid_sample``'s gather on its sample grid;
+   layout, bit for bit with no mask flip: the launch with a prepared
+   plan, the prepare step (host), the device time per launch, the bound
+   and the taps' sector floor, and ``grid_sample``'s gather on its
+   sample grid;
 5. the CLI main path (``cli.run_images``) on the bench dataset (15 views
    of 864x1152, seed 42, overlap 0.45): a cold and a warm run, per-stage
    seconds, peak device memory, kernel launch counts, registration
    accuracy against the synthetic ground truth, and a cached re-run;
 6. profile: one more uncached run of the main path under
-   ``torch.profiler``: device busy time, the device's idle share, and
-   the device operations that take the most time;
+   ``torch.profiler``: device busy time, the device's idle share, the
+   device operations that take the most time, and the octave and warp
+   kernels' entries;
 7. render options, each path with the kernel counts set to 0 just
    before it and read just after:
    B. ``-e -c --warp pallas`` on the bench views at known per-view
       exposures (cold and warm, uncached): 15 of 15 placed, the
       recovered gain ratios of adjacent views, the mip plan (``ok``,
-      at least 2 levels), kernel 3 (mip-sampled warp) vs its plain
-      version at that plan (with its bound and ``grid_sample``'s
-      gather), and its crop rectangle against the plain warp's, the
-      native crop library loaded;
+      at least 2 levels; ``plan_windows`` and ``build_mips`` timed),
+      kernel 3 (mip-sampled warp) vs its plain version at that plan, as
+      kernel 2 in phase 4, and its crop rectangle inside its valid
+      mask, the native crop library loaded;
    C. ``--max-resolution 4000`` from phase 5's caches: a mosaic wider
       than 1400 px;
    D. ``--projection cylindrical -c`` from the same caches, and kernel 2
       vs its plain version in cylindrical mode at D's layout.
 
-Times: CUDA events over ``REPS`` calls, kernel and plain version in
-turns. ``bound_ms`` is the least time of the same work on an H100
+Times: CUDA events over ``REPS`` calls (a warp's and ``grid_sample``'s
+over ``measure.WARP_REPS``), kernel and plain version in turns; a
+warp's ``ms`` is its launch with a prepared plan, its
+``device_ms`` the kernel alone (``torch.profiler``, the L2 flushed
+before each launch, so that the bound's device-memory rate applies;
+back to back it is logged too) and its ``plan_ms``
+the prepare step on the host (once per render; see
+``pano360_tpu_torch.measure``). ``bound_ms`` is the least time of the
+same work on an H100
 (bytes over 3.35 TB/s or operations over the f32 peak, counted from this
 run's inputs by the ops modules' ``*_cost`` helpers). ``library_ms``
 times ``torch.nn.functional.grid_sample`` (bilinear, reflection,
@@ -68,7 +79,6 @@ REPS = 5
 # cameras at 216x288 and 432x576 (CPU); the bound is a few times above.
 EXPOSURE = np.random.default_rng(BENCH_SEED).uniform(0.7, 1.0, BENCH_VIEWS)
 GAIN_LOG_BOUND = 0.01
-CROP_SLACK_PX = 3
 
 
 def fail(msg: str):
@@ -140,100 +150,57 @@ def phase_octave(torch, u8):
                 bound_ms=bound, bound_by=bound_by, library_ms=None)
 
 
-def grid_sample_ms(torch, img_nhwc, x, y):
-    """ms of one ``grid_sample`` (bilinear, reflection, align_corners
-    False) of an (N, H, W, 4) stack at pixel coordinates x, y (N, ph,
-    pw); the grid is built before the timed window."""
-    from pano360_tpu_torch.measure import timed
-    _, h, w, _ = img_nhwc.shape
-    inp = img_nhwc.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([(2 * x + 1) / w - 1, (2 * y + 1) / h - 1],
-                       dim=-1).float().contiguous()
-
-    def run():
-        return torch.nn.functional.grid_sample(
-            inp, grid, mode="bilinear", padding_mode="reflection",
-            align_corners=False)
-    run()
-    torch.cuda.synchronize()
-    return timed(run, REPS)
-
-
-def hold_warp(torch, name, kp, ki, rp, ri, invalid_rgb=False):
-    """Gates of a warp kernel against its plain version: mask flips only
-    on the plain mask's boundary and at most 1e-4 of the pixels, patches
-    within 1e-4 where both are valid (and, with ``invalid_rgb``, the RGB
-    where both are invalid), alpha 0 on invalid pixels. -> max |d|."""
-    torch.cuda.synchronize()
-    diff = ki != ri
-    n_diff = int(diff.sum())
-    pad = torch.nn.functional.pad(ri[:, None].float(), (1, 1, 1, 1),
-                                  mode="replicate")[:, 0]
-    edge = ((pad[:, 1:-1, 2:] != pad[:, 1:-1, 1:-1])
-            | (pad[:, 1:-1, :-2] != pad[:, 1:-1, 1:-1])
-            | (pad[:, 2:, 1:-1] != pad[:, 1:-1, 1:-1])
-            | (pad[:, :-2, 1:-1] != pad[:, 1:-1, 1:-1]))
-    n_inner = int((diff & ~edge).sum())
-    both = ~ki & ~ri
-    err = float((kp - rp)[both].abs().max())
-    if invalid_rgb and bool((ki & ri).any()):
-        err = max(err, float((kp - rp)[ki & ri][:, :3].abs().max()))
-    alpha_bad = float(kp[..., 3][ki].abs().max()) if bool(ki.any()) else 0.0
-    log(f"  mask flips {n_diff} of {ki.numel()} (off the boundary "
-        f"{n_inner}); patch max|d| {err:.3g}; alpha on invalid {alpha_bad}")
-    check(n_diff <= 1e-4 * ki.numel() and n_inner == 0,
-          f"{name}: {n_diff} mask flips ({n_inner} off the boundary)")
-    check(err <= 1e-4, f"{name}: patches differ by {err}")
-    check(alpha_bad == 0.0, f"{name}: alpha nonzero on invalid pixels")
-    return err
+def hold_warp(name, row):
+    """Gates of a warp kernel against its plain version (``measure``'s
+    row): bit for bit, no mask flip, the mask a bool tensor. Logs the
+    times: the launch with a prepared plan, the prepare step, the
+    device time, the plain version, the bound and sector floor,
+    ``grid_sample``."""
+    log(f"  {row['n']} patches of {row['ph']}x{row['pw']}: max|d| "
+        f"{row['max_abs_err']}, mask flips {row['flips']}, invalid "
+        f"{row['invalid_dtype']}; launch {row['ms']:.4f} ms (plan "
+        f"{row['plan_ms'] * 1e3:.1f} us on the host), device "
+        f"{row['device_ms']:.4f} ms with the L2 flushed "
+        f"({row['device_warm_ms']:.4f} back to back), plain "
+        f"{row['plain_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {row['bytes']} "
+        f"bytes; {row['sectors']} sectors, floor "
+        f"{row['sector_floor_ms']:.4f} ms), grid_sample "
+        f"{row['library_ms']} ms; host per call: launch "
+        f"{row['launch_host_ms'] * 1e3:.1f} us, grid_sample "
+        f"{row['library_host_ms'] * 1e3:.1f} us")
+    check(row["identical"] and row["flips"] == 0
+          and row["invalid_dtype"] == "torch.bool",
+          f"{name}: max|d| {row['max_abs_err']}, {row['flips']} mask flips, "
+          f"invalid {row['invalid_dtype']}")
+    return row
 
 
-def warp_args(torch, render, regions, projection, max_resolution):
-    """The exact warp's arguments at a render layout on the card."""
-    from pano360_tpu_torch import geometry
-    proj = geometry.PROJECTIONS[projection]
-    rgba, lay = render.prepare(regions, "multiband", max_resolution,
-                               torch.device("cuda"), projection=proj)
-    t = dict(dtype=torch.float32, device="cuda")
-    args = (rgba, torch.as_tensor(np.stack([r.proj() for r in regions]), **t),
-            torch.as_tensor(lay.bottoms, **t),
-            torch.as_tensor(lay.resolution, **t),
-            torch.as_tensor(lay.im_range[0], **t), lay.ph, lay.pw)
-    kw = dict(wins=torch.as_tensor(lay.wins, **t), period=lay.period,
-              cylindrical=proj is geometry.CylProj)
-    log(f"  layout ({projection}): {len(regions)} patches of "
-        f"{lay.ph}x{lay.pw}, canvas {lay.shape}, period {lay.period}")
-    return args, kw, lay
+def hold_exact_warp(regions, projection="spherical"):
+    """Kernel 2 vs its plain version at a render layout."""
+    from pano360_tpu_torch.measure import measure_exact, warp_inputs
+    rgba, small, lay = warp_inputs(regions, projection)
+    log(f"  layout ({projection}): canvas {lay.shape}, period "
+        f"{lay.period}")
+    row = measure_exact(rgba, small, lay.ph, lay.pw, lay.period,
+                        projection == "cylindrical")
+    row.pop("_out")
+    return hold_warp("backward_warp", row)
 
 
-def hold_exact_warp(torch, regions, projection="spherical"):
-    """Kernel 2 vs its plain version at a render layout, timed in turns."""
-    from pano360_tpu_torch import render
-    from pano360_tpu_torch.ops import warp_kernel as W
-    args, kw, _ = warp_args(torch, render, regions, projection,
-                            render.MAX_RESOLUTION)
-    from pano360_tpu_torch.measure import alternate
-    kp, ki = W.backward_warp(*args, **kw)
-    rp, ri = W.backward_warp_ref(*args, **kw)
-    err = hold_warp(torch, "backward_warp", kp, ki, rp, ri)
-    tp, tk = alternate(lambda: W.backward_warp_ref(*args, **kw),
-                       lambda: W.backward_warp(*args, **kw), REPS)
-    cost = W.backward_warp_cost(*args, **kw)
-    x, y, _ = W.sample_points(tuple(args[0].shape[1:3]), *args[1:], **kw)
-    lib_ms = grid_sample_ms(torch, args[0], x, y)
-    log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms, bound "
-        f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}: "
-        f"{cost['bytes']} bytes), grid_sample gather {lib_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=tk, plain_ms=tp,
-                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
-                library_ms=lib_ms)
+def warp_times(row):
+    """A warp's times for the kernels line: the launch with a prepared
+    plan, the plain version, the bound, ``grid_sample``, the device time
+    per launch and the prepare step (host ms)."""
+    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_ms", "plan_ms")}
 
 
-def phase_warp(torch, u8, rots, focal):
+def phase_warp(u8, rots, focal):
     from pano360_tpu_torch.register import PanoImage
     intr = np.diag([focal, focal, 1.0])
     regions = [PanoImage(im, r, intr.copy()) for im, r in zip(u8, rots)]
-    return hold_exact_warp(torch, regions)
+    return hold_exact_warp(regions)
 
 
 def rel_rot_errors_deg(regs, rots):
@@ -363,9 +330,9 @@ def phase_options_b(torch, imgs_f):
     check(len(regs) == BENCH_VIEWS, f"B: {len(regs)} of {BENCH_VIEWS} placed")
 
     # the gains stitch computed, recomputed from the same registration
-    args, kw, lay = warp_args(torch, render, regs, "spherical",
-                              render.MAX_RESOLUTION)
-    gains = render.estimate_gains(regs, args[0])
+    from pano360_tpu_torch.measure import measure_mip, warp_inputs
+    rgba, small, lay = warp_inputs(regs, "spherical")
+    gains = render.estimate_gains(regs, rgba)
     ga = gains * EXPOSURE
     log_ratio = np.abs(np.log(ga[:-1] / ga[1:]))
     log(f"  gains {np.round(gains, 4).tolist()}; adjacent "
@@ -374,43 +341,21 @@ def phase_options_b(torch, imgs_f):
     check(log_ratio.max() <= GAIN_LOG_BOUND,
           f"B: gain ratios off by {log_ratio.max()}")
 
-    rgba = render.apply_gains(args[0], gains)
-    hw = tuple(rgba.shape[1:3])
-    projs = np.stack([r.proj() for r in regs])
-    origins, ok, wy, wx, nl = M.plan_windows(
-        projs, lay.bottoms, lay.resolution, lay.im_range[0], hw, lay.ph,
-        lay.pw, period=lay.period)
-    levels = np.bincount(origins[..., 2].ravel(), minlength=nl).tolist()
-    log(f"  mip plan: ok {ok}, window {wy}x{wx}, {nl} levels, tiles per "
-        f"level {levels}")
-    check(ok and nl >= 2, f"B: the mip plan has ok {ok}, {nl} levels")
-    mips = M.build_mips(rgba, nl, wy, wx)
-    margs = (mips, *args[1:5], origins, lay.ph, lay.pw, wy, wx, hw)
-    mkw = dict(wins=kw["wins"], period=lay.period)
-    kp, ki = M.backward_warp_mip(*margs, **mkw)
-    rp, ri = M.backward_warp_mip_ref(*margs, **mkw)
-    err = hold_warp(torch, "backward_warp_mip", kp, ki, rp, ri,
-                    invalid_rgb=True)
-    from pano360_tpu_torch.measure import alternate
-    tp, tk = alternate(lambda: M.backward_warp_mip_ref(*margs, **mkw),
-                       lambda: M.backward_warp_mip(*margs, **mkw), REPS)
-    cost = M.backward_warp_mip_cost(*margs, **mkw)
-    lib_ms = None
-    if sum(v > 0 for v in levels) == 1:      # one level: one gather
-        lvl = int(np.argmax(levels))
-        x, y, *_ = M.mip_sample_points(mips, *args[1:5], origins, lay.ph,
-                                       lay.pw, hw, **mkw)
-        lib_ms = grid_sample_ms(torch, mips[lvl], x, y)
-    log(f"  kernel {tk:.3f} ms, plain {tp:.3f} ms, bound "
-        f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}: "
-        f"{cost['bytes']} bytes), grid_sample gather on level "
-        f"{int(np.argmax(levels))}: {lib_ms} ms")
+    row = measure_mip(render.apply_gains(rgba, gains), small, lay)
+    log(f"  mip plan: ok {row['ok']}, window {row['window']}, "
+        f"{row['n_levels']} levels, tiles per level "
+        f"{row['tiles_per_level']}; plan_windows "
+        f"{row['plan_windows_ms'] * 1e3:.1f} us on the host; build_mips "
+        f"{row['build_mips_ms']:.4f} ms ({row['build_mips_device_ms']:.4f} "
+        "ms on the device)")
+    check(row["ok"] and row["n_levels"] >= 2,
+          f"B: the mip plan has ok {row['ok']}, {row['n_levels']} levels")
+    _, invalid = row.pop("_out")
+    hold_warp("backward_warp_mip", row)
 
-    valid, rect = crop_rect(render, native, ki, lay)
-    _, rect_plain = crop_rect(render, native, ri, lay)
+    valid, rect = crop_rect(render, native, invalid, lay)
     top, left, bottom, right = rect
-    log(f"  crop rectangle {rect.tolist()} (plain warp's "
-        f"{rect_plain.tolist()}); native library loaded: "
+    log(f"  crop rectangle {rect.tolist()}; native library loaded: "
         f"{native._build() is not None}")
     check(native._build() is not None, "B: the native crop library did not "
           "load (g++ build failed?)")
@@ -418,12 +363,8 @@ def phase_options_b(torch, imgs_f):
           f"B: cropped mosaic {mosaic.shape} is not the rectangle {rect}")
     check(valid[top:bottom + 1, left:right + 1].all(),
           "B: the crop leaves the valid mask")
-    check(np.abs(rect - rect_plain).max() <= CROP_SLACK_PX,
-          f"B: crop {rect} vs the plain warp's {rect_plain}")
-    return dict(max_abs_err=err, ms=tk, plain_ms=tp,
-                bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
-                library_ms=lib_ms,
-                launches=cold_launches["backward_warp_mip"])
+    row["launches"] = cold_launches["backward_warp_mip"]
+    return row
 
 
 def phase_options(torch, imgs_f, cache5):
@@ -449,7 +390,7 @@ def phase_options(torch, imgs_f, cache5):
     check(mosaic.shape[0] <= lay.out_hw[0] and mosaic.shape[1]
           <= lay.out_hw[1], f"D: crop {mosaic.shape} exceeds {lay.out_hw}")
     log("  D: kernel 2 vs plain in cylindrical mode at D's layout")
-    k2c = hold_exact_warp(torch, regs, "cylindrical")
+    k2c = hold_exact_warp(regs, "cylindrical")
     return k3, k2c
 
 
@@ -495,9 +436,12 @@ def phase_profile(torch, u8, warm_s: float):
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"    {t / 1e3:8.2f} ms {c:6d}x  {name[:90]}")
-    for name, (t, c) in by_name.items():
-        if "octave_stack_kernel" in name:
-            log(f"  octave kernel: {t / 1e3:.2f} ms in {c} launches")
+    for label, key in (("octave kernel", "octave_stack_kernel"),
+                       ("exact warp kernel", "backward_warp_kernel"),
+                       ("mip warp kernel", "backward_warp_mip_kernel")):
+        for name, (t, c) in by_name.items():
+            if key in name:
+                log(f"  {label}: {t / 1e3:.4f} ms in {c} launches")
 
 
 def main():
@@ -532,7 +476,7 @@ def main():
     log("phase 3: octave_stack kernel vs plain")
     k1 = phase_octave(torch, u8)
     log("phase 4: backward_warp kernel vs plain")
-    k2 = phase_warp(torch, u8, rots, focal)
+    k2 = phase_warp(u8, rots, focal)
     log("phase 5: CLI main path on the bench dataset")
     launches, warm_s, cache5 = phase_slice(torch, u8, rots, focal)
     log("phase 6: profile of one more main-path run")
@@ -553,14 +497,12 @@ def main():
              replaces="pano360_tpu/ops/pallas_warp.py:398",
              launches=launches["backward_warp"],
              max_abs_err=max(k2["max_abs_err"], k2c["max_abs_err"]),
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=k2["library_ms"]),
+             **warp_times(k2)),
         dict(name="backward_warp_mip", route="cuda",
              source="pano360_tpu_torch/csrc/backward_warp_mip.cu",
              replaces="pano360_tpu/ops/pallas_warp.py:398 (n_levels > 1)",
              launches=k3["launches"], max_abs_err=k3["max_abs_err"],
-             ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
-             bound_by=k3["bound_by"], library_ms=k3["library_ms"]),
+             **warp_times(k3)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -42,6 +42,24 @@ _LIB: Optional[types.SimpleNamespace] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+MAX_LEVELS = 16        # the mip warp's level capacity (backward_warp_mip.cu)
+
+
+class WarpView(ctypes.Structure):
+    """A warp launch's scalars (``p360::View``, csrc/warp_common.cuh)."""
+    _fields_ = [("n", _I), ("ph", _I), ("pw", _I), ("period", _I),
+                ("cylindrical", _I), ("res_x", _F), ("res_y", _F),
+                ("rmin_x", _F), ("rmin_y", _F)]
+
+
+class MipLaunch(ctypes.Structure):
+    """The mip warp's launch scalars (``MipLaunch``,
+    csrc/backward_warp_mip.cu)."""
+    _fields_ = [("vw", WarpView), ("h", _I), ("w", _I), ("win_y", _I),
+                ("win_x", _I), ("n_levels", _I), ("hp", _I * MAX_LEVELS),
+                ("wp", _I * MAX_LEVELS)]
+
+
 # entry points by source file (csrc/<stem>.cu)
 _SIGNATURES = {
     "gauss_octave": {
@@ -51,18 +69,16 @@ _SIGNATURES = {
                               _F, _F, _I, _P],
     },
     "backward_warp": {
-        # imgs, projs, bottoms, wins, patches, invalid, n, h, w, ph, pw,
-        # res_x, res_y, rmin_x, rmin_y, period, cylindrical, stream
-        "p360_backward_warp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _F, _F, _F, _F, _I, _I, _P],
+        # launch scalars (host), imgs, h, w, params, patches, invalid,
+        # stream
+        "p360_backward_warp": [ctypes.POINTER(WarpView), _P, _I, _I, _P, _P,
+                               _P, _P],
     },
     "backward_warp_mip": {
-        # level_ptrs(host), level_dims(host), n_levels, origins, projs,
-        # bottoms, wins, patches, invalid, n, h, w, ph, pw, win_y, win_x,
-        # res_x, res_y, rmin_x, rmin_y, period, cylindrical, stream
-        "p360_backward_warp_mip": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I,
-                                   _F, _F, _F, _F, _I, _I, _P],
+        # launch scalars (host), level_ptrs (host), origins, params,
+        # patches, invalid, stream
+        "p360_backward_warp_mip": [ctypes.POINTER(MipLaunch), _P, _P, _P,
+                                   _P, _P, _P],
     },
 }
 
@@ -134,6 +150,8 @@ def build_log(stem: str) -> str:
 def lib() -> types.SimpleNamespace:
     """Every kernel entry point by name (libraries built on first call)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             fns = {}
@@ -155,9 +173,14 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA ``device``
+    (the call that PyTorch's own generated kernels launch with)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 __all__ = ["build", "lib", "check", "stream_ptr", "library_path",
-           "build_log", "BUILD_DIR", "NVCC_FLAGS"]
+           "build_log", "BUILD_DIR", "NVCC_FLAGS", "WarpView", "MipLaunch",
+           "MAX_LEVELS"]

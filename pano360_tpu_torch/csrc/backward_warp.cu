@@ -12,26 +12,47 @@
 // sampling with BORDER_REFLECT indexing (ops.warp.reflect_index), alpha
 // zeroed where invalid.
 //
-// What bounds it on an H100: bytes, in scattered 32-byte sectors. Each
-// output pixel reads four RGBA taps (4 x 16 B, shared with neighbours
-// through L2) and writes 16 B plus a mask byte; the ~60 flops of the
-// projection (sinf/tanf/cosf) are small beside that. The design is one
-// thread per output pixel with one 16-byte float4 load per tap straight
-// from the (N, H, W, 4) stack: the card gathers directly, so the TPU
+// What bounds it on an H100: bytes, gathered from device memory. Each
+// output pixel reads four RGBA taps (4 x 16 B) and writes 16 B plus a
+// mask byte. At the bench layout (15 patches of 192x256 from 864x1152
+// views, ~5x minification) the taps touch 2.80 M distinct texels (with
+// the 12.5 MB of output, 57.3 MB: the bound) in 2.06 M distinct 32-byte
+// sectors, 1.66 M 64-byte segments and 0.97 M 128-byte lines: at 5x
+// minification no source row serves two output rows and neighbouring
+// pixels' taps lie 5 texels apart, so a sector carries 1.4 used texels
+// of its two. At the 4000-px cap (~1x) every sector's two texels are
+// used and the kernel comes near its bound; at the bench layout it does
+// not, and `python -m pano360_tpu_torch.measure --warps` prints both
+// (device time with the L2 flushed, against the bound and the sector
+// count).
+//
+// The design: one thread per output pixel, 128 pixels of one row per
+// block, one 16-byte load per tap through the read-only path. The
+// region's K R, patch origin and true window come from one packed
+// parameter row and the launch's scalars by value (warp_kernel.
+// prepare_warp builds both once per render), so a launch waits on no
+// host copy; the mask is written as bool bytes. The mapping runs per
+// pixel (warp_common.cuh col_terms, row_terms): a version with one block
+// per 2-D tile, the trigonometry in per-column and per-row shared tables
+// and eight tap loads in flight per thread measured no faster on the
+// card, as the gather, not the per-pixel chain, sets the time. The TPU
 // kernel's per-tile source windows and one-hot sampling matmuls (needed
-// only because Mosaic has no vector gather) are gone, and the same exact
-// kernel serves every resolution and both projections. Coordinates are
-// clamped in float before the integer conversion, so a ray near z = 0
-// (huge or NaN x_pr) never hits an undefined cast; such pixels are
-// invalid anyway.
+// only because Mosaic has no vector gather) are gone: the card gathers
+// directly, and the same kernel serves every resolution and both
+// projections. Coordinates are clamped in float before the integer
+// conversion, so a ray near z = 0 (huge or NaN x_pr) never hits an
+// undefined cast; such pixels are invalid anyway.
 #include <stdint.h>
 
 #include "warp_common.cuh"
 
 namespace {
 
+constexpr int THREADS = 128;  // patch columns per block
+
 __device__ __forceinline__ int reflect_idx(int i, int n) {
   // cv2.BORDER_REFLECT (fedcba|abcdef|fedcba), any distance
+  if ((unsigned)i < (unsigned)n) return i;
   if (n == 1) return 0;
   const int period = 2 * n;
   int m = i % period;
@@ -39,67 +60,64 @@ __device__ __forceinline__ int reflect_idx(int i, int n) {
   return m < n ? m : period - 1 - m;
 }
 
-__global__ void backward_warp_kernel(
-    const float4* __restrict__ imgs, const float* __restrict__ projs,
-    const float* __restrict__ bottoms, const float* __restrict__ wins,
+__global__ void __launch_bounds__(THREADS) backward_warp_kernel(
+    const float4* __restrict__ imgs, const float* __restrict__ params,
     float4* __restrict__ patches, uint8_t* __restrict__ invalid, int h,
-    int w, int ph, int pw, float res_x, float res_y, float rmin_x,
-    float rmin_y, int period, int cylindrical) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    int w, p360::View vw) {
+  const int x = blockIdx.x * THREADS + threadIdx.x;
   const int y = blockIdx.y;
   const int r = blockIdx.z;
-  if (x >= pw) return;
+  if (x >= vw.pw) return;
 
-  const float px = (float)x + bottoms[2 * r];
-  const float py = (float)y + bottoms[2 * r + 1];
-  const p360::Ray ray = p360::mosaic_ray(projs + 9 * r, px, py, res_x, res_y,
-                                         rmin_x, rmin_y, period, cylindrical);
+  const float* prm = params + p360::PARAM_FLOATS * r;
+  const p360::ColTerms col = p360::col_terms(prm, x, vw);
+  const p360::RowTerms row = p360::row_terms(prm, y, vw);
+  const p360::Ray ray = p360::pixel_ray(col, row);
   const float x_pr = ray.u / ray.z + (float)w * 0.5f;
   const float y_pr = ray.v / ray.z + (float)h * 0.5f;
-  bool bad = ray.z < 0.0f;
-  bad |= (x_pr < 0.0f) | (x_pr > (float)(w - 1)) | (y_pr < 0.0f) |
-         (y_pr > (float)(h - 1));
-  bad |= p360::outside_window(wins + 4 * r, px, py);
-
+  p360::Taps tp;
+  tp.bad = (ray.z < 0.0f) | (x_pr < 0.0f) | (x_pr > (float)(w - 1)) |
+           (y_pr < 0.0f) | (y_pr > (float)(h - 1)) | (col.out != 0) |
+           (row.out != 0);
   const float xc = p360::clamp_coord(x_pr, 4.0f * (float)w);
   const float yc = p360::clamp_coord(y_pr, 4.0f * (float)h);
   const float x0f = floorf(xc);
   const float y0f = floorf(yc);
-  const float fx = xc - x0f;
-  const float fy = yc - y0f;
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const int ix0 = reflect_idx(x0, w);
-  const int ix1 = reflect_idx(x0 + 1, w);
-  const int iy0 = reflect_idx(y0, h);
-  const int iy1 = reflect_idx(y0 + 1, h);
+  tp.fx = xc - x0f;
+  tp.fy = yc - y0f;
+  const int ix = (int)x0f;
+  const int iy = (int)y0f;
+  const int ix0 = reflect_idx(ix, w);
+  const int ix1 = reflect_idx(ix + 1, w);
   const float4* img = imgs + (size_t)r * h * w;
-  const float4 top = p360::lerp4(img[(size_t)iy0 * w + ix0],
-                                 img[(size_t)iy0 * w + ix1], fx);
-  const float4 bot = p360::lerp4(img[(size_t)iy1 * w + ix0],
-                                 img[(size_t)iy1 * w + ix1], fx);
-  float4 out = p360::lerp4(top, bot, fy);
-  if (bad) out.w = 0.0f;
-  const size_t o = ((size_t)r * ph + y) * pw + x;
-  patches[o] = out;
-  invalid[o] = bad ? 1 : 0;
+  const float4* row0 = img + (size_t)reflect_idx(iy, h) * w;
+  const float4* row1 = img + (size_t)reflect_idx(iy + 1, h) * w;
+  tp.t00 = p360::load_tap(row0 + ix0);
+  tp.t01 = p360::load_tap(row0 + ix1);
+  tp.t10 = p360::load_tap(row1 + ix0);
+  tp.t11 = p360::load_tap(row1 + ix1);
+  const size_t o = ((size_t)r * vw.ph + y) * vw.pw + x;
+  patches[o] = p360::blend(tp);
+  invalid[o] = tp.bad ? 1 : 0;
 }
 
 }  // namespace
 
-extern "C" int p360_backward_warp(const float* imgs, const float* projs,
-                                  const float* bottoms, const float* wins,
-                                  float* patches, uint8_t* invalid, int n,
-                                  int h, int w, int ph, int pw, float res_x,
-                                  float res_y, float rmin_x, float rmin_y,
-                                  int period, int cylindrical, void* stream) {
-  if (n <= 0 || ph <= 0 || pw <= 0 || ph > 65535 || n > 65535)
+// vw: the plan's launch scalars (host); params: (n, PARAM_FLOATS)
+// float32 per region on the device (K R, bottom, true window;
+// warp_kernel.prepare_warp packs both); imgs: (n, h, w, 4) float32;
+// invalid: n * ph * pw bytes, written 0/1 (a torch.bool tensor).
+extern "C" int p360_backward_warp(const p360::View* vw, const float* imgs,
+                                  int h, int w, const float* params,
+                                  float* patches, uint8_t* invalid,
+                                  void* stream) {
+  const int n = vw->n, ph = vw->ph, pw = vw->pw;
+  if (n <= 0 || ph <= 0 || pw <= 0 || h <= 0 || w <= 0 || ph > 65535 ||
+      n > 65535)
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const dim3 grid((pw + threads - 1) / threads, ph, n);
-  backward_warp_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(imgs), projs, bottoms, wins,
-      reinterpret_cast<float4*>(patches), invalid, h, w, ph, pw, res_x,
-      res_y, rmin_x, rmin_y, period, cylindrical);
+  const dim3 grid((pw + THREADS - 1) / THREADS, ph, n);
+  backward_warp_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(imgs), params,
+      reinterpret_cast<float4*>(patches), invalid, h, w, *vw);
   return (int)cudaGetLastError();
 }

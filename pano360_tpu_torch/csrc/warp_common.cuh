@@ -1,13 +1,125 @@
 // Device helpers shared by the two backward-warp kernels
 // (backward_warp.cu, backward_warp_mip.cu): the mosaic pixel -> camera
-// ray mapping of pano360_tpu/ops/pallas_warp.py (_tile_coords, _project)
-// and the float-side clamps that keep every float-to-int cast defined.
+// ray mapping of pano360_tpu/ops/pallas_warp.py (_tile_coords, _project),
+// split into per-column and per-row terms, and the float-side clamps that
+// keep every float-to-int cast defined.
+//
+// The ray of mosaic pixel (px, py) is (sin x, t, cos x) with x the
+// column's azimuth (px folded at the periodic seam) and t = tan y (or the
+// height y itself, cylindrical) of the row; K R times it gives
+//   u = (p0 sin x + p1 t) + p2 cos x,  and v, z from rows 1, 2 of K R.
+// Each product depends on the column alone or on the row alone
+// (col_terms, row_terms), so the mip kernel computes sin/cos once per
+// column and tan once per row of its tile into shared tables and each
+// pixel only adds: three sums of the same rounded products in the same
+// order as the plain version (the kernels build with -fmad=false), so
+// the same bits. The exact kernel computes both per pixel.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace p360 {
+
+// One region's parameters as the wrappers' prepare step packs them:
+// K R (row-major), the patch origin [x, y], the true window [lo_x, lo_y,
+// hi_x, hi_y), one pad float.
+constexpr int PARAM_FLOATS = 16;
+
+// A launch's scalars, built once per plan on the host (the wrappers'
+// ctypes structure of the same layout) and passed by value to the
+// kernel.
+struct View {
+  int n, ph, pw;    // regions, patch height and width
+  int period;       // full-turn width of a periodic canvas, or <= 0
+  int cylindrical;  // t = y instead of tan y
+  float res_x, res_y, rmin_x, rmin_y;
+};
+
+// A column's products of K R with sin x and cos x, and whether its px
+// lies outside the region's window in x.
+struct ColTerms {
+  float ux, uz, vx, vz, zx, zz;
+  int out;
+  int pad;
+};
+
+// A row's products of K R with t, and whether its py lies outside the
+// region's window in y.
+struct alignas(16) RowTerms {
+  float uy, vy, zy;
+  int out;
+};
+
+// Patch column x's terms; `prm`: the region's PARAM_FLOATS.
+__device__ __forceinline__ ColTerms col_terms(const float* __restrict__ prm,
+                                              int x, const View& vw) {
+  const float px = (float)x + prm[9];
+  const float px_s =
+      (vw.period > 0 && px >= (float)vw.period) ? px - (float)vw.period : px;
+  const float xs = px_s * vw.res_x + vw.rmin_x;
+  const float sx = sinf(xs);
+  const float cx = cosf(xs);
+  ColTerms c;
+  c.ux = prm[0] * sx;
+  c.uz = prm[2] * cx;
+  c.vx = prm[3] * sx;
+  c.vz = prm[5] * cx;
+  c.zx = prm[6] * sx;
+  c.zz = prm[8] * cx;
+  c.out = (px < prm[11]) | (px >= prm[13]);
+  c.pad = 0;
+  return c;
+}
+
+// Patch row y's terms.
+__device__ __forceinline__ RowTerms row_terms(const float* __restrict__ prm,
+                                              int y, const View& vw) {
+  const float py = (float)y + prm[10];
+  const float ys = py * vw.res_y + vw.rmin_y;
+  const float ty = vw.cylindrical ? ys : tanf(ys);
+  RowTerms r;
+  r.uy = prm[1] * ty;
+  r.vy = prm[4] * ty;
+  r.zy = prm[7] * ty;
+  r.out = (py < prm[12]) | (py >= prm[14]);
+  return r;
+}
+
+// A tile's tables: its TX columns' and TY rows' terms.
+template <int TX, int TY>
+struct Terms {
+  ColTerms col[TX];
+  RowTerms row[TY];
+};
+
+// Thread t < TX of the block builds column x0 + t's terms, thread
+// TX <= t < TX + TY row y0 + t - TX's; the others do nothing. The caller
+// synchronises the block afterwards.
+template <int TX, int TY>
+__device__ __forceinline__ void build_terms(Terms<TX, TY>& s,
+                                            const float* __restrict__ prm,
+                                            int x0, int y0, int t,
+                                            const View& vw) {
+  if (t < TX)
+    s.col[t] = col_terms(prm, x0 + t, vw);
+  else if (t < TX + TY)
+    s.row[t - TX] = row_terms(prm, y0 + t - TX, vw);
+}
+
+// K R times the ray of one pixel, from its column's and row's terms.
+struct Ray {
+  float u, v, z;
+};
+
+__device__ __forceinline__ Ray pixel_ray(const ColTerms& c,
+                                         const RowTerms& r) {
+  Ray ray;
+  ray.u = (c.ux + r.uy) + c.uz;
+  ray.v = (c.vx + r.vy) + c.vz;
+  ray.z = (c.zx + r.zy) + c.zz;
+  return ray;
+}
 
 // v clamped into [-lim, lim] (NaN -> 0) before a floor and int cast; the
 // callers pick lim so that every sample they keep is left unchanged.
@@ -22,37 +134,25 @@ __device__ __forceinline__ float4 lerp4(float4 a, float4 b, float f) {
                      a.z * g + b.z * f, a.w * g + b.w * f);
 }
 
-// K R times the ray of mosaic pixel (px, py): columns past the periodic
-// seam (period > 0) sample at their final column's azimuth; the ray is
-// (sin x, tan y, cos x) spherical, (sin x, y, cos x) cylindrical. Each
-// product is rounded before its sum (the kernels build with -fmad=false),
-// in the JAX package's order.
-struct Ray {
-  float u, v, z;
+// One output pixel's four taps, fractions and validity, between the
+// gather and the blend.
+struct Taps {
+  float4 t00, t01, t10, t11;
+  float fx, fy;
+  bool bad;
 };
 
-__device__ __forceinline__ Ray mosaic_ray(const float* p, float px, float py,
-                                          float res_x, float res_y,
-                                          float rmin_x, float rmin_y,
-                                          int period, int cylindrical) {
-  const float px_s =
-      (period > 0 && px >= (float)period) ? px - (float)period : px;
-  const float xs = px_s * res_x + rmin_x;
-  const float ys = py * res_y + rmin_y;
-  const float sx = sinf(xs);
-  const float ty = cylindrical ? ys : tanf(ys);
-  const float cx = cosf(xs);
-  Ray ray;
-  ray.u = p[0] * sx + p[1] * ty + p[2] * cx;
-  ray.v = p[3] * sx + p[4] * ty + p[5] * cx;
-  ray.z = p[6] * sx + p[7] * ty + p[8] * cx;
-  return ray;
+// One tap, through the read-only path.
+__device__ __forceinline__ float4 load_tap(const float4* p) {
+  return __ldg(p);
 }
 
-// The region's true window [lo_x, lo_y, hi_x, hi_y) in mosaic pixels.
-__device__ __forceinline__ bool outside_window(const float* win, float px,
-                                               float py) {
-  return (px < win[0]) | (py < win[1]) | (px >= win[2]) | (py >= win[3]);
+__device__ __forceinline__ float4 blend(const Taps& p) {
+  const float4 top = lerp4(p.t00, p.t01, p.fx);
+  const float4 bot = lerp4(p.t10, p.t11, p.fx);
+  float4 out = lerp4(top, bot, p.fy);
+  if (p.bad) out.w = 0.0f;
+  return out;
 }
 
 }  // namespace p360

@@ -1,21 +1,42 @@
 """Measurement on the card: CUDA-event timing in turns, the bench
-octave bases, and (as a script) the octave-stack kernel against another
-build of its source.
+octave bases, the warps at the bench layouts, and (as a script) the
+octave-stack kernel or the two warps against other builds of their
+sources.
 
 Usage, on a CUDA machine::
 
     python -m pano360_tpu_torch.measure [--against A.cu [B.cu ...]]
+    python -m pano360_tpu_torch.measure --warps [--before DIR]
 
-builds ``csrc/gauss_octave.cu`` (and each ``--against`` source: an
-octave-stack source with the same ``p360_octave_stack`` C interface,
-e.g. an earlier version or a variant), checks each bit for bit against
-the plain version at the bench octaves (4 views of 864x1152, seed 42,
-2x upscaled SIFT base, octaves 0-5), times this one per wrapper call
-(CUDA events) and per launch on the device (``torch.profiler``), and
+The first form builds ``csrc/gauss_octave.cu`` (and each ``--against``
+source: an octave-stack source with the same ``p360_octave_stack`` C
+interface, e.g. an earlier version or a variant), checks each bit for bit
+against the plain version at the bench octaves (4 views of 864x1152,
+seed 42, 2x upscaled SIFT base, octaves 0-5), times this one per wrapper
+call (CUDA events) and per launch on the device (``torch.profiler``), and
 times each other build against this one in turns (this, other, other,
 this) with CUDA events over ``REPS`` calls. Prints ptxas's report of
 each build, one line per octave and a JSON summary; exits non-zero if
 this source's kernel differs from the plain version.
+
+``--warps`` does the same for the two backward warps on the 15-view bench
+world with its true cameras: at the 1400-px cap the exact warp spherical
+(``chip_smoke.py`` phase 4's layout) and cylindrical (phase 7 D's
+projection), and the mip-sampled warp at the ``--warp pallas`` plan
+(phase 7 B's: every tile at level 2); the exact warp also at the 4000-px
+cap (phase 7 C's layout, ~1x minification, where the taps' texels fill
+their sectors). For each: the launch with a
+prepared plan (CUDA events over back-to-back launches), the prepare step
+alone (host), the device time per launch (``torch.profiler``; with
+the L2 flushed before each launch, and back to back), the bound and the
+distinct 32-byte sectors of the taps, ``grid_sample`` on the warp's own
+sample grid, and bit-identity to the plain version; for the mip plan
+also ``plan_windows`` (host) and ``build_mips`` (per call and on the
+device). ``--before DIR``: a checkout of the package as it was before
+the warp plans (``prepare_warp``), whose C entry points take their small
+arguments as device arrays; its two warp sources are timed in turns
+with this tree's, and its ``plan_windows`` beside this one. A checkout
+with the plans is refused: its entry points have this tree's interface.
 """
 from __future__ import annotations
 
@@ -25,6 +46,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +54,9 @@ import torch
 
 BENCH_VIEWS, BENCH_SHAPE, BENCH_OVERLAP, BENCH_SEED = 15, (864, 1152), 0.45, 42
 REPS = 10
+# back-to-back launches per timing of a warp (and of grid_sample beside
+# it): enough that the first launch's host latency weighs little
+WARP_REPS = 50
 
 
 def timed(fn, reps: int) -> float:
@@ -46,17 +71,55 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, name: str, reps: int) -> float:
-    """Mean device time in ms of the kernels whose name holds ``name``
-    over ``reps`` runs of ``fn`` (``torch.profiler``): the launches
-    without the host work around them."""
+def flush_l2():
+    """Read a buffer five times the size of the H100's 50 MB L2, so that
+    the next kernel finds none of its inputs there and leaves no dirty
+    line to write back: its device time is then held to the bytes it must
+    move from device memory, which ``bound_ms`` counts."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.ones(64 << 20, device="cuda")
+    _FLUSH.sum()
+
+
+_FLUSH = None
+
+
+def device_ms(fn, name: str, reps: int, tries: int = 3,
+              flush: bool = False) -> float:
+    """Mean device time in ms of the kernel whose name holds ``name``
+    per call of ``fn`` (``torch.profiler``): the launch without the host
+    work around it; with ``flush``, each call after ``flush_l2``. Each
+    session runs ``reps`` calls more than it keeps: the profiler can miss
+    a session's first device entries, so the last ``reps`` are averaged; a
+    session that kept fewer is run again (up to ``tries`` times) and then
+    raises."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
-    return sum(us) / max(len(us), 1) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * reps):
+                if flush:
+                    flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.elapsed_us())
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and name in e.name)
+        if len(ev) >= reps:
+            return sum(us for _, us in ev[-reps:]) / reps / 1e3
+    raise RuntimeError(f"device_ms: {len(ev)} device entries named {name!r} "
+                       f"for {2 * reps} calls")
+
+
+def device_turns(first, second, name: str, reps: int, flush: bool = False):
+    """``device_ms`` of two functions in turns (first, second, second,
+    first) -> (ms first, ms second)."""
+    t1 = device_ms(first, name, reps, flush=flush)
+    t2 = device_ms(second, name, reps, flush=flush)
+    t2 = (t2 + device_ms(second, name, reps, flush=flush)) / 2
+    return (t1 + device_ms(first, name, reps, flush=flush)) / 2, t2
 
 
 def alternate(first, second, reps: int):
@@ -106,23 +169,395 @@ def octave_bases(u8, cfg=None, device="cuda"):
     return out
 
 
-def build_other(src: Path):
-    """Compile another octave-stack source with the package's flags into
-    ``build/kernels/`` -> (its ``p360_octave_stack`` entry, nvcc output)."""
+def build_others(srcs):
+    """Compile other CUDA sources with the package's flags into
+    ``build/kernels/``, one ``nvcc`` each, all at once -> {src: (shared
+    library handle, nvcc output)}."""
     from pano360_tpu_torch import _kernels
-    digest = hashlib.sha256(src.read_bytes())
-    digest.update(" ".join(_kernels.NVCC_FLAGS).encode())
-    out = _kernels.BUILD_DIR / f"libp360_other_{digest.hexdigest()[:16]}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o",
-                           str(out), str(src)], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(out)).p360_octave_stack
-    fn.argtypes = _kernels._SIGNATURES["gauss_octave"]["p360_octave_stack"]
+    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in srcs:
+        digest = hashlib.sha256(src.read_bytes())
+        for hdr in sorted(src.parent.glob("*.cuh")):
+            digest.update(hdr.read_bytes())
+        digest.update(" ".join(_kernels.NVCC_FLAGS).encode())
+        out = _kernels.BUILD_DIR / \
+            f"libp360_other_{digest.hexdigest()[:16]}.so"
+        procs[src] = (out, subprocess.Popen(
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(out),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    built = {}
+    for src, (out, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{stderr}")
+        built[src] = (ctypes.CDLL(str(out)), stdout + stderr)
+    return built
+
+
+def entry(handle, name: str, argtypes):
+    fn = getattr(handle, name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return fn, proc.stdout + proc.stderr
+    return fn
+
+
+def build_other(src: Path):
+    """Compile another octave-stack source -> (its ``p360_octave_stack``
+    entry, nvcc output)."""
+    from pano360_tpu_torch import _kernels
+    handle, log = build_others([src])[src]
+    return entry(handle, "p360_octave_stack",
+                 _kernels._SIGNATURES["gauss_octave"]["p360_octave_stack"]), \
+        log
+
+
+# the warps' C entry points before plans (their small arguments as device
+# arrays), for --before
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+BEFORE_SIGNATURES = {
+    # imgs, projs, bottoms, wins, patches, invalid, n, h, w, ph, pw,
+    # res_x, res_y, rmin_x, rmin_y, period, cylindrical, stream
+    "p360_backward_warp": [_P] * 6 + [_I] * 5 + [_F] * 4 + [_I, _I, _P],
+    # level_ptrs(host), level_dims(host), n_levels, origins (N, nty, ntx,
+    # 3) int32, projs, bottoms, wins, patches, invalid, n, h, w, ph, pw,
+    # win_y, win_x, res_x, res_y, rmin_x, rmin_y, period, cylindrical,
+    # stream
+    "p360_backward_warp_mip": [_P, _P, _I] + [_P] * 6 + [_I] * 7
+    + [_F] * 4 + [_I, _I, _P],
+}
+PLAN_REPS = 50
+HOST_REPS = 200
+
+
+def host_ms(fn, reps: int):
+    """Mean host ms of ``fn()`` over ``reps`` calls (nothing waits for
+    the device) -> (ms, the last result)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return (time.perf_counter() - t0) / reps * 1e3, out
+
+
+def device_total_ms(fn, reps: int) -> float:
+    """Mean device time in ms of everything one ``fn()`` runs on the
+    card (``torch.profiler``): 2 ``reps`` calls in one session, the
+    device entries of the last ``reps`` summed (the profiler can miss a
+    session's first entries)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2 * reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.elapsed_us())
+                for e in prof.events() if e.device_type == DeviceType.CUDA)
+    per_call = max(round(len(ev) / (2 * reps)), 1)
+    return sum(us for _, us in ev[-reps * per_call:]) / reps / 1e3
+
+
+def grid_sample_fn(img_nhwc, x, y):
+    """One ``grid_sample`` (bilinear, reflection, align_corners False) of
+    an (N, H, W, 4) stack at pixel coordinates x, y (N, ph, pw), as a
+    function; the input and the grid are built here, outside any timed
+    window."""
+    _, h, w, _ = img_nhwc.shape
+    inp = img_nhwc.permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([(2 * x + 1) / w - 1, (2 * y + 1) / h - 1],
+                       dim=-1).float().contiguous()
+
+    def run():
+        return torch.nn.functional.grid_sample(
+            inp, grid, mode="bilinear", padding_mode="reflection",
+            align_corners=False)
+    return run
+
+
+def warp_inputs(regions, projection="spherical", max_resolution=1400):
+    """A render's warp inputs on the card: -> (RGBA stack (N, H, W, 4)
+    on the device, host small arguments (projs, bottoms, wins,
+    resolution, range_min), layout)."""
+    from pano360_tpu_torch import geometry, render
+    proj = geometry.PROJECTIONS[projection]
+    rgba, lay = render.prepare(regions, "multiband", max_resolution,
+                               torch.device("cuda"), projection=proj)
+    projs = np.stack([r.proj() for r in regions])
+    return rgba, (projs, lay.bottoms, lay.wins, lay.resolution,
+                  lay.im_range[0]), lay
+
+
+def _against(row, kernel, others, name, reps):
+    """Each other launch (name -> fn) in turns with ``kernel``: wrapper
+    ms and device ms (this, other, other, this), and bit-identity of its
+    output to ``row``'s plain version (``others`` give (patches,
+    invalid))."""
+    ref = row.pop("_ref")
+    for label, fn in others.items():
+        kp, ki = fn()
+        torch.cuda.synchronize()
+        o = dict(identical=torch.equal(kp, ref[0])
+                 and torch.equal(ki.bool(), ref[1]))
+        o["this_ms"], o["ms"] = alternate(kernel, fn, reps)
+        o["this_device_ms"], o["device_ms"] = device_turns(
+            kernel, fn, name, reps, flush=True)
+        row[label] = o
+
+
+def _gate(row, kp, ki, rp, ri):
+    torch.cuda.synchronize()
+    row.update(identical=torch.equal(kp, rp) and torch.equal(ki, ri),
+               flips=int((ki != ri).sum()),
+               max_abs_err=float((kp - rp).abs().max()),
+               invalid_dtype=str(ki.dtype), _out=(kp, ki), _ref=(rp, ri))
+
+
+def _launch_times(row, kernel, library, reps):
+    """The kernel's launch and the library call in turns (CUDA events
+    over back-to-back calls: ``ms``, ``library_ms``), and each one's host
+    time per call, nothing waiting for the device (``launch_host_ms``,
+    ``library_host_ms``)."""
+    row["ms"], row["library_ms"] = alternate(kernel, library, reps)
+    row["launch_host_ms"] = host_ms(kernel, HOST_REPS)[0]
+    row["library_host_ms"] = host_ms(library, HOST_REPS)[0]
+    torch.cuda.synchronize()
+
+
+def _device_times(row, kernel, name, reps):
+    """The kernel's device ms per launch with the L2 flushed before each
+    (``device_ms``, held to ``bound_ms``) and back to back, its inputs
+    partly left in L2 by the launch before (``device_warm_ms``)."""
+    row["device_ms"] = device_ms(kernel, name, reps, flush=True)
+    row["device_warm_ms"] = device_ms(kernel, name, reps)
+
+
+def _cost(row, cost):
+    row.update({k: cost[k] for k in ("bytes", "bound_ms", "bound_by",
+                                     "sectors", "sector_floor_ms",
+                                     "segments_64", "segments_128")})
+
+
+def measure_exact(imgs, small, ph: int, pw: int, period, cylindrical: bool,
+                  reps: int = WARP_REPS, others=None):
+    """One exact-warp case on the card -> a dict: the prepare step's host
+    ms (``plan_ms``), the launch with that plan (``ms``, in turns with
+    ``grid_sample`` on the same sample grid: ``library_ms``), the plain
+    version (``plain_ms``), the kernel's device ms per launch,
+    bit-identity and mask flips, the bound and the sector floor, the
+    kernel's outputs (``_out``); ``others``: other launches (name -> fn)
+    timed in turns with this one."""
+    from pano360_tpu_torch.ops import warp_kernel as W
+    projs, bottoms, wins, res, rmin = small
+    kw = dict(wins=wins, period=period, cylindrical=cylindrical)
+    plan_ms, plan = host_ms(lambda: W.prepare_warp(
+        projs, bottoms, wins, res, rmin, ph, pw, period, cylindrical,
+        imgs.device), PLAN_REPS)
+
+    def kernel():
+        return W.launch_warp(imgs, plan)
+
+    def plain():
+        return W.backward_warp_ref(imgs, projs, bottoms, res, rmin, ph, pw,
+                                   **kw)
+    row = dict(n=len(projs), ph=ph, pw=pw, cylindrical=cylindrical,
+               plan_ms=plan_ms)
+    _gate(row, *kernel(), *plain())
+    row["plain_ms"] = timed(plain, reps)
+    _device_times(row, kernel, "backward_warp_kernel", reps)
+    _cost(row, W.backward_warp_cost(imgs, projs, bottoms, res, rmin, ph, pw,
+                                    **kw))
+    p_d, b_d, w_d = W.on_device(imgs.device, projs, bottoms, wins)
+    x, y, _ = W.sample_points(tuple(imgs.shape[1:3]), p_d, b_d, res, rmin,
+                              ph, pw, w_d, period, cylindrical)
+    _launch_times(row, kernel, grid_sample_fn(imgs, x, y), reps)
+    _against(row, kernel, others or {}, "backward_warp_kernel", reps)
+    return row
+
+
+def measure_mip(rgba, small, lay, reps: int = WARP_REPS, others=None,
+                before_plan=None):
+    """The mip-sampled warp at the ``--warp pallas`` plan of a spherical
+    layout, as ``measure_exact``; also ``plan_windows`` (host ms, and
+    ``before_plan``'s beside it), ``build_mips`` (per call and on the
+    device), the plan's levels, and ``grid_sample`` on the level's grid
+    when every tile samples one level. ``others``: name -> a function of
+    (levels, plan) that binds another launch."""
+    from pano360_tpu_torch.ops import warp_mip as M
+    projs, bottoms, wins, res, rmin = small
+    hw = tuple(rgba.shape[1:3])
+    args = (projs, bottoms, res, rmin, hw, lay.ph, lay.pw)
+    kw = dict(period=lay.period)
+    row = dict(n=len(projs), ph=lay.ph, pw=lay.pw)
+    row["plan_windows_ms"], (origins, ok, wy, wx, nl) = host_ms(
+        lambda: M.plan_windows(*args, **kw), PLAN_REPS)
+    if before_plan is not None:
+        row["before_plan_windows_ms"], theirs = host_ms(
+            lambda: before_plan(*args, **kw), PLAN_REPS)
+        row["plan_identical"] = bool(np.array_equal(theirs[0], origins)
+                                     and theirs[1:] == (ok, wy, wx, nl))
+    levels = np.bincount(origins[..., 2].ravel(), minlength=nl).tolist()
+    row.update(ok=bool(ok), window=(wy, wx), n_levels=nl,
+               tiles_per_level=levels)
+
+    def mips_fn():
+        return M.build_mips(rgba, nl, wy, wx)
+    mips = mips_fn()
+    row["build_mips_ms"] = timed(mips_fn, reps)
+    row["build_mips_device_ms"] = device_total_ms(mips_fn, reps)
+    dims = [m.shape[1:3] for m in mips]
+    row["plan_ms"], plan = host_ms(lambda: M.prepare_mip_warp(
+        projs, bottoms, wins, res, rmin, origins, lay.ph, lay.pw, wy, wx, hw,
+        dims, lay.period, False, rgba.device), PLAN_REPS)
+
+    def kernel():
+        return M.launch_mip_warp(mips, plan)
+
+    margs = (mips, projs, bottoms, res, rmin, origins, lay.ph, lay.pw, wy,
+             wx, hw)
+
+    def plain():
+        return M.backward_warp_mip_ref(*margs, wins=wins, **kw)
+    _gate(row, *kernel(), *plain())
+    row["plain_ms"] = timed(plain, reps)
+    _device_times(row, kernel, "backward_warp_mip_kernel", reps)
+    _cost(row, M.backward_warp_mip_cost(*margs, wins=wins, **kw))
+    if sum(v > 0 for v in levels) == 1:       # one level: one gather
+        x, y, *_ = M.mip_sample_points(mips, projs, bottoms, res, rmin,
+                                       origins, lay.ph, lay.pw, hw, wins,
+                                       **kw)
+        _launch_times(row, kernel, grid_sample_fn(
+            mips[int(np.argmax(levels))], x, y), reps)
+    else:
+        row["ms"], row["library_ms"] = timed(kernel, reps), None
+    _against(row, kernel, {k: bind(mips, plan)
+                           for k, bind in (others or {}).items()},
+             "backward_warp_mip_kernel", reps)
+    return row
+
+
+def _before_exact(fn, imgs, small, ph, pw, period, cylindrical):
+    """A launch of the exact warp's entry before plans, its small
+    arguments uploaded once (outside the timed window)."""
+    from pano360_tpu_torch import _kernels
+    from pano360_tpu_torch.ops import warp_kernel as W
+    projs, bottoms, wins, res, rmin = small
+    dev = imgs.device
+    p_d, b_d, w_d = W.on_device(dev, projs, bottoms, wins)
+    res, rmin = [float(v) for v in np.float32(res)], \
+        [float(v) for v in np.float32(rmin)]
+    n, h, w, _ = imgs.shape
+
+    def run():
+        patches = torch.empty((n, ph, pw, 4), device=dev)
+        invalid = torch.empty((n, ph, pw), dtype=torch.uint8, device=dev)
+        _kernels.check(fn(imgs.data_ptr(), p_d.data_ptr(), b_d.data_ptr(),
+                          w_d.data_ptr(), patches.data_ptr(),
+                          invalid.data_ptr(), n, h, w, ph, pw, *res, *rmin,
+                          -1 if period is None else period,
+                          int(cylindrical), _kernels.stream_ptr(dev)),
+                       "before")
+        return patches, invalid
+    return run
+
+
+def _before_mip(fn):
+    """A function of (levels, plan) that binds a launch of the mip warp's
+    entry before plans, its small arguments uploaded once from the
+    plan."""
+    from pano360_tpu_torch import _kernels
+
+    def bind(mips, plan):
+        dev = plan.device
+        org = torch.as_tensor(plan.origins.astype(np.int32), device=dev)
+        projs = plan.projs.contiguous()
+        bottoms = plan.bottoms.contiguous()
+        wins = plan.wins.contiguous()
+        h, w = plan.img_shape
+        dims = (ctypes.c_int * (2 * len(plan.dims)))(
+            *[d for hw in plan.dims for d in hw])
+
+        def run():
+            ptrs = (ctypes.c_void_p * len(mips))(*[m.data_ptr()
+                                                   for m in mips])
+            patches = torch.empty((plan.n, plan.ph, plan.pw, 4), device=dev)
+            invalid = torch.empty((plan.n, plan.ph, plan.pw),
+                                  dtype=torch.uint8, device=dev)
+            _kernels.check(fn(
+                ptrs, dims, len(mips), org.data_ptr(),
+                projs.data_ptr(), bottoms.data_ptr(), wins.data_ptr(),
+                patches.data_ptr(), invalid.data_ptr(), plan.n, h, w,
+                plan.ph, plan.pw, *plan.win, *plan.res, *plan.rmin,
+                -1 if plan.period is None else plan.period,
+                int(plan.cylindrical), _kernels.stream_ptr(dev)), "before")
+            return patches, invalid
+        return run
+    return bind
+
+
+def _load_module(path: Path, name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _before_entries(tree: Path):
+    """The warps of an older checkout of the package, built here ->
+    (exact entry, mip entry, its ``plan_windows``)."""
+    pkg = tree / "pano360_tpu_torch"
+    if "def prepare_warp" in (pkg / "ops" / "warp_kernel.py").read_text():
+        sys.exit(f"measure: {tree} has the warp plans; --before takes a "
+                 "checkout from before them")
+    srcs = [pkg / "csrc" / "backward_warp.cu",
+            pkg / "csrc" / "backward_warp_mip.cu"]
+    built = build_others(srcs)
+    for src in srcs:
+        print(f"ptxas, {src}:\n{built[src][1]}", flush=True)
+    exact, mip = [entry(built[src][0], name, BEFORE_SIGNATURES[name])
+                  for src, name in zip(srcs, ("p360_backward_warp",
+                                              "p360_backward_warp_mip"))]
+    return exact, mip, _load_module(pkg / "ops" / "warp_mip.py",
+                                    "p360_before_warp_mip").plan_windows
+
+
+def warps_main(args, smi: str):
+    from pano360_tpu_torch import _kernels
+    from pano360_tpu_torch.register import PanoImage
+    _kernels.lib()
+    for stem in ("backward_warp", "backward_warp_mip"):
+        print(f"ptxas, {stem}.cu:\n" + _kernels.build_log(stem), flush=True)
+    before = None if args.before is None else _before_entries(args.before)
+
+    imgs_f, u8, rots, focal = bench_views()
+    intr = np.diag([focal, focal, 1.0])
+    regions = [PanoImage(im, r, intr.copy()) for im, r in zip(u8, rots)]
+    rows = {}
+    for projection, cap in (("spherical", 1400), ("cylindrical", 1400),
+                            ("spherical", 4000)):
+        rgba, small, lay = warp_inputs(regions, projection, cap)
+        cyl = projection == "cylindrical"
+        others = {} if before is None else {"before": _before_exact(
+            before[0], rgba, small, lay.ph, lay.pw, lay.period, cyl)}
+        key = f"exact_{projection}" + ("" if cap == 1400 else f"_{cap}")
+        rows[key] = measure_exact(rgba, small, lay.ph, lay.pw, lay.period,
+                                  cyl, others=others)
+        rows[key].pop("_out")
+        print(json.dumps({key: rows[key]}), flush=True)
+        del rgba
+    rgba, small, lay = warp_inputs(regions, "spherical")
+    rows["mip"] = measure_mip(
+        rgba, small, lay,
+        others={} if before is None else {"before": _before_mip(before[1])},
+        before_plan=None if before is None else before[2])
+    rows["mip"].pop("_out")
+    print(json.dumps({"mip": rows["mip"]}), flush=True)
+    summary = dict(card=smi, identical=all(r["identical"]
+                                           for r in rows.values()))
+    print(json.dumps(summary), flush=True)
+    if not summary["identical"]:
+        sys.exit("measure: a warp kernel differs from its plain version")
 
 
 def _identical(outs, refs) -> bool:
@@ -134,6 +569,11 @@ def main(argv=None):
     parser.add_argument("--against", type=Path, nargs="*", default=[],
                         help="other gauss_octave.cu sources to time beside "
                         "this one")
+    parser.add_argument("--warps", action="store_true",
+                        help="time the two backward warps instead")
+    parser.add_argument("--before", type=Path, default=None,
+                        help="with --warps: a checkout of the package from "
+                        "before the warp plans, timed in turns with this one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("measure: needs a CUDA device")
@@ -145,6 +585,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}", flush=True)
+    if args.warps:
+        return warps_main(args, smi)
     this = _kernels.lib().p360_octave_stack
     print("ptxas, this source:\n" + _kernels.build_log("gauss_octave"))
     others = []

@@ -6,8 +6,8 @@ and patch-window layout, periodic-seam bookkeeping, the per-pair overlap
 windows and the f64 gain solve, the crop rectangle) in numpy, exactly as
 the JAX package computes them; the device runs the border projection,
 the weights, the pairwise overlap warps, the backward warp (the CUDA
-kernels on the card: ``ops.warp_kernel.backward_warp``, exact, and
-``ops.warp_mip.backward_warp_mip``, mip-sampled for ``warp="pallas"``)
+kernels on the card: ``ops.warp_kernel.launch_warp``, exact, and
+``ops.warp_mip.launch_mip_warp``, mip-sampled for ``warp="pallas"``)
 and the blend. Multiband blends bands from DoGs of each patch with
 sigma = sqrt(2l+1)*4 and sharp argmax-weight seams; periodic canvases
 paste on an x-extended canvas and fold the spilled strip back.
@@ -23,9 +23,9 @@ import torch
 from pano360_tpu_torch import geometry as geo
 from pano360_tpu_torch.ops.filters import gaussian_blur
 from pano360_tpu_torch.ops.warp import bilinear_taps, perspective_maps
-from pano360_tpu_torch.ops.warp_kernel import backward_warp
-from pano360_tpu_torch.ops.warp_mip import (backward_warp_mip, build_mips,
-                                            plan_windows)
+from pano360_tpu_torch.ops.warp_kernel import launch_warp, prepare_warp
+from pano360_tpu_torch.ops.warp_mip import (build_mips, launch_mip_warp,
+                                            plan_windows, prepare_mip_warp)
 from pano360_tpu_torch.register import PanoImage
 
 MAX_RESOLUTION = 1400
@@ -538,7 +538,11 @@ def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
                  layout: MosaicLayout, projection=geo.SphProj,
                  warp: str = "auto"):
     """Backward-warp every region into its patch: -> (patches (N, ph,
-    pw, 4), invalid (N, ph, pw)), alpha zeroed where invalid.
+    pw, 4), invalid (N, ph, pw) bool), alpha zeroed where invalid. Each
+    warp's plan goes to the card in one copy that does not wait, so no
+    step from the host inputs to the returned patches waits for the
+    card (the ``gpu`` test holds it to PyTorch's sync-debug mode and to
+    a profiler trace of the CUDA runtime calls).
 
     ``warp``: "auto" and "xla" take the exact kernel at any resolution;
     "pallas" takes the mip-sampled kernel at ``plan_windows``'s levels,
@@ -548,13 +552,9 @@ def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
     if warp not in WARP_POLICIES:
         raise ValueError(f"warp must be one of {WARP_POLICIES}, got {warp!r}")
     cyl = projection is geo.CylProj
-    t = dict(dtype=torch.float32, device=imgs_rgba.device)
-    args = (torch.as_tensor(projs, **t),
-            torch.as_tensor(layout.bottoms, **t),
-            torch.as_tensor(layout.resolution, **t),
-            torch.as_tensor(layout.im_range[0], **t))
-    kw = dict(wins=torch.as_tensor(layout.wins, **t), period=layout.period,
-              cylindrical=cyl)
+    dev = imgs_rgba.device
+    args = (projs, layout.bottoms, layout.wins, layout.resolution,
+            layout.im_range[0])
     if warp == "pallas":
         hw = tuple(imgs_rgba.shape[1:3])
         origins, ok, win_y, win_x, n_levels = plan_windows(
@@ -562,12 +562,15 @@ def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
             layout.ph, layout.pw, period=layout.period, cylindrical=cyl)
         if ok:
             mips = build_mips(imgs_rgba, n_levels, win_y, win_x)
-            return backward_warp_mip(mips, *args, origins, layout.ph,
-                                     layout.pw, win_y, win_x, hw, **kw)
+            plan = prepare_mip_warp(
+                *args, origins, layout.ph, layout.pw, win_y, win_x, hw,
+                [m.shape[1:3] for m in mips], layout.period, cyl, dev)
+            return launch_mip_warp(mips, plan)
         LOG.warning("pallas warp requested but a tile source window "
                     "cannot fit the window caps at any mip level; using "
                     "the exact warp")
-    return backward_warp(imgs_rgba, *args, layout.ph, layout.pw, **kw)
+    plan = prepare_warp(*args, layout.ph, layout.pw, layout.period, cyl, dev)
+    return launch_warp(imgs_rgba, plan)
 
 
 def stitch(regions: List[PanoImage], blender: str = "multiband",

@@ -8,10 +8,10 @@ they run on a GPU machine (which has no jax) with
 
 Tolerances on the card: Gaussian and DoG layers 1e-5 (separate
 multiply and add in both versions; the kernel is built with
--fmad=false), score flips <= 0.1% of candidates, warp masks (exact and
-mip-sampled) equal on >= 99.99% of pixels and patches within 1e-4 where
-both are valid (the mip warp's RGB also where both are invalid: the
-multiband blender blurs it into valid pixels).
+-fmad=false), score flips <= 0.1% of candidates; both warps (exact and
+mip-sampled) bit for bit, patches and masks (the same products summed
+in the same order, -fmad=false, IEEE divisions, the accurate sinf, cosf
+and tanf).
 """
 import math
 
@@ -26,7 +26,8 @@ from pano360_tpu_torch.ops import gauss_octave as G
 from pano360_tpu_torch.ops import warp_kernel as W
 from pano360_tpu_torch.ops import warp_mip as M
 from pano360_tpu_torch.ops.color import bgr2gray
-from pano360_tpu_torch.register import PanoImage
+from torch_warp_scenes import (mip_call, mip_scene, regions,  # noqa: F401
+                               warp_scene, warp_setup)
 
 torch.set_num_threads(1)
 
@@ -51,81 +52,6 @@ def _base(shape, n=2, seed=5):
 def octave_base():
     """A 2x256x256 SIFT base image of a synthetic view."""
     return _base((128, 128))
-
-
-def _regions(n_views, shape, overlap, seed=5):
-    imgs, rots, focal = synth.make_views(n_views=n_views, shape=shape,
-                                         overlap=overlap, seed=seed)
-    intr = np.diag([focal, focal, 1.0])
-    return [PanoImage((im * 255).astype(np.uint8), r, intr.copy())
-            for im, r in zip(imgs, rots)]
-
-
-def _warp_setup(regions, max_resolution, projection=None):
-    """(rgba, projs, bottoms, resolution, range_min), layout, numpy projs
-    of a render of ``regions`` (CPU tensors)."""
-    from pano360_tpu_torch import geometry
-    proj = geometry.PROJECTIONS[projection or "spherical"]
-    rgba, lay = render.prepare(regions, "multiband", max_resolution, "cpu",
-                               projection=proj)
-    projs = np.stack([r.proj() for r in regions])
-    t = dict(dtype=torch.float32)
-    args = (rgba, torch.as_tensor(projs, **t),
-            torch.as_tensor(lay.bottoms, **t),
-            torch.as_tensor(lay.resolution, **t),
-            torch.as_tensor(lay.im_range[0], **t))
-    return args, lay, projs
-
-
-@pytest.fixture(scope="module", params=["spherical", "cylindrical"])
-def warp_scene(request):
-    """Ground-truth cameras of a 3-view sweep and their render layout."""
-    args, lay, _ = _warp_setup(_regions(3, (120, 160), 0.5), 1400,
-                               request.param)
-    wins = torch.as_tensor(lay.wins, dtype=torch.float32)
-    return args + (lay.ph, lay.pw), wins, lay.period, \
-        request.param == "cylindrical"
-
-
-# two views of 300x700 under a 120-px cap (aperiodic), and a 401-degree
-# sweep of eight 120x320 views on a periodic 400-px canvas
-MIP_SCENES = {"aperiodic": ((2, (300, 700), 0.5), 120),
-              "periodic": ((8, (120, 320), 0.1), 400)}
-
-
-@pytest.fixture(scope="module", params=sorted(MIP_SCENES))
-def mip_scene(request):
-    """A mip plan whose tiles are spread over levels 0-3 (the plan's own
-    levels replaced by (k + i + j) % 4, origins clamped into each level),
-    on patches cut to ragged sizes (not multiples of the 32x128 tile)."""
-    view_args, max_res = MIP_SCENES[request.param]
-    (rgba, *args), lay, projs = _warp_setup(_regions(*view_args), max_res)
-    ph, pw = lay.ph - 3, lay.pw - 5
-    origins, ok, wy, wx, nl = M.plan_windows(
-        projs, lay.bottoms, lay.resolution, lay.im_range[0], rgba.shape[1:3],
-        ph, pw, period=lay.period)
-    assert ok and nl >= 2
-    mips = M.build_mips(rgba, 4, wy, wx)
-    k, i, j = np.meshgrid(*(np.arange(s) for s in origins.shape[:3]),
-                          indexing="ij")
-    lvl = (k + i + j) % 4
-    hp = np.array([m.shape[1] for m in mips])[lvl]
-    wp = np.array([m.shape[2] for m in mips])[lvl]
-    origins[..., 0] = np.minimum(origins[..., 0], hp - wy) // 8 * 8
-    origins[..., 1] = np.minimum(origins[..., 1], wp - wx) // 128 * 128
-    origins[..., 2] = lvl
-    wins = torch.as_tensor(lay.wins, dtype=torch.float32)
-    return dict(mips=mips, args=args, origins=origins, ph=ph, pw=pw,
-                win=(wy, wx), hw=tuple(rgba.shape[1:3]), wins=wins,
-                period=lay.period)
-
-
-def _mip_call(fn, sc, dev="cpu", **over):
-    kw = dict(sc, **over)
-    return fn([m.to(dev) for m in kw["mips"]],
-              *[a.to(dev) for a in kw["args"]], kw["origins"], kw["ph"],
-              kw["pw"], *kw["win"], kw["hw"], wins=kw["wins"].to(dev),
-              period=kw["period"])
 
 
 def _on(dev, args):
@@ -170,8 +96,8 @@ def test_backward_warp_cpu_tensor_takes_plain_version(warp_scene):
 
 def test_backward_warp_mip_cpu_tensor_takes_plain_version(mip_scene):
     before = M.launches
-    a = _mip_call(M.backward_warp_mip, mip_scene)
-    b = _mip_call(M.backward_warp_mip_ref, mip_scene)
+    a = mip_call(M.backward_warp_mip, mip_scene)
+    b = mip_call(M.backward_warp_mip_ref, mip_scene)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert M.launches == before
     assert (~a[1]).sum() > 500
@@ -189,9 +115,9 @@ def test_backward_warp_mip_rejects_bad_origins(mip_scene):
                            (org[..., :2], "origins must be"),
                            (org.astype(np.float32), "integer")):
         with pytest.raises(ValueError, match=match):
-            _mip_call(M.backward_warp_mip, mip_scene, origins=origins)
+            mip_call(M.backward_warp_mip, mip_scene, origins=origins)
     with pytest.raises(ValueError, match="unsupported device"):
-        _mip_call(M.backward_warp_mip, mip_scene, dev="meta")
+        mip_call(M.backward_warp_mip, mip_scene, dev="meta")
 
 
 def test_warp_ref_handles_rays_near_horizon():
@@ -295,63 +221,218 @@ def test_octave_stack_kernel_rejects_bad_input(octave_base):
         G.octave_stack(torch.zeros((1, 40, 80), device=dev), TAPS)
 
 
+def _equal_warps(kernel, plain, min_valid):
+    """The kernel's (patches, invalid) equal the plain version's bit for
+    bit, the mask a bool tensor from the kernel, no flip."""
+    (kp, ki), (rp, ri) = kernel, plain
+    torch.cuda.synchronize()
+    assert ki.dtype == torch.bool and ki.shape == ri.shape
+    assert int((ki != ri).sum()) == 0
+    assert torch.equal(kp, rp)
+    assert int((~ki).sum()) > min_valid
+
+
+def _exact_case(warp_scene, case):
+    """(imgs on the card, host small args, keywords) of one exact-warp
+    case built from a warp scene."""
+    (rgba, projs, bottoms, res, rmin, ph, pw), wins, period, cyl = warp_scene
+    if case == "ragged":          # neither side a multiple of the tile
+        ph, pw = ph - 3, pw - 5
+    elif case == "single":        # N = 1
+        rgba, projs, bottoms, wins = rgba[1:2], projs[1:2], bottoms[1:2], \
+            wins[1:2]
+    elif case == "narrow":        # pw < 32: one partial tile column
+        pw = 20
+        bottoms = bottoms + torch.tensor([30.0, 0.0])
+    elif case == "many":          # N = 64 regions
+        k = torch.arange(64) % len(projs)
+        rgba, projs, wins = rgba[k].contiguous(), projs[k], wins[k]
+        bottoms = bottoms[k] + torch.stack(
+            [torch.arange(64.0) % 7, torch.zeros(64)], 1)
+    elif case == "periodic":      # a seam-crossing window
+        period = pw // 3 + 7
+    return ((rgba.to(_cuda()), projs, bottoms, res, rmin, ph, pw),
+            dict(wins=wins, period=period, cylindrical=cyl))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("periodic", [False, True])
 def test_backward_warp_kernel_matches_plain_on_card(warp_scene, periodic):
-    dev = _cuda()
-    args, wins, period, cyl = warp_scene
-    args = _on(dev, args)
-    kw = dict(wins=wins.to(dev), period=period, cylindrical=cyl)
-    if periodic:      # a seam-crossing window: fold columns past 1/3 turn
-        kw["period"] = args[-1] // 3 + 7
-    kp, ki = W.backward_warp(*args, **kw)
-    rp, ri = W.backward_warp_ref(*args, **kw)
+    args, kw = _exact_case(warp_scene, "periodic" if periodic else "")
+    before = W.launches
+    kernel = W.backward_warp(*args, **kw)
+    assert W.launches == before + 1
+    _equal_warps(kernel, W.backward_warp_ref(*args, **kw), 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged", "single", "narrow", "many"])
+def test_backward_warp_kernel_shapes_exact(warp_scene, case):
+    """Patches whose sides are not tile multiples, one region, a patch
+    narrower than a tile, 64 regions; spherical and cylindrical."""
+    args, kw = _exact_case(warp_scene, case)
+    _equal_warps(W.backward_warp(*args, **kw),
+                 W.backward_warp_ref(*args, **kw), 100)
+
+
+@pytest.mark.gpu
+def test_backward_warp_plan_reused_same_bits(warp_scene):
+    (imgs, *small, ph, pw), kw = _exact_case(warp_scene, "periodic")
+    plan = W.prepare_warp(small[0], small[1], kw["wins"], *small[2:], ph, pw,
+                          kw["period"], kw["cylindrical"])
+    first = W.launch_warp(imgs, plan)
+    other = W.launch_warp(imgs.flip(0).contiguous(), plan)
+    again = W.launch_warp(imgs, plan)
     torch.cuda.synchronize()
-    assert float((ki != ri).float().mean()) <= 1e-4
-    both = ~ki & ~ri
-    assert int(both.sum()) > 1000
-    assert float((kp - rp)[both].abs().max()) <= 1e-4
-    assert float(kp[ki][:, 3].abs().max()) == 0.0
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+    assert not torch.equal(first[0], other[0])
 
 
 @pytest.mark.gpu
 def test_backward_warp_mip_kernel_matches_plain_on_card(mip_scene):
     dev = _cuda()
     before = M.launches
-    kp, ki = _mip_call(M.backward_warp_mip, mip_scene, dev)
-    rp, ri = _mip_call(M.backward_warp_mip_ref, mip_scene, dev)
-    torch.cuda.synchronize()
+    kernel = mip_call(M.backward_warp_mip, mip_scene, dev)
     assert M.launches == before + 1
-    assert float((ki != ri).float().mean()) <= 1e-4
-    both = ~ki & ~ri
-    assert int(both.sum()) > 500
-    assert float((kp - rp)[both].abs().max()) <= 1e-4
-    neither = ki & ri
-    assert float((kp - rp)[neither][:, :3].abs().max()) <= 1e-4
-    assert float(kp[ki][:, 3].abs().max()) == 0.0
+    _equal_warps(kernel, mip_call(M.backward_warp_mip_ref, mip_scene, dev),
+                 500)
+
+
+def _mip_case(sc, case):
+    """A mip scene cut to one case: N = 1, pw < 32, or 64 regions."""
+    sc = dict(sc)
+    projs, bottoms, res, rmin = sc["args"]
+    if case == "single":
+        sc["mips"] = [m[1:2] for m in sc["mips"]]
+        sc["args"] = [projs[1:2], bottoms[1:2], res, rmin]
+        sc["origins"], sc["wins"] = sc["origins"][1:2], sc["wins"][1:2]
+    elif case == "narrow":
+        sc["pw"] = 20
+        sc["origins"] = np.ascontiguousarray(sc["origins"][:, :, :1])
+    elif case == "many":
+        k = np.arange(64) % len(projs)
+        sc["mips"] = [m[k].contiguous() for m in sc["mips"]]
+        sc["args"] = [projs[k], bottoms[k], res, rmin]
+        sc["origins"], sc["wins"] = sc["origins"][k], sc["wins"][k]
+    return sc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["single", "narrow", "many"])
+def test_backward_warp_mip_kernel_shapes_exact(mip_scene, case):
+    """One region, a patch narrower than a tile, 64 regions (every scene
+    has ragged patch sides; the periodic scene folds at its seam)."""
+    dev = _cuda()
+    sc = _mip_case(mip_scene, case)
+    _equal_warps(mip_call(M.backward_warp_mip, sc, dev),
+                 mip_call(M.backward_warp_mip_ref, sc, dev), 100)
+
+
+@pytest.mark.gpu
+def test_backward_warp_mip_plan_reused_same_bits(mip_scene):
+    dev = _cuda()
+    sc = mip_scene
+    mips = [m.to(dev) for m in sc["mips"]]
+    projs, bottoms, res, rmin = sc["args"]
+    plan = M.prepare_mip_warp(projs, bottoms, sc["wins"], res, rmin,
+                              sc["origins"], sc["ph"], sc["pw"], *sc["win"],
+                              sc["hw"], [m.shape[1:3] for m in mips],
+                              sc["period"])
+    first = M.launch_mip_warp(mips, plan)
+    again = M.launch_mip_warp(mips, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+
+
+# CUDA runtime calls that make the host wait for the card
+SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+              "cudaMemset", "cudaFreeHost")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warp", ["auto", "pallas"])
+def test_warp_patches_makes_no_host_sync(warp):
+    """From host inputs to the returned patches, under both policies: no
+    synchronisation of the host with the card that PyTorch's sync-debug
+    mode detects (a prototype that does not see every kind), and no
+    synchronising CUDA runtime call in a profiler trace of the call."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from pano360_tpu_torch import geometry
+    dev = _cuda()
+    regs = regions(2, (300, 700), 0.5)
+    (rgba, *_), lay, projs = warp_setup(regs, 120)
+    imgs = rgba.to(dev)
+    assert M.plan_windows(projs, lay.bottoms, lay.resolution,
+                          lay.im_range[0], tuple(rgba.shape[1:3]), lay.ph,
+                          lay.pw)[1], "the scene must plan mip levels"
+    render.warp_patches(imgs, projs, lay, geometry.SphProj, warp)  # warm-up
+    torch.cuda.synchronize()
+    before = (W.launches, M.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with record_function("p360_warp_patches"):
+                patches, invalid = render.warp_patches(imgs, projs, lay,
+                                                       geometry.SphProj,
+                                                       warp)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the runtime calls made inside the call (the profiler's own start
+    # and stop synchronise the device outside it)
+    span = next(e.time_range for e in prof.events()
+                if e.name == "p360_warp_patches")
+    calls = {e.name for e in prof.events() if e.name.startswith("cuda")
+             and span.start <= e.time_range.start <= span.end}
+    assert "cudaMemcpyAsync" in calls, calls     # the runtime is traced
+    assert not calls & set(SYNC_CALLS), calls
+    counts = (W.launches - before[0], M.launches - before[1])
+    assert counts == ((1, 0) if warp == "auto" else (0, 1))
+    small = (projs, lay.bottoms, lay.resolution, lay.im_range[0])
+    kw = dict(wins=lay.wins, period=lay.period)
+    if warp == "auto":
+        ref = W.backward_warp_ref(imgs, *small, lay.ph, lay.pw, **kw)
+    else:
+        hw = tuple(imgs.shape[1:3])
+        origins, _, wy, wx, nl = M.plan_windows(
+            projs, lay.bottoms, lay.resolution, lay.im_range[0], hw, lay.ph,
+            lay.pw, period=lay.period)
+        ref = M.backward_warp_mip_ref(M.build_mips(imgs, nl, wy, wx), *small,
+                                      origins, lay.ph, lay.pw, wy, wx, hw,
+                                      **kw)
+    _equal_warps((patches, invalid), ref, 1000)
 
 
 @pytest.mark.gpu
 def test_backward_warp_mip_kernel_rejects_bad_input(mip_scene):
     dev = _cuda()
     with pytest.raises(ValueError, match="float32"):
-        _mip_call(M.backward_warp_mip, mip_scene, dev,
-                  mips=[m.double() for m in mip_scene["mips"]])
+        mip_call(M.backward_warp_mip, mip_scene, dev,
+                 mips=[m.double() for m in mip_scene["mips"]])
     with pytest.raises(ValueError, match="projs"):
-        _mip_call(M.backward_warp_mip, mip_scene, dev,
-                  args=[mip_scene["args"][0][:1]] + mip_scene["args"][1:])
+        mip_call(M.backward_warp_mip, mip_scene, dev,
+                 args=[mip_scene["args"][0][:1]] + mip_scene["args"][1:])
     org = mip_scene["origins"].copy()
     org[-1, -1, -1, 1] = 1 << 20
     with pytest.raises(ValueError, match="leaves"):
-        _mip_call(M.backward_warp_mip, mip_scene, dev, origins=org)
+        mip_call(M.backward_warp_mip, mip_scene, dev, origins=org)
+    with pytest.raises(ValueError, match="resolution"):
+        mip_call(M.backward_warp_mip, mip_scene, dev,
+                 args=mip_scene["args"][:2]
+                 + [mip_scene["args"][2].to(dev), mip_scene["args"][3]])
 
 
 @pytest.mark.gpu
 def test_backward_warp_kernel_rejects_bad_input(warp_scene):
     dev = _cuda()
     args, _, _, _ = warp_scene
-    args = _on(dev, args)
+    args = (args[0].to(dev),) + args[1:]
     with pytest.raises(ValueError, match="float32"):
         W.backward_warp(args[0][..., :3].contiguous(), *args[1:])
     with pytest.raises(ValueError, match="projs"):
         W.backward_warp(args[0], args[1][:1], *args[2:])
+    with pytest.raises(ValueError, match="range_min"):
+        W.backward_warp(*args[:4], args[4].to(dev), *args[5:])
