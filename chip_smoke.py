@@ -38,7 +38,35 @@ Phases (any failure exits non-zero):
    C. ``--max-resolution 4000`` from phase 5's caches: a mosaic wider
       than 1400 px;
    D. ``--projection cylindrical -c`` from the same caches, and kernel 2
-      vs its plain version in cylindrical mode at D's layout.
+      vs its plain version in cylindrical mode at D's layout;
+8. the MSOP detector, mixed image sizes and the extras, the kernel counts
+   set to 0 just before each path and read just after:
+   A. ``--detector msop`` through ``cli.run_images`` at full size on
+      the 15 bench views and on five 864x1152 views (the JAX package's
+      own MSOP configuration), and on the latter at the CLI's default
+      ``-s 2``, uncached, at each seed of ``MSOP_RUNS``. Whether MSOP
+      registers a world depends on the RANSAC draws in both packages
+      (see ``MSOP_RUNS``), so each run's outcome is reported (placed
+      views, focal and rotation errors, initial focal, edges under the
+      bundle adjustment's gate, LM iterations; a registered run's cached
+      re-run must be identical) and the gates are on what no draw
+      changes: the native library loaded (SSC runs there), the
+      extraction's counts, and every truly overlapping pair joined by an
+      edge with enough inliers whose homography gives the true relative
+      rotation; then the extraction alone on the 15 full-size bench
+      views (seconds, counts, SSC's share), the top device operations
+      of a profiled extraction and match graph, and its candidate
+      ordering timed beside ``torch.topk``;
+   B. mixed image sizes: the same world with the odd-numbered views at
+      768x1024, ``-e -c`` with SIFT (cold and warm): 15 of 15 placed,
+      phase 5's registration bounds, the octave kernel and the exact
+      warp launched, the crop rectangle inside its valid mask;
+   C. kernel 2 with per-image true sizes vs its plain version at B's
+      layout, bit for bit, as in phase 4;
+   D. the extras: ``blend_extra.demo`` on two 864x1152 views (warp,
+      graph-cut seam, Laplacian blend, Poisson blend): uint8 results of
+      the expected shapes, the Poisson residual fallen, each step's
+      seconds.
 
 Times: CUDA events over ``REPS`` calls (a warp's and ``grid_sample``'s
 over ``measure.WARP_REPS``), kernel and plain version in turns; a
@@ -79,6 +107,38 @@ REPS = 5
 # cameras at 216x288 and 432x576 (CPU); the bound is a few times above.
 EXPOSURE = np.random.default_rng(BENCH_SEED).uniform(0.7, 1.0, BENCH_VIEWS)
 GAIN_LOG_BOUND = 0.01
+# phase 8 A: MSOP's worlds, seeds and bounds. Besides the bench world, the
+# JAX package's own MSOP configuration (benchmarks/run_configs.py,
+# cmu1_like_msop: 5 views, overlap 0.5, seed 13, -s 2) at the bench's
+# image size, at full size and at the CLI's default -s 2. Whether MSOP
+# registers a world depends on the RANSAC draws, in both packages: its
+# 64-d patch descriptors also give views that share no pixel 8 or more
+# ratio-test matches, which is all an edge needs besides 4 RANSAC
+# inliers; the initial focal is the median over every edge's homography,
+# those included, and an edge enters the bundle adjustment only under an
+# initial RMSE of 150 px, whatever the image size. So the registration is
+# run at every seed of MSOP_SEEDS and reported, and the gates are on what
+# no draw changes: the extraction's counts, and every pair of views that
+# truly overlap joined by an edge of at least MSOP_MIN_INLIERS inliers
+# whose homography gives the true relative rotation within
+# MSOP_EDGE_ROT_BOUND_DEG (the JAX package's own test of MSOP holds a
+# pair's homography to 1 deg; on the CPU it gives these edges 166-255
+# inliers). A run counts as registered when every view is placed with the
+# focal within MSOP_FOCAL_BOUND and the mean relative rotation within
+# MSOP_ROT_MEAN_BOUND_DEG (the JAX package, CPU, where it registers the
+# 5 views at -s 2: 0.00081 and 0.0674 deg).
+BENCH_WORLD = dict(n_views=BENCH_VIEWS, shape=(864, 1152), overlap=0.45,
+                   seed=BENCH_SEED)
+MSOP_WORLD = dict(n_views=5, shape=(864, 1152), overlap=0.5, seed=13)
+# (label, world, shrink, seeds)
+MSOP_RUNS = (("15 bench views at full size", BENCH_WORLD, 1, (0, 1)),
+             ("5 views at full size", MSOP_WORLD, 1, (0, 1, 2)),
+             ("5 views at -s 2", MSOP_WORLD, 2, (0, 1, 2)))
+MSOP_MIN_INLIERS = 50
+MSOP_EDGE_ROT_BOUND_DEG = 1.0
+MSOP_FOCAL_BOUND = 0.008
+MSOP_ROT_MEAN_BOUND_DEG = 0.5
+BASE_FLAGS = ["-s", "1", "--ba", "incr", "-b", "multiband"]
 
 
 def fail(msg: str):
@@ -91,7 +151,13 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
+T_START = time.time()
+
+
 def log(msg: str):
+    """Print; a phase's heading also says the seconds since the start."""
+    if msg.startswith("phase "):
+        msg += f" [{time.time() - T_START:.0f} s]"
     print(msg, flush=True)
 
 
@@ -213,6 +279,13 @@ def rel_rot_errors_deg(regs, rots):
     return np.array(errs)
 
 
+def registration_errors(regs, rots, focal):
+    """(largest relative focal error, relative-rotation errors in deg)."""
+    foc = np.array([r.intr[0, 0] for r in regs])
+    return float(np.abs(foc - focal).max() / focal), \
+        rel_rot_errors_deg(regs, rots)
+
+
 def phase_slice(torch, u8, rots, focal):
     from pano360_tpu_torch import cli
     from pano360_tpu_torch.ops import gauss_octave as G
@@ -244,7 +317,9 @@ def phase_slice(torch, u8, rots, focal):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         stages = {k: round(v, 4) for k, v in timer.stages.items()}
         log(f"  {label} run: {total:.3f} s; stages {stages}; peak device "
-            f"memory {peak:.2f} GiB")
+            f"memory {peak:.2f} GiB; LM iterations "
+            f"{timer.extra['lm_iterations']} + polish "
+            f"{timer.extra['polish_iterations']}")
         runs[label] = (args, mosaic)
     log(f"  launches on the cold run: {launches}")
     check(all(v > 0 for v in launches.values()),
@@ -254,9 +329,7 @@ def phase_slice(torch, u8, rots, focal):
     regs = cli.load_ba_cache(os.path.join(args.cache_dir,
                                           "ba_bench_s1.0.pkl"))
     check(len(regs) == BENCH_VIEWS, f"{len(regs)} of {BENCH_VIEWS} placed")
-    foc = np.array([r.intr[0, 0] for r in regs])
-    f_err = float(np.abs(foc - focal).max() / focal)
-    r_err = rel_rot_errors_deg(regs, rots)
+    f_err, r_err = registration_errors(regs, rots, focal)
     log(f"  focal max rel err {f_err:.5f}; rel-rot err mean "
         f"{r_err.mean():.4f} max {r_err.max():.4f} deg")
     check(f_err <= 0.005, f"focal error {f_err}")
@@ -272,7 +345,7 @@ def phase_slice(torch, u8, rots, focal):
     return launches, walls["warm"], args.cache_dir
 
 
-def run_cli(torch, imgs, flags, cache, label):
+def run_cli(torch, imgs, flags, cache, label, timer=None):
     """One ``cli.run_images`` with every kernel count set to 0 just
     before it: -> (mosaic, {kernel: launches}, seconds)."""
     from pano360_tpu_torch import cli
@@ -281,7 +354,7 @@ def run_cli(torch, imgs, flags, cache, label):
     from pano360_tpu_torch.ops import warp_mip as M
     args = cli.build_parser().parse_args([cache, *flags, "--cache-dir",
                                           cache])
-    timer = cli.StageTimer()
+    timer = timer or cli.StageTimer()
     G.launches = W.launches = M.launches = 0
     t0 = time.time()
     mosaic = cli.run_images(imgs, args, "bench_s1.0", timer)
@@ -356,9 +429,9 @@ def phase_options_b(torch, imgs_f):
     valid, rect = crop_rect(render, native, invalid, lay)
     top, left, bottom, right = rect
     log(f"  crop rectangle {rect.tolist()}; native library loaded: "
-        f"{native._build() is not None}")
-    check(native._build() is not None, "B: the native crop library did not "
-          "load (g++ build failed?)")
+        f"{native.loaded()}")
+    check(native.loaded(), "B: the native crop library did not load (g++ "
+          "build failed?)")
     check(mosaic.shape[:2] == (bottom - top + 1, right - left + 1),
           f"B: cropped mosaic {mosaic.shape} is not the rectangle {rect}")
     check(valid[top:bottom + 1, left:right + 1].all(),
@@ -372,6 +445,7 @@ def phase_options(torch, imgs_f, cache5):
     from pano360_tpu_torch import cli, render
     from pano360_tpu_torch import geometry
     k3 = phase_options_b(torch, imgs_f)
+    log("phase 7 C, D: render options from phase 5's caches")
     u8 = [(im * 255).astype(np.uint8) for im in imgs_f]
     base = ["-s", "1", "--ba", "incr", "-b", "multiband"]
     mosaic, launches, _ = run_cli(torch, u8,
@@ -394,6 +468,284 @@ def phase_options(torch, imgs_f, cache5):
     return k3, k2c
 
 
+def cold_warm(torch, imgs, flags, prefix, label, need):
+    """``flags`` through ``run_cli`` cold and warm without caches: -> (the
+    warm mosaic, the cold launches, the warm seconds, the warm cache
+    directory, the warm timer). ``need``: the kernels the path must
+    launch."""
+    from pano360_tpu_torch import cli
+    work = tempfile.mkdtemp(prefix=prefix)
+    for run in ("cold", "warm"):
+        cache = os.path.join(work, run)
+        os.makedirs(cache)
+        timer = cli.StageTimer()
+        mosaic, launches, wall = run_cli(torch, imgs, flags, cache,
+                                         f"{label} {run}", timer)
+        if run == "cold":
+            cold = launches
+            check(all(launches[k] > 0 for k in need),
+                  f"{label} did not launch {need}: {launches}")
+    return mosaic, cold, wall, cache, timer
+
+
+def rot_angle_deg(a, b) -> float:
+    c = np.clip((np.trace(a @ b.T) - 1) / 2, -1, 1)
+    return float(np.degrees(np.arccos(c)))
+
+
+def msop_graph_gates(label, cache, rots, focal, width):
+    """The match graph of one MSOP run against the ground truth. Views
+    overlap when the angle between them is under 0.7 of the horizontal
+    field of view. Gates: every overlapping pair is an edge of at least
+    MSOP_MIN_INLIERS inliers whose homography H (centre-relative pixels,
+    K^-1 H K = R_j R_i^T) gives the true relative rotation within
+    MSOP_EDGE_ROT_BOUND_DEG."""
+    arr = np.load(os.path.join(cache, "matches_bench_s1.0.npz"),
+                  allow_pickle=True)
+    matches = arr["matches"].item()
+    n = len(rots)
+    fov = np.degrees(2 * np.arctan(width / 2 / focal))
+    k = np.diag([focal, focal, 1.0])
+    true_inl, true_err, false_inl, missing = [], [], [], []
+    for i in range(n):
+        for j in range(i + 1, n):
+            overlap = rot_angle_deg(rots[i], rots[j]) < 0.7 * fov
+            edge = matches.get(i, {}).get(j)
+            if edge is None:
+                if overlap:
+                    missing.append((i, j))
+                continue
+            if not overlap:
+                false_inl.append(len(edge[0]))
+                continue
+            rel = np.linalg.inv(k) @ (edge[1] / edge[1][2, 2]) @ k
+            u, _, vt = np.linalg.svd(rel)
+            true_inl.append(len(edge[0]))
+            true_err.append(rot_angle_deg(u @ vt, rots[j] @ rots[i].T))
+    log(f"  {label}: match graph: {len(true_inl)} edges between overlapping "
+        f"views, inliers {min(true_inl, default=0)}-"
+        f"{max(true_inl, default=0)}, their homographies' rotation error "
+        f"max {max(true_err, default=0):.4f} deg; {len(false_inl)} edges "
+        f"between views that share no pixel (of "
+        f"{n * (n - 1) // 2 - len(true_inl) - len(missing)} such pairs), "
+        f"inliers {sorted(false_inl)}")
+    check(not missing, f"A, {label}: overlapping views not joined: {missing}")
+    check(min(true_inl) >= MSOP_MIN_INLIERS,
+          f"A, {label}: an overlapping pair has {min(true_inl)} inliers")
+    check(max(true_err) <= MSOP_EDGE_ROT_BOUND_DEG,
+          f"A, {label}: an edge's rotation is off by {max(true_err)} deg")
+
+
+def msop_run(torch, label, u8, rots, focal, seed):
+    """One uncached ``--detector msop`` run through ``cli.run_images`` at
+    a seed: -> (registered, seconds, the timer, the cache directory, the
+    mosaic or None). An exception counts as a failed registration, and
+    not as a failed phase, only when the match graph was written and the
+    bundle adjustment left no cameras or cameras outside MSOP's bounds
+    (non-finite cameras end in the SVD of the next add or in the
+    render)."""
+    from pano360_tpu_torch import cli
+    from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops import warp_kernel as W
+    cache = tempfile.mkdtemp(prefix="chip_smoke_msop_")
+    flags = BASE_FLAGS + ["--detector", "msop", "--seed", str(seed)]
+    args = cli.build_parser().parse_args([cache, *flags, "--cache-dir",
+                                          cache])
+    timer = cli.StageTimer()
+    G.launches = W.launches = 0
+    mosaic = error = None
+    t0 = time.time()
+    try:
+        mosaic = cli.run_images(u8, args, "bench_s1.0", timer)
+    except Exception as exc:        # judged below, never swallowed unseen
+        error = exc
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(G.launches == 0, f"A, {label}: MSOP ran SIFT's octave kernel")
+    check(os.path.exists(os.path.join(cache, "matches_bench_s1.0.npz")),
+          f"A, {label}, seed {seed}: no match graph: {error!r}")
+    ba = os.path.join(cache, "ba_bench_s1.0.pkl")
+    regs = cli.load_ba_cache(ba) if os.path.exists(ba) else []
+    f_err = r_mean = float("nan")
+    if len(regs) == len(u8):
+        f_err, r_err = registration_errors(regs, rots, focal)
+        r_mean = float(r_err.mean())
+    registered = bool(f_err <= MSOP_FOCAL_BOUND
+                      and r_mean <= MSOP_ROT_MEAN_BOUND_DEG)
+    check(error is None or not registered,
+          f"A, {label}, seed {seed}: registered, yet raised {error!r}")
+    ex = timer.extra
+    stages = {k: round(v, 4) for k, v in timer.stages.items()}
+    log(f"  {label}, seed {seed}: {wall:.3f} s; stages {stages}; registered "
+        f"{registered}: {len(regs)} of {len(u8)} placed, focal max rel err "
+        f"{f_err:.5f}, rel-rot err mean {r_mean:.4f} deg; initial focal "
+        f"{ex.get('focal0', float('nan')):.1f} (true {focal:.1f}); "
+        f"{ex.get('ba_edges_enabled')} of {ex.get('ba_edges')} edges under "
+        f"the 150-px gate; LM iterations {ex.get('lm_iterations')} + polish "
+        f"{ex.get('polish_iterations')}"
+        + ("" if error is None else f"; ended in {error!r}"[:200]))
+    if registered:
+        check(W.launches > 0, f"A, {label}: no exact warp launched")
+        check(mosaic.dtype == np.uint8 and mosaic.ndim == 3
+              and max(mosaic.shape[:2]) <= 1400 and mosaic.any(),
+              f"A, {label}: mosaic {mosaic.shape} {mosaic.dtype}")
+        again = cli.run_images(u8, args, "bench_s1.0")
+        check(np.array_equal(again, mosaic),
+              f"A, {label}: cached re-run differs")
+    return registered, wall, timer, cache, mosaic
+
+
+def phase_msop(torch, bench):
+    """8 A: ``--detector msop`` on ``MSOP_RUNS``."""
+    from pano360_tpu_torch import cli, native, pipeline, synth
+    from pano360_tpu_torch.features import msop
+    from pano360_tpu_torch.measure import alternate
+    bench_u8, bench_rots, bench_focal = bench
+    dev = torch.device("cuda")
+    pipeline.msop_extract(bench_u8[:2], dev)      # CUDA set-up, the build
+    check(native.loaded(), "A: the native library did not load (SSC on "
+          "100 000 candidates in Python is not a run)")
+    worlds = {}
+    for label, world, shrink, seeds in MSOP_RUNS:
+        key = tuple(world.items())
+        if world == BENCH_WORLD:
+            worlds[key] = (bench_u8, bench_rots, bench_focal)
+        elif key not in worlds:
+            imgs, rots, focal = synth.make_views(**world)
+            worlds[key] = ([(im * 255).astype(np.uint8) for im in imgs],
+                           rots, focal)
+        u8, rots, focal = worlds[key]
+        u8 = cli.shrink_images(u8, shrink, dev)
+        focal = focal / shrink
+        n_ok = 0
+        for seed in seeds:
+            ok, _, timer, cache, _ = msop_run(torch, label, u8, rots, focal,
+                                              seed)
+            n_ok += ok
+            msop_graph_gates(f"{label}, seed {seed}", cache, rots, focal,
+                             u8[0].shape[1])
+        ex = timer.extra
+        log(f"  {label}: registered at {n_ok} of {len(seeds)} seeds; levels, "
+            f"all views: candidates {ex['candidates']}, keypoints "
+            f"{ex['keypoints']}; SSC on the host {ex['ssc_seconds']:.3f} s of "
+            f"{timer.stages['Matched features']:.3f} s of matching")
+        check(ex["keypoints"][0] > 1000 * len(u8),
+              f"A, {label}: level 0 kept {ex['keypoints'][0]} keypoints")
+
+    # the stage MSOP changes, alone on the 15 full-size bench views
+    u8 = bench_u8
+    for run in ("cold", "warm"):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        feats = pipeline.msop_extract(u8, dev, stats)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    log(f"  extraction of {len(u8)} views of {u8[0].shape[:2]}, warm: "
+        f"{wall:.3f} s, SSC on the host {stats['ssc_seconds']:.3f} s of it; "
+        f"candidates {stats['candidates']}, keypoints {stats['keypoints']}; "
+        f"buffers {tuple(feats.desc.shape)}")
+    check(int(feats.counts.min()) > 1000 and feats.desc.shape[-1] == 64,
+          f"A: full-size extraction kept {feats.counts.tolist()}")
+    log("  profile of the extraction and the match graph (105 pairs)")
+    profile_device(torch,
+                   lambda: pipeline.matching(u8, dev, detector="msop"))
+    del feats
+    # its candidate ordering at level 0 (a stable full sort, so that ties
+    # keep their pixel order), beside torch.topk, which promises no order
+    # among ties and is used nowhere in the package
+    stack = torch.as_tensor(np.stack(u8), device="cuda")
+    gray = msop.msop_gray(stack)
+    from pano360_tpu_torch.ops.filters import harris_response
+    hrs = harris_response(gray[..., None])[..., 0]
+    del stack, gray
+    cap = msop.MAX_FEAT[0] * 20
+    score = hrs.reshape(len(u8), -1)
+    t_sort, t_topk = alternate(lambda: msop.top_candidates(hrs, cap),
+                               lambda: torch.topk(score, cap), REPS)
+    log(f"  level 0 candidates, top {cap} of {score.shape[1]} per view, "
+        f"{len(u8)} views: max filter + stable sort {t_sort:.3f} ms; "
+        f"torch.topk alone {t_topk:.3f} ms")
+    del hrs, score
+
+
+def phase_mixed(torch, rots, focal):
+    """8 B and C: mixed image sizes, and kernel 2 with per-image sizes."""
+    from pano360_tpu_torch import cli, native, render
+    from pano360_tpu_torch.measure import (MIXED_SHAPE, bench_mixed_views,
+                                           measure_exact, warp_inputs)
+    u8, _, _ = bench_mixed_views()
+    sizes = sorted({im.shape[:2] for im in u8})
+    check(len(sizes) == 2 and MIXED_SHAPE in sizes, f"B: sizes {sizes}")
+    flags = BASE_FLAGS + ["-e", "-c"]
+    mosaic, launches, _, cache, _ = cold_warm(
+        torch, u8, flags, "chip_smoke_mixed_", "B",
+        ["octave_stack", "backward_warp"])
+    check(launches["backward_warp_mip"] == 0, f"B: launches {launches}")
+    regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
+    check(len(regs) == BENCH_VIEWS, f"B: {len(regs)} of {BENCH_VIEWS} placed")
+    check([r.img.shape[:2] for r in regs] == [im.shape[:2] for im in u8],
+          "B: the regions lost their image sizes")
+    f_err, r_err = registration_errors(regs, rots, focal)
+    log(f"  focal max rel err {f_err:.5f}; rel-rot err mean "
+        f"{r_err.mean():.4f} max {r_err.max():.4f} deg")
+    check(f_err <= 0.005, f"B: focal error {f_err}")
+    check(r_err.mean() <= 0.1, f"B: mean relative rotation error "
+          f"{r_err.mean()}")
+
+    log("  C: kernel 2 with per-image true sizes vs plain at B's layout")
+    rgba, small, lay = warp_inputs(regs)
+    check(lay.shapes is not None and len(lay.shapes) == BENCH_VIEWS,
+          "C: the layout carries no per-image sizes")
+    log(f"  layout: stack {tuple(rgba.shape[1:3])}, true sizes {sizes}, "
+        f"canvas {lay.shape}, period {lay.period}")
+    gains = render.estimate_gains(regs, rgba, lay.shapes)
+    row = measure_exact(render.apply_gains(rgba, gains), small, lay.ph,
+                        lay.pw, lay.period, False, shapes=lay.shapes)
+    _, invalid = row.pop("_out")
+    hold_warp("backward_warp (per-image sizes)", row)
+
+    valid, rect = crop_rect(render, native, invalid, lay)
+    top, left, bottom, right = rect
+    log(f"  crop rectangle {rect.tolist()}")
+    check(mosaic.shape[:2] == (bottom - top + 1, right - left + 1),
+          f"B: cropped mosaic {mosaic.shape} is not the rectangle {rect}")
+    check(valid[top:bottom + 1, left:right + 1].all(),
+          "B: the crop leaves the valid mask")
+    return row
+
+
+def phase_extras(torch):
+    """8 D: the two-view blend demo at full size."""
+    from pano360_tpu_torch import blend_extra
+    shape = (864, 1152)
+    for run in ("cold", "warm"):
+        stats = {}
+        res = blend_extra.demo(shape=shape, device="cuda", stats=stats)
+    delta = shape[1] * 13 // 24
+    secs = {k[:-8]: round(v, 4) for k, v in stats.items()
+            if k.endswith("_seconds")}
+    log(f"  warm demo on two {shape[0]}x{shape[1]} views, overlap strip "
+        f"{shape[0]}x{delta}: seconds {secs}; Poisson residual "
+        f"{stats['residual0'].round(2).tolist()} -> "
+        f"{stats['residual'].round(5).tolist()} (400 iterations)")
+    for key, want in (("mask", (shape[0], delta, 1)),
+                      ("laplacian", (shape[0], delta, 3)),
+                      ("poisson", (shape[0], delta, 3)),
+                      ("blended", (shape[0], 2 * shape[1] - delta, 3))):
+        check(res[key].dtype == np.uint8 and res[key].shape == want,
+              f"D: {key} is {res[key].dtype} {res[key].shape}, not uint8 "
+              f"{want}")
+    check(all(w.shape == shape + (4,) and w.dtype == np.uint8
+              for w in res["warped"]), "D: the warped views' shape")
+    check((res["mask"] == 255).any() and (res["mask"] == 0).any(),
+          "D: the seam mask takes one side only")
+    check(bool((stats["residual"] < 1e-2 * stats["residual0"]).all()),
+          f"D: the Poisson residual did not fall: {stats['residual0']} -> "
+          f"{stats['residual']}")
+    check(res["poisson"].any() and res["laplacian"].any(), "D: empty blend")
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -float("inf")
@@ -405,19 +757,26 @@ def busy_us(intervals) -> float:
 
 
 def phase_profile(torch, u8, warm_s: float):
-    """One more uncached main-path run under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One more uncached run of ``cli.run_images`` (the main path) under
+    torch.profiler."""
     from pano360_tpu_torch import cli
     cache = tempfile.mkdtemp(prefix="chip_smoke_prof_")
     args = cli.build_parser().parse_args(
-        [cache, "-s", "1", "--ba", "incr", "-b", "multiband",
-         "--cache-dir", cache])
+        [cache, *BASE_FLAGS, "--cache-dir", cache])
+    profile_device(torch, lambda: cli.run_images(u8, args, "bench_s1.0"),
+                   warm_s)
+
+
+def profile_device(torch, fn, warm_s=None):
+    """``fn()`` under torch.profiler: the device's busy time and idle
+    share (also of ``warm_s``, the same work's unprofiled seconds) and
+    the device operations that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        cli.run_images(u8, args, "bench_s1.0")
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -428,8 +787,10 @@ def phase_profile(torch, u8, warm_s: float):
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in dev])
     log(f"  profiled run {wall:.3f} s; device busy {busy / 1e3:.1f} ms in "
         f"{len(dev)} device operations; idle share "
-        f"{1 - busy / 1e6 / wall:.3f} of the profiled run, "
-        f"{1 - busy / 1e6 / warm_s:.3f} of the warm run's {warm_s:.3f} s")
+        f"{1 - busy / 1e6 / wall:.3f} of the profiled run"
+        + ("" if warm_s is None else
+           f", {1 - busy / 1e6 / warm_s:.3f} of the warm run's "
+           f"{warm_s:.3f} s"))
     by_name = {}
     for e in dev:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -481,8 +842,15 @@ def main():
     launches, warm_s, cache5 = phase_slice(torch, u8, rots, focal)
     log("phase 6: profile of one more main-path run")
     phase_profile(torch, u8, warm_s)
-    log("phase 7: render options")
+    log("phase 7 B: render options")
     k3, k2c = phase_options(torch, imgs_f, cache5)
+    log("phase 8 A: MSOP")
+    phase_msop(torch, (u8, rots, focal))
+    log("phase 8 B, C: mixed image sizes")
+    k2m = phase_mixed(torch, rots, focal)
+    log("phase 8 D: the extras")
+    phase_extras(torch)
+    log("phase 9: the kernels line")
 
     kernels = [
         dict(name="octave_stack", route="cuda",
@@ -496,7 +864,8 @@ def main():
              source="pano360_tpu_torch/csrc/backward_warp.cu",
              replaces="pano360_tpu/ops/pallas_warp.py:398",
              launches=launches["backward_warp"],
-             max_abs_err=max(k2["max_abs_err"], k2c["max_abs_err"]),
+             max_abs_err=max(k2["max_abs_err"], k2c["max_abs_err"],
+                             k2m["max_abs_err"]),
              **warp_times(k2)),
         dict(name="backward_warp_mip", route="cuda",
              source="pano360_tpu_torch/csrc/backward_warp_mip.cu",

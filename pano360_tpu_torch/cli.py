@@ -2,9 +2,10 @@
 
 Same flags, defaults and cache files as the JAX package
 (``matches_{name}_s{shrink}.npz``, ``ba_{name}_s{shrink}.pkl``), plus
-``--device`` (default ``cuda``; the CPU runs only when named). Flags the
-port does not carry yet raise ``NotImplementedError`` naming their
-ROADMAP item instead of being ignored.
+``--device`` (default ``cuda``; the CPU runs only when named).
+``--mesh``, which the port does not carry yet, raises
+``NotImplementedError`` naming its ROADMAP item instead of being
+ignored.
 
 ``run`` = ``load_images`` + ``run_images(imgs, args, name)``; the latter
 is the entry point for in-memory images (``chip_smoke.py``).
@@ -86,8 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _NOT_PORTED = [
-    (lambda a: a.detector == "msop", "--detector msop",
-     "ROADMAP Queue 1: MSOP"),
     (lambda a: a.mesh and a.mesh > 1, "--mesh", "ROADMAP Queue 1: parallel/"),
 ]
 
@@ -99,20 +98,26 @@ def check_ported(args) -> None:
             raise NotImplementedError(f"{flag} is not ported yet ({item})")
 
 
-def load_images(path: str, shrink: float, device) -> List[np.ndarray]:
-    """uint8 BGR images of a directory, resized by 1/shrink (cv2 linear)."""
+def shrink_images(imgs: List[np.ndarray], shrink: float,
+                  device) -> List[np.ndarray]:
+    """uint8 BGR images resized by 1/shrink (cv2 linear), for shrink > 1."""
     from pano360_tpu_torch.ops.resize import resize_bilinear
-    imgs = [imread(f) for f in list_images(path)]
-    if shrink > 1:
-        out = []
-        for im in imgs:
-            h, w = im.shape[:2]
-            small = resize_bilinear(
-                torch.as_tensor(im.astype(np.float32), device=device),
-                (round(h / shrink), round(w / shrink)))
-            out.append(np.clip(small.cpu().numpy(), 0, 255).astype(np.uint8))
-        imgs = out
-    return imgs
+    if shrink <= 1:
+        return imgs
+    out = []
+    for im in imgs:
+        h, w = im.shape[:2]
+        small = resize_bilinear(
+            torch.as_tensor(im.astype(np.float32), device=device),
+            (round(h / shrink), round(w / shrink)))
+        out.append(np.clip(small.cpu().numpy(), 0, 255).astype(np.uint8))
+    return out
+
+
+def load_images(path: str, shrink: float, device) -> List[np.ndarray]:
+    """uint8 BGR images of a directory, resized by 1/shrink."""
+    return shrink_images([imread(f) for f in list_images(path)], shrink,
+                         device)
 
 
 class _CacheUnpickler(pickle.Unpickler):
@@ -141,16 +146,16 @@ def run_images(imgs: List[np.ndarray], args, name: str,
     """Stitch in-memory uint8 BGR images; ``name`` keys the caches.
 
     ``draw_fn(pair_k, n_valid)``: optional RANSAC draws (tests inject the
-    JAX package's). Returns the uint8 BGR mosaic.
+    JAX package's). SIFT uploads the images once for extraction and
+    render (one stack per shape when the sizes are mixed); MSOP extracts
+    inside ``matching`` and the render uploads. Returns the uint8 BGR
+    mosaic.
     """
     check_ported(args)
     timer = timer or StageTimer()
     device = resolve_device(args.device)
     if not imgs:
         raise ValueError("no images to process (empty directory?)")
-    if len({im.shape for im in imgs}) != 1:
-        raise NotImplementedError("mixed image shapes are not ported yet "
-                                  "(ROADMAP Queue 1: mixed image shapes)")
 
     dev_images = None
     match_cache = os.path.join(args.cache_dir, f"matches_{name}.npz")
@@ -159,9 +164,13 @@ def run_images(imgs: List[np.ndarray], args, name: str,
         kpts, matches = arr["kpts"], arr["matches"]
     except IOError:
         with timer.stage("Matched features"):
-            dev_images, feats = upload_extract(imgs, device)
+            feats = None
+            if args.detector == "sift":
+                dev_images, feats = upload_extract(imgs, device)
             kpts, matches = matching(imgs, device, seed=args.seed,
-                                     feats=feats, draw_fn=draw_fn)
+                                     feats=feats, draw_fn=draw_fn,
+                                     detector=args.detector,
+                                     stats=timer.extra)
             np.savez(match_cache, kpts=kpts, matches=matches)
 
     ba_cache = os.path.join(args.cache_dir, f"ba_{name}.pkl")
@@ -170,7 +179,8 @@ def run_images(imgs: List[np.ndarray], args, name: str,
     except IOError:
         with timer.stage("Image registration"):
             regions = traverse(imgs, idx_to_keypoints(matches, kpts),
-                               badjust=args.ba, device=device)
+                               badjust=args.ba, device=device,
+                               stats=timer.extra)
         with open(ba_cache, "wb") as fid:
             pickle.dump(regions, fid, protocol=pickle.HIGHEST_PROTOCOL)
 

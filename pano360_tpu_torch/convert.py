@@ -11,6 +11,7 @@ from typing import List
 import numpy as np
 import torch
 
+from pano360_tpu_torch.features.msop import MsopFeatures
 from pano360_tpu_torch.features.sift import SiftConfig, SiftFeatures
 from pano360_tpu_torch.register import PanoImage
 
@@ -47,6 +48,40 @@ def features_from_jax(feats, device="cpu") -> SiftFeatures:
                         valid=t(feats.valid, torch.bool))
 
 
+def msop_level_from_jax(level, device="cpu"):
+    """One MSOP pyramid level of the JAX package, ``(vals, rows, cols,
+    theta, blurred, next_gray)`` as arrays -> the port's tensors (float32,
+    the candidate rows and columns int64)."""
+    vals, rows, cols, theta, blurred, nxt = level
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return (t(vals), t(rows, torch.int64), t(cols, torch.int64), t(theta),
+            t(blurred), t(nxt))
+
+
+def msop_features_from_jax(extracted, img_shape, device="cpu") -> MsopFeatures:
+    """``pano360_tpu.features.msop.msop_extract_device``'s result for
+    same-shape images of ``img_shape`` (h, w) -> what the port's
+    ``pipeline.matching(detector="msop", feats=...)`` takes: keypoints
+    relative to the image centre and the device buffers compacted valid
+    first, as the JAX ``matching`` prepares them."""
+    from pano360_tpu_torch.pipeline import valid_first
+    kpts_full, kp, ds, va, counts = extracted
+    h, w = img_shape
+    cent = np.array([w / 2, h / 2], np.float32)
+    counts = np.asarray(counts)
+    kp = torch.as_tensor(np.asarray(kp) - cent, dtype=torch.float32,
+                         device=device)
+    ds = torch.as_tensor(np.asarray(ds), dtype=torch.float32, device=device)
+    va = torch.as_tensor(np.asarray(va), dtype=torch.bool, device=device)
+    cmax = int(counts.max()) if len(counts) else 0
+    cap = min(max(64, 1 << max(cmax - 1, 0).bit_length()), int(kp.shape[1]))
+    kp, ds, va = valid_first(kp, ds, va, counts, cap)
+    return MsopFeatures([np.asarray(k) - cent for k in kpts_full], kp, ds,
+                        va, counts)
+
+
 def regions_from_jax(regions) -> List[PanoImage]:
     """Registered JAX ``PanoImage``s -> the port's (rot, focal, img)."""
     return [PanoImage(np.asarray(r.img), np.asarray(r.rot, np.float64),
@@ -60,5 +95,6 @@ def matches_from_npz(path: str):
     return arr["kpts"], arr["matches"]
 
 
-__all__ = ["sift_config_from_jax", "features_from_jax", "regions_from_jax",
-           "matches_from_npz"]
+__all__ = ["sift_config_from_jax", "features_from_jax",
+           "msop_level_from_jax", "msop_features_from_jax",
+           "regions_from_jax", "matches_from_npz"]

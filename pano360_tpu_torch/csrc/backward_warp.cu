@@ -10,7 +10,11 @@
 // when it falls outside [0, w-1] x [0, h-1], or when it lies outside the
 // region's true window (backward_warp_all's wins); then bilinear RGBA
 // sampling with BORDER_REFLECT indexing (ops.warp.reflect_index), alpha
-// zeroed where invalid.
+// zeroed where invalid. Images of mixed sizes come zero-padded into one
+// (n, h, w) stack with each region's true (h_k, w_k) in its parameter
+// row (backward_warp_all's shapes): the centre offset and the bounds
+// test take the true size, the reflect indexing and the row stride the
+// stack's.
 //
 // What bounds it on an H100: bytes, gathered from device memory. Each
 // output pixel reads four RGBA taps (4 x 16 B) and writes 16 B plus a
@@ -73,11 +77,14 @@ __global__ void __launch_bounds__(THREADS) backward_warp_kernel(
   const p360::ColTerms col = p360::col_terms(prm, x, vw);
   const p360::RowTerms row = p360::row_terms(prm, y, vw);
   const p360::Ray ray = p360::pixel_ray(col, row);
-  const float x_pr = ray.u / ray.z + (float)w * 0.5f;
-  const float y_pr = ray.v / ray.z + (float)h * 0.5f;
+  // the region's true size; a zero entry means the stack's
+  const float hk = prm[15] > 0.0f ? prm[15] : (float)h;
+  const float wk = prm[16] > 0.0f ? prm[16] : (float)w;
+  const float x_pr = ray.u / ray.z + wk * 0.5f;
+  const float y_pr = ray.v / ray.z + hk * 0.5f;
   p360::Taps tp;
-  tp.bad = (ray.z < 0.0f) | (x_pr < 0.0f) | (x_pr > (float)(w - 1)) |
-           (y_pr < 0.0f) | (y_pr > (float)(h - 1)) | (col.out != 0) |
+  tp.bad = (ray.z < 0.0f) | (x_pr < 0.0f) | (x_pr > wk - 1.0f) |
+           (y_pr < 0.0f) | (y_pr > hk - 1.0f) | (col.out != 0) |
            (row.out != 0);
   const float xc = p360::clamp_coord(x_pr, 4.0f * (float)w);
   const float yc = p360::clamp_coord(y_pr, 4.0f * (float)h);
@@ -104,8 +111,8 @@ __global__ void __launch_bounds__(THREADS) backward_warp_kernel(
 }  // namespace
 
 // vw: the plan's launch scalars (host); params: (n, PARAM_FLOATS)
-// float32 per region on the device (K R, bottom, true window;
-// warp_kernel.prepare_warp packs both); imgs: (n, h, w, 4) float32;
+// float32 per region on the device (K R, bottom, true window, true
+// size; warp_kernel.prepare_warp packs both); imgs: (n, h, w, 4) float32;
 // invalid: n * ph * pw bytes, written 0/1 (a torch.bool tensor).
 extern "C" int p360_backward_warp(const p360::View* vw, const float* imgs,
                                   int h, int w, const float* params,

@@ -22,9 +22,12 @@
 namespace p360 {
 
 // One region's parameters as the wrappers' prepare step packs them:
-// K R (row-major), the patch origin [x, y], the true window [lo_x, lo_y,
-// hi_x, hi_y), one pad float.
-constexpr int PARAM_FLOATS = 16;
+// K R (row-major) in [0, 9), the patch origin [x, y] in [9, 11), the true
+// window [lo_x, lo_y, hi_x, hi_y) in [11, 15), the region's true image
+// size [h, w] in [15, 17) (0, 0: the stack's own size; read by the exact
+// kernel alone, for images of mixed sizes zero-padded into one stack),
+// three pad floats.
+constexpr int PARAM_FLOATS = 20;
 
 // A launch's scalars, built once per plan on the host (the wrappers'
 // ctypes structure of the same layout) and passed by value to the

@@ -133,8 +133,15 @@ def refit_homography(p1, p2, w, gn_iters: int = 3):
     rows = _dlt_rows(n1, n2)
     ww = torch.cat([w, w], dim=-1)[..., None]
     ata = torch.matmul(rows.transpose(-1, -2), rows * ww)
+    # a pair without inliers has no finite system: its homography comes
+    # out non-finite, as in the JAX package (the caller then keeps the
+    # best hypothesis), while the decomposition sees a finite matrix
+    bad = ~torch.isfinite(ata).all(dim=-1).all(dim=-1)
+    ata = torch.where(bad[..., None, None],
+                      torch.eye(9, dtype=ata.dtype, device=ata.device), ata)
     _, evecs = torch.linalg.eigh(ata)
     h = evecs[..., :, 0].reshape(ata.shape[:-2] + (3, 3))
+    h = torch.where(bad[..., None, None], torch.nan, h)
     hom = inv3x3(t2) @ h @ t1
     hom = hom / hom[..., 2:3, 2:3]
 
@@ -160,12 +167,16 @@ def refit_homography(p1, p2, w, gn_iters: int = 3):
             x.shape[:-1] + (-1, 8))
         rv = r.reshape(x.shape[:-1] + (-1,))
         jtj = jac.transpose(-1, -2) @ jac + 1e-6 * eye8
-        delta = torch.linalg.solve(jtj, (jac.transpose(-1, -2)
-                                         @ rv[..., None])[..., 0])
+        # a system that is singular or not finite (a degenerate pair)
+        # keeps the step's input, as the non-finite solution does in the
+        # JAX package; torch.linalg.solve would raise for the whole batch
+        delta, info = torch.linalg.solve_ex(
+            jtj, (jac.transpose(-1, -2) @ rv[..., None])[..., 0])
         new = hv[..., :8] - delta
         newh = torch.cat([new, torch.ones_like(new[..., :1])],
                          dim=-1).reshape(hom.shape)
         okh = torch.isfinite(newh).reshape(newh.shape[:-2] + (9,)).all(-1)
+        okh = okh & (info == 0)
         hom = torch.where(okh[..., None, None], newh, hom)
     return hom
 

@@ -32,11 +32,15 @@ the L2 flushed before each launch, and back to back), the bound and the
 distinct 32-byte sectors of the taps, ``grid_sample`` on the warp's own
 sample grid, and bit-identity to the plain version; for the mip plan
 also ``plan_windows`` (host) and ``build_mips`` (per call and on the
-device). ``--before DIR``: a checkout of the package as it was before
-the warp plans (``prepare_warp``), whose C entry points take their small
-arguments as device arrays; its two warp sources are timed in turns
-with this tree's, and its ``plan_windows`` beside this one. A checkout
-with the plans is refused: its entry points have this tree's interface.
+device). The exact warp is also taken at the mixed-size layout
+(``chip_smoke.py`` phase 8 B's: the odd views at 768x1024, zero-padded
+into the 864x1152 stack with their true sizes in the plan). ``--before
+DIR``: another checkout of the package, whose two warp sources are
+timed in turns with this tree's and its ``plan_windows`` beside this
+one. The checkout must have the warp plans (``prepare_warp``): its entry
+points have this tree's interface and take the parameter rows at that
+checkout's own ``PARAM_FLOATS`` (an older one knows no per-image sizes,
+so the mixed-size layout is not run on it).
 """
 from __future__ import annotations
 
@@ -145,6 +149,23 @@ def bench_views():
     return imgs, [(im * 255).astype(np.uint8) for im in imgs], rots, focal
 
 
+MIXED_SHAPE = (768, 1024)      # the odd views of the mixed-size bench world
+
+
+def bench_mixed_views():
+    """The bench world with its odd-numbered views rendered at
+    ``MIXED_SHAPE`` (same rotations, focal and texture): -> (uint8 views,
+    rotations, focal)."""
+    from pano360_tpu_torch import synth
+    _, u8, rots, focal = bench_views()
+    tex = synth.world_texture(seed=BENCH_SEED)
+    u8 = list(u8)
+    for i in range(1, len(u8), 2):
+        view = synth.render_view(tex, rots[i], focal, MIXED_SHAPE)
+        u8[i] = (view * 255).astype(np.uint8)
+    return u8, rots, focal
+
+
 def octave_bases(u8, cfg=None, device="cuda"):
     """The bases of the first four views' octaves, as SIFT builds them:
     -> [(octave, base (4, H, W) f32)] for every octave where the kernel
@@ -213,20 +234,6 @@ def build_other(src: Path):
         log
 
 
-# the warps' C entry points before plans (their small arguments as device
-# arrays), for --before
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-BEFORE_SIGNATURES = {
-    # imgs, projs, bottoms, wins, patches, invalid, n, h, w, ph, pw,
-    # res_x, res_y, rmin_x, rmin_y, period, cylindrical, stream
-    "p360_backward_warp": [_P] * 6 + [_I] * 5 + [_F] * 4 + [_I, _I, _P],
-    # level_ptrs(host), level_dims(host), n_levels, origins (N, nty, ntx,
-    # 3) int32, projs, bottoms, wins, patches, invalid, n, h, w, ph, pw,
-    # win_y, win_x, res_x, res_y, rmin_x, rmin_y, period, cylindrical,
-    # stream
-    "p360_backward_warp_mip": [_P, _P, _I] + [_P] * 6 + [_I] * 7
-    + [_F] * 4 + [_I, _I, _P],
-}
 PLAN_REPS = 50
 HOST_REPS = 200
 
@@ -339,20 +346,22 @@ def _cost(row, cost):
 
 
 def measure_exact(imgs, small, ph: int, pw: int, period, cylindrical: bool,
-                  reps: int = WARP_REPS, others=None):
+                  reps: int = WARP_REPS, others=None, shapes=None):
     """One exact-warp case on the card -> a dict: the prepare step's host
     ms (``plan_ms``), the launch with that plan (``ms``, in turns with
     ``grid_sample`` on the same sample grid: ``library_ms``), the plain
     version (``plain_ms``), the kernel's device ms per launch,
     bit-identity and mask flips, the bound and the sector floor, the
     kernel's outputs (``_out``); ``others``: other launches (name -> fn)
-    timed in turns with this one."""
+    timed in turns with this one; ``shapes``: the true (h, w) of images
+    of mixed sizes zero-padded into ``imgs``."""
     from pano360_tpu_torch.ops import warp_kernel as W
     projs, bottoms, wins, res, rmin = small
-    kw = dict(wins=wins, period=period, cylindrical=cylindrical)
+    kw = dict(wins=wins, period=period, cylindrical=cylindrical,
+              shapes=shapes)
     plan_ms, plan = host_ms(lambda: W.prepare_warp(
         projs, bottoms, wins, res, rmin, ph, pw, period, cylindrical,
-        imgs.device), PLAN_REPS)
+        imgs.device, shapes), PLAN_REPS)
 
     def kernel():
         return W.launch_warp(imgs, plan)
@@ -367,9 +376,10 @@ def measure_exact(imgs, small, ph: int, pw: int, period, cylindrical: bool,
     _device_times(row, kernel, "backward_warp_kernel", reps)
     _cost(row, W.backward_warp_cost(imgs, projs, bottoms, res, rmin, ph, pw,
                                     **kw))
-    p_d, b_d, w_d = W.on_device(imgs.device, projs, bottoms, wins)
+    p_d, b_d, w_d, s_d = W.on_device(imgs.device, projs, bottoms, wins,
+                                     shapes)
     x, y, _ = W.sample_points(tuple(imgs.shape[1:3]), p_d, b_d, res, rmin,
-                              ph, pw, w_d, period, cylindrical)
+                              ph, pw, w_d, period, cylindrical, s_d)
     _launch_times(row, kernel, grid_sample_fn(imgs, x, y), reps)
     _against(row, kernel, others or {}, "backward_warp_kernel", reps)
     return row
@@ -436,60 +446,54 @@ def measure_mip(rgba, small, lay, reps: int = WARP_REPS, others=None,
     return row
 
 
-def _before_exact(fn, imgs, small, ph, pw, period, cylindrical):
-    """A launch of the exact warp's entry before plans, its small
-    arguments uploaded once (outside the timed window)."""
+def _narrow_params(plan, floats: int):
+    """A plan's parameter rows cut to another checkout's PARAM_FLOATS (the
+    leading entries have one layout)."""
+    return plan.params[:, :floats].contiguous()
+
+
+def _before_exact(fn, floats, imgs, small, ph, pw, period, cylindrical):
+    """A launch of another checkout's exact warp entry: this tree's plan,
+    its parameter rows at that checkout's width."""
     from pano360_tpu_torch import _kernels
     from pano360_tpu_torch.ops import warp_kernel as W
     projs, bottoms, wins, res, rmin = small
     dev = imgs.device
-    p_d, b_d, w_d = W.on_device(dev, projs, bottoms, wins)
-    res, rmin = [float(v) for v in np.float32(res)], \
-        [float(v) for v in np.float32(rmin)]
+    plan = W.prepare_warp(projs, bottoms, wins, res, rmin, ph, pw, period,
+                          cylindrical, dev)
+    prm = _narrow_params(plan, floats)
     n, h, w, _ = imgs.shape
 
     def run():
         patches = torch.empty((n, ph, pw, 4), device=dev)
-        invalid = torch.empty((n, ph, pw), dtype=torch.uint8, device=dev)
-        _kernels.check(fn(imgs.data_ptr(), p_d.data_ptr(), b_d.data_ptr(),
-                          w_d.data_ptr(), patches.data_ptr(),
-                          invalid.data_ptr(), n, h, w, ph, pw, *res, *rmin,
-                          -1 if period is None else period,
-                          int(cylindrical), _kernels.stream_ptr(dev)),
+        invalid = torch.empty((n, ph, pw), dtype=torch.bool, device=dev)
+        _kernels.check(fn(plan.c_launch, imgs.data_ptr(), h, w,
+                          prm.data_ptr(), patches.data_ptr(),
+                          invalid.data_ptr(), _kernels.stream_ptr(dev)),
                        "before")
         return patches, invalid
     return run
 
 
-def _before_mip(fn):
-    """A function of (levels, plan) that binds a launch of the mip warp's
-    entry before plans, its small arguments uploaded once from the
-    plan."""
+def _before_mip(fn, floats):
+    """A function of (levels, plan) that binds a launch of the other
+    checkout's mip warp entry, as ``_before_exact``."""
     from pano360_tpu_torch import _kernels
 
     def bind(mips, plan):
         dev = plan.device
-        org = torch.as_tensor(plan.origins.astype(np.int32), device=dev)
-        projs = plan.projs.contiguous()
-        bottoms = plan.bottoms.contiguous()
-        wins = plan.wins.contiguous()
-        h, w = plan.img_shape
-        dims = (ctypes.c_int * (2 * len(plan.dims)))(
-            *[d for hw in plan.dims for d in hw])
+        prm = _narrow_params(plan, floats)
 
         def run():
             ptrs = (ctypes.c_void_p * len(mips))(*[m.data_ptr()
                                                    for m in mips])
             patches = torch.empty((plan.n, plan.ph, plan.pw, 4), device=dev)
             invalid = torch.empty((plan.n, plan.ph, plan.pw),
-                                  dtype=torch.uint8, device=dev)
-            _kernels.check(fn(
-                ptrs, dims, len(mips), org.data_ptr(),
-                projs.data_ptr(), bottoms.data_ptr(), wins.data_ptr(),
-                patches.data_ptr(), invalid.data_ptr(), plan.n, h, w,
-                plan.ph, plan.pw, *plan.win, *plan.res, *plan.rmin,
-                -1 if plan.period is None else plan.period,
-                int(plan.cylindrical), _kernels.stream_ptr(dev)), "before")
+                                  dtype=torch.bool, device=dev)
+            _kernels.check(fn(plan.c_launch, ptrs,
+                              plan.origins_dev.data_ptr(), prm.data_ptr(),
+                              patches.data_ptr(), invalid.data_ptr(),
+                              _kernels.stream_ptr(dev)), "before")
             return patches, invalid
         return run
     return bind
@@ -499,27 +503,38 @@ def _load_module(path: Path, name: str):
     import importlib.util
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod         # dataclasses look their module up
     spec.loader.exec_module(mod)
     return mod
 
 
 def _before_entries(tree: Path):
-    """The warps of an older checkout of the package, built here ->
-    (exact entry, mip entry, its ``plan_windows``)."""
+    """The warps of another checkout of the package, built here -> (a
+    function binding its exact launch, a function binding its mip
+    launch, its ``plan_windows``)."""
+    import functools
+    import re
+    from pano360_tpu_torch import _kernels
     pkg = tree / "pano360_tpu_torch"
-    if "def prepare_warp" in (pkg / "ops" / "warp_kernel.py").read_text():
-        sys.exit(f"measure: {tree} has the warp plans; --before takes a "
-                 "checkout from before them")
+    wrapper = (pkg / "ops" / "warp_kernel.py").read_text()
     srcs = [pkg / "csrc" / "backward_warp.cu",
             pkg / "csrc" / "backward_warp_mip.cu"]
+    names = ("p360_backward_warp", "p360_backward_warp_mip")
     built = build_others(srcs)
     for src in srcs:
         print(f"ptxas, {src}:\n{built[src][1]}", flush=True)
-    exact, mip = [entry(built[src][0], name, BEFORE_SIGNATURES[name])
-                  for src, name in zip(srcs, ("p360_backward_warp",
-                                              "p360_backward_warp_mip"))]
-    return exact, mip, _load_module(pkg / "ops" / "warp_mip.py",
-                                    "p360_before_warp_mip").plan_windows
+    plan_windows = _load_module(pkg / "ops" / "warp_mip.py",
+                                "p360_before_warp_mip").plan_windows
+    floats = re.search(r"^PARAM_FLOATS = (\d+)", wrapper, re.M)
+    if floats is None:
+        sys.exit(f"measure: {tree} is from before the warp plans (no "
+                 "PARAM_FLOATS): its C interface is not this tree's")
+    floats = int(floats.group(1))
+    exact, mip = [entry(built[src][0], name,
+                        _kernels._SIGNATURES[src.stem][name])
+                  for src, name in zip(srcs, names)]
+    return (functools.partial(_before_exact, exact, floats),
+            _before_mip(mip, floats), plan_windows)
 
 
 def warps_main(args, smi: str):
@@ -538,18 +553,27 @@ def warps_main(args, smi: str):
                             ("spherical", 4000)):
         rgba, small, lay = warp_inputs(regions, projection, cap)
         cyl = projection == "cylindrical"
-        others = {} if before is None else {"before": _before_exact(
-            before[0], rgba, small, lay.ph, lay.pw, lay.period, cyl)}
+        others = {} if before is None else {"before": before[0](
+            rgba, small, lay.ph, lay.pw, lay.period, cyl)}
         key = f"exact_{projection}" + ("" if cap == 1400 else f"_{cap}")
         rows[key] = measure_exact(rgba, small, lay.ph, lay.pw, lay.period,
                                   cyl, others=others)
         rows[key].pop("_out")
         print(json.dumps({key: rows[key]}), flush=True)
         del rgba
+    # the mixed-size layout: true sizes in the plan
+    mixed_u8, _, _ = bench_mixed_views()
+    mixed = [PanoImage(im, r, intr.copy()) for im, r in zip(mixed_u8, rots)]
+    rgba, small, lay = warp_inputs(mixed)
+    rows["exact_mixed"] = measure_exact(rgba, small, lay.ph, lay.pw,
+                                        lay.period, False, shapes=lay.shapes)
+    rows["exact_mixed"].pop("_out")
+    print(json.dumps({"exact_mixed": rows["exact_mixed"]}), flush=True)
+    del rgba
     rgba, small, lay = warp_inputs(regions, "spherical")
     rows["mip"] = measure_mip(
         rgba, small, lay,
-        others={} if before is None else {"before": _before_mip(before[1])},
+        others={} if before is None else {"before": before[1]},
         before_plan=None if before is None else before[2])
     rows["mip"].pop("_out")
     print(json.dumps({"mip": rows["mip"]}), flush=True)
@@ -572,8 +596,8 @@ def main(argv=None):
     parser.add_argument("--warps", action="store_true",
                         help="time the two backward warps instead")
     parser.add_argument("--before", type=Path, default=None,
-                        help="with --warps: a checkout of the package from "
-                        "before the warp plans, timed in turns with this one")
+                        help="with --warps: another checkout of the package, "
+                        "its warps timed in turns with this one's")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("measure: needs a CUDA device")

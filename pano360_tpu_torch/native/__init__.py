@@ -3,10 +3,9 @@
 
 These are the host's sequential hot loops where the reference leaned on
 native code too (Numba-JIT crop, stitcher.py:330-369; heapq seam flood,
-blend.py:56-100; MSOP's SSC selection). ``crop.cpp`` is all of
-``pano360_tpu/native/crop.cpp``; only the crop is bound here, the seam
-flood and SSC selection come with their callers. It is compiled at
-first use into ``build/native/`` at the repository root (gitignored),
+blend.py:56-100; MSOP's SSC selection). ``crop.cpp`` holds all three:
+the crop rectangle, the seam flood and the SSC selection. It is compiled
+at first use into ``build/native/`` at the repository root (gitignored),
 named by a hash of the source and the flags, so an edited source builds
 anew and nothing is written beside the source. A pure-Python fallback
 keeps the package importable when no compiler is available, mirroring
@@ -57,6 +56,14 @@ def _build() -> Optional[ctypes.CDLL]:
         lib.largest_rectangle.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int)]
+        lib.seam_flood.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int8)]
+        lib.ssc_select.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.ssc_select.restype = ctypes.c_int
         _lib = lib
     except (subprocess.CalledProcessError, OSError) as exc:
         LOG.warning("native build failed (%s); using Python fallback", exc)
@@ -106,4 +113,66 @@ def crop_mosaic(mosaic: np.ndarray, valid: np.ndarray) -> np.ndarray:
     return mosaic[top:bottom + 1, left:right + 1]
 
 
-__all__ = ["largest_rectangle", "crop_mosaic", "library_path", "BUILD_DIR"]
+def loaded() -> bool:
+    """Whether the native library is (or can be) built and loaded."""
+    return _build() is not None
+
+
+def seam_flood(diff: np.ndarray, border: int) -> np.ndarray:
+    """Two-source priority flood for graph-cut style seams: an int8 mask
+    of -1 (left source) / +1 (right source)."""
+    diff = np.ascontiguousarray(diff.astype(np.float32))
+    rows, cols = diff.shape
+    lib = _build()
+    if lib is None:
+        return _seam_flood_py(diff, border)
+    mask = np.zeros((rows, cols), np.int8)
+    lib.seam_flood(diff.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                   rows, cols, border,
+                   mask.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+    return mask
+
+
+def _seam_flood_py(diff: np.ndarray, border: int) -> np.ndarray:
+    import heapq
+    rows, cols = diff.shape
+    mask = np.zeros((rows, cols), np.int32)
+    mask[:, :border] = -1
+    mask[:, cols - border + 1:] = 1
+    qq = []
+    for y in range(rows):
+        qq.append((-1e3, -1, border, y))
+        qq.append((-1e3, 1, cols - border, y))
+    heapq.heapify(qq)
+    while qq:
+        _, clr, x, y = heapq.heappop(qq)
+        if mask[y, x] != 0:
+            continue
+        mask[y, x] = clr
+        for dx, dy in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+            nx, ny = x + dx, y + dy
+            if 0 <= nx < cols and 0 <= ny < rows and mask[ny, nx] == 0:
+                heapq.heappush(qq, (-diff[ny, nx], clr, nx, ny))
+    return mask.astype(np.int8)
+
+
+def ssc_select(kpts_xy: np.ndarray, im_size, n_points: int,
+               tol: float = 0.1) -> Optional[np.ndarray]:
+    """SSC adaptive non-maximal suppression over score-ordered (x, y)
+    keypoints: the selected indices, or None when the native library is
+    unavailable (``features.msop.ssc`` then runs its Python version)."""
+    lib = _build()
+    if lib is None:
+        return None
+    kp = np.ascontiguousarray(kpts_xy, np.float32)
+    out = np.empty(len(kp), np.int32)
+    cols, rows = im_size
+    n = lib.ssc_select(
+        kp.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(kp),
+        int(cols), int(rows), int(n_points), float(tol),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    return out[:n].copy()
+
+
+__all__ = ["largest_rectangle", "crop_mosaic", "seam_flood", "ssc_select",
+           "loaded", "library_path", "BUILD_DIR"]

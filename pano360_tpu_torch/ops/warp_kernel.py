@@ -28,7 +28,7 @@ from pano360_tpu_torch.geometry import CylProj, SphProj
 from pano360_tpu_torch.ops.warp import reflect_index, safe_floor
 
 launches = 0           # CUDA kernel launches (main-path evidence)
-PARAM_FLOATS = 16      # one region's packed parameters (csrc/warp_common.cuh)
+PARAM_FLOATS = 20      # one region's packed parameters (csrc/warp_common.cuh)
 MAX_GRID = 65535       # regions, and the exact kernel's patch rows
 # float operations of one patch pixel, as the plain version does them:
 # mosaic coordinates (8), the ray (7), K R times it (15), the projection
@@ -89,12 +89,27 @@ def outside_windows(wins, px, py):
         (py >= wn[:, 3])
 
 
+def true_dims(img_hw, shapes, n: int, device):
+    """Each region's true (h, w) as two (N, 1, 1) float32 tensors:
+    ``shapes`` (N, 2), where a row of zeros (or ``shapes=None``) means
+    the stack's own ``img_hw``."""
+    hw = torch.tensor(img_hw, dtype=torch.float32, device=device)
+    if shapes is None:
+        dims = hw.expand(n, 2)
+    else:
+        shapes = torch.as_tensor(shapes, dtype=torch.float32, device=device)
+        dims = torch.where(shapes > 0, shapes, hw)
+    return dims[:, 0, None, None], dims[:, 1, None, None]
+
+
 def sample_points(img_hw, projs, bottoms, resolution, range_min, ph: int,
                   pw: int, wins=None, period: Optional[int] = None,
-                  cylindrical: bool = False):
+                  cylindrical: bool = False, shapes=None):
     """Where every patch pixel samples its region, and whether it is
-    invalid: -> (x_pr, y_pr, invalid), each (N, ph, pw)."""
-    h, w = img_hw
+    invalid: -> (x_pr, y_pr, invalid), each (N, ph, pw). ``shapes``:
+    optional (N, 2) true (h, w) of regions zero-padded into a stack of
+    ``img_hw``; the centre offset and the bounds test take them."""
+    h, w = true_dims(img_hw, shapes, projs.shape[0], bottoms.device)
     if wins is None:
         wins = _default_wins(projs.shape[0], bottoms.device)
     px, py, xs, ys = mosaic_coords(bottoms, resolution, range_min, ph, pw,
@@ -158,14 +173,15 @@ def _texel_cost(n_px: int, idx: torch.Tensor):
 def backward_warp_cost(imgs, projs, bottoms, resolution, range_min,
                        ph: int, pw: int, wins=None,
                        period: Optional[int] = None,
-                       cylindrical: bool = False):
+                       cylindrical: bool = False, shapes=None):
     """``warp_cost`` of one ``backward_warp`` call on these inputs: the
     texels are the distinct bilinear taps of every patch pixel."""
     n, h, w, _ = imgs.shape
-    projs, bottoms, wins = on_device(imgs.device, projs, bottoms, wins)
+    projs, bottoms, wins, shapes = on_device(imgs.device, projs, bottoms,
+                                             wins, shapes)
     x_pr, y_pr, _ = sample_points((h, w), projs, bottoms, resolution,
                                   range_min, ph, pw, wins, period,
-                                  cylindrical)
+                                  cylindrical, shapes)
     (iy0, iy1, ix0, ix1), _, _ = _taps(x_pr, y_pr, h, w)
     img = torch.arange(n, device=x_pr.device)[:, None, None] * (h * w)
     idx = torch.stack([img + iy * w + ix for iy in (iy0, iy1)
@@ -176,19 +192,23 @@ def backward_warp_cost(imgs, projs, bottoms, resolution, range_min,
 def backward_warp_ref(imgs, projs, bottoms, resolution, range_min,
                       ph: int, pw: int, wins=None,
                       period: Optional[int] = None,
-                      cylindrical: bool = False):
+                      cylindrical: bool = False, shapes=None):
     """Plain PyTorch version. imgs: (N, H, W, 4) f32; projs: (N, 3, 3)
     = K R; bottoms: (N, 2) patch origins [x, y]; resolution/range_min:
     (2,); wins: optional (N, 4) [lo_x, lo_y, hi_x, hi_y) true windows;
     period: full-turn width of a periodic canvas; cylindrical: the
-    cylindrical projection instead of the spherical one. Returns
-    (patches (N, ph, pw, 4), invalid (N, ph, pw) bool). The small
-    arguments may come from the host."""
+    cylindrical projection instead of the spherical one; shapes:
+    optional (N, 2) true (h, w) of images zero-padded into the stack
+    (the centre offset and the bounds test take the true size, the
+    reflect indexing the stack's). Returns (patches (N, ph, pw, 4),
+    invalid (N, ph, pw) bool). The small arguments may come from the
+    host."""
     n, h, w, c = imgs.shape
-    projs, bottoms, wins = on_device(imgs.device, projs, bottoms, wins)
+    projs, bottoms, wins, shapes = on_device(imgs.device, projs, bottoms,
+                                             wins, shapes)
     x_pr, y_pr, mask = sample_points((h, w), projs, bottoms, resolution,
                                      range_min, ph, pw, wins, period,
-                                     cylindrical)
+                                     cylindrical, shapes)
     (iy0, iy1, ix0, ix1), fx, fy = _taps(x_pr, y_pr, h, w)
     fx, fy = fx[..., None], fy[..., None]
     flat = imgs.reshape(n, h * w, c)
@@ -208,8 +228,8 @@ def backward_warp_ref(imgs, projs, bottoms, resolution, range_min,
 @dataclass(frozen=True)
 class WarpPlan:
     """What one render's warp needs besides the images, built once from
-    host data by ``prepare_warp``: every region's K R, patch origin and
-    true window packed in ``params`` ((N, PARAM_FLOATS) float32 on
+    host data by ``prepare_warp``: every region's K R, patch origin, true
+    window and true size packed in ``params`` ((N, PARAM_FLOATS) float32 on
     ``device``, copied there without a wait from the pinned ``host``
     buffer), and the scalars that go into a launch by value (also as
     ``c_launch``, the C entry's structure of them)."""
@@ -237,13 +257,18 @@ class WarpPlan:
     def wins(self) -> torch.Tensor:
         return self.params[:, 11:15]
 
+    @property
+    def true_hw(self) -> torch.Tensor:
+        """(N, 2) true (h, w); a row of zeros means the stack's size."""
+        return self.params[:, 15:17]
+
     def ref_args(self):
         """(projs, bottoms, resolution, range_min) and the keywords of the
         plain version, from the plan (the same float32 values)."""
         return ((self.projs, self.bottoms, torch.tensor(self.res),
                  torch.tensor(self.rmin)),
                 dict(wins=self.wins, period=self.period,
-                     cylindrical=self.cylindrical))
+                     cylindrical=self.cylindrical, shapes=self.true_hw))
 
 
 def host_array(who: str, name: str, value, shape=None,
@@ -264,15 +289,19 @@ def host_array(who: str, name: str, value, shape=None,
     return arr if dtype is None else arr.astype(dtype, copy=False)
 
 
-def pack_params(who: str, n: int, projs, bottoms, wins) -> np.ndarray:
+def pack_params(who: str, n: int, projs, bottoms, wins,
+                shapes=None) -> np.ndarray:
     """-> (n, PARAM_FLOATS) float32: each region's K R (row-major),
-    bottom [x, y] and true window [lo_x, lo_y, hi_x, hi_y) (default: no
-    window), as ``csrc/warp_common.cuh`` reads them."""
+    bottom [x, y], true window [lo_x, lo_y, hi_x, hi_y) (default: no
+    window) and true size [h, w] (default 0, 0: the stack's), as
+    ``csrc/warp_common.cuh`` reads them."""
     out = np.zeros((n, PARAM_FLOATS), np.float32)
     out[:, :9] = host_array(who, "projs", projs, (n, 3, 3)).reshape(n, 9)
     out[:, 9:11] = host_array(who, "bottoms", bottoms, (n, 2))
     out[:, 11:15] = (-1.0, -1.0, math.inf, math.inf) if wins is None else \
         host_array(who, "wins", wins, (n, 4))
+    if shapes is not None:
+        out[:, 15:17] = host_array(who, "shapes", shapes, (n, 2))
     return out
 
 
@@ -310,18 +339,21 @@ def check_sizes(who: str, n: int, ph: int, pw: int):
 
 def prepare_warp(projs, bottoms, wins, resolution, range_min, ph: int,
                  pw: int, period: Optional[int] = None,
-                 cylindrical: bool = False, device="cuda") -> WarpPlan:
+                 cylindrical: bool = False, device="cuda",
+                 shapes=None) -> WarpPlan:
     """The plan of one render's exact warp, from host data (numpy,
     numbers or CPU tensors; a tensor on the card raises): projs (N, 3, 3)
     = K R; bottoms (N, 2); wins (N, 4) or None; resolution/range_min
-    (2,). Packs them into one buffer and copies it to ``device`` with a
+    (2,); shapes (N, 2) true (h, w) of images zero-padded into one stack,
+    or None when every image fills it. Packs them into one buffer and copies it to ``device`` with a
     copy that does not wait for the card."""
     who = "prepare_warp"
     device = torch.device(device)
     n = int(np.shape(bottoms)[0])
     check_sizes(who, n, ph, pw)
     res, rmin = _scalars(who, resolution, range_min)
-    host, params = upload(pack_params(who, n, projs, bottoms, wins), device)
+    host, params = upload(pack_params(who, n, projs, bottoms, wins, shapes),
+                          device)
     period = None if period is None else int(period)
     return WarpPlan(params.device, n, int(ph), int(pw), res, rmin, period,
                     bool(cylindrical), params.view(n, PARAM_FLOATS), host,
@@ -371,14 +403,15 @@ def launch_warp(imgs: torch.Tensor, plan: WarpPlan):
 
 def backward_warp(imgs, projs, bottoms, resolution, range_min,
                   ph: int, pw: int, wins=None,
-                  period: Optional[int] = None, cylindrical: bool = False):
+                  period: Optional[int] = None, cylindrical: bool = False,
+                  shapes=None):
     """Prepare, then launch: the CUDA kernel for CUDA images, the plain
     version for CPU ones (same arguments and results as
     ``backward_warp_ref``; the small arguments come from the host)."""
     if imgs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"backward_warp: unsupported device {imgs.device}")
     plan = prepare_warp(projs, bottoms, wins, resolution, range_min, ph, pw,
-                        period, cylindrical, imgs.device)
+                        period, cylindrical, imgs.device, shapes)
     return launch_warp(imgs, plan)
 
 

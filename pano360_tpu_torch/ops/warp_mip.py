@@ -332,6 +332,7 @@ class MipWarpPlan(WarpPlan):
 
     def ref_args(self):
         (projs, bottoms, res, rmin), kw = super().ref_args()
+        del kw["shapes"]        # the mip warp takes one image size
         return ((projs, bottoms, res, rmin, self.origins, self.ph, self.pw,
                  *self.win, self.img_shape), kw)
 

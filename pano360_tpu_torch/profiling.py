@@ -20,10 +20,13 @@ LOG = logging.getLogger(__name__)
 
 
 class StageTimer:
-    """Accumulates wall-clock per pipeline stage."""
+    """Accumulates wall-clock per pipeline stage; ``extra`` takes what a
+    stage counts besides (MSOP: candidates and keypoints per level, SSC
+    host seconds)."""
 
     def __init__(self):
         self.stages: Dict[str, float] = {}
+        self.extra: Dict[str, object] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str):

@@ -205,10 +205,13 @@ def _damped_step(jtj, jtr, lam: float, shape):
 def lm_core(params, prob: Problem, mask, max_iter: int = LM_MAX_ITER):
     """Fixed-lambda LM; with rollback-on-reject the state after the first
     rejection is frozen, so the loop stops there (the JAX package's
-    ``_lm_core`` schedule). Returns the best params."""
+    ``_lm_core`` schedule). Returns the best params and the number of
+    iterations run (the rejected one included)."""
     best = params
     best_err = np.float32(prob.loss(params, mask).item())
+    n_iter = 0
     for _ in range(max_iter):
+        n_iter += 1
         jtj, jtr = prob.normal_equations(best, mask)
         trial = best - _damped_step(jtj, jtr, LM_LAMBDA, best.shape)
         err = np.float32(prob.loss(trial, mask).item())
@@ -216,19 +219,22 @@ def lm_core(params, prob: Problem, mask, max_iter: int = LM_MAX_ITER):
         if not err < best_err - np.float32(LM_MIN_IMPROVE):
             break
         best, best_err = trial, err
-    return best
+    return best, n_iter
 
 
 def lm_polish(params, prob: Problem, mask):
     """Adaptive-damping LM past the fixed-lambda stop: halve lambda on
-    accept, 4x on reject, stop after 12 consecutive rejects."""
+    accept, 4x on reject, stop after 12 consecutive rejects. Returns the
+    best params and the number of iterations run."""
     best = params
     best_err = np.float32(prob.loss(params, mask).item())
     lam = np.float32(LM_LAMBDA)
     rejects = 0
+    n_iter = 0
     for _ in range(POLISH_MAX_ITER):
         if rejects >= POLISH_MAX_REJECTS:
             break
+        n_iter += 1
         jtj, jtr = prob.normal_equations(best, mask)
         trial = best - _damped_step(jtj, jtr, float(lam), best.shape)
         err = np.float32(prob.loss(trial, mask).item())
@@ -238,17 +244,22 @@ def lm_polish(params, prob: Problem, mask):
         else:
             lam, rejects = lam * np.float32(4.0), rejects + 1
         lam = np.float32(np.clip(lam, np.float32(1e-5), np.float32(1e6)))
-    return best
+    return best, n_iter
 
 
 def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
              use_straighten: bool = True, polish: bool = True,
-             device="cuda") -> List[PanoImage]:
+             device="cuda", stats=None) -> List[PanoImage]:
     """Best-first expansion over the match graph + bundle adjustment.
 
     ``matches[i][j] = (kpt_pairs (M, 6), hom, n_inliers)`` (the cache's
     rehydrated form). ``badjust``: ``incr`` (LM after every add),
-    ``last`` (one LM at the end) or ``none``.
+    ``last`` (one LM at the end) or ``none``. ``stats``: an optional dict
+    that receives the initial focal (``focal0``), the number of edges
+    (``ba_edges``) and of those that passed the RMSE gate
+    (``ba_edges_enabled``), the largest edge (``ba_edge_points``) and the
+    LM iterations run (``lm_iterations``, one count per optimisation,
+    and ``polish_iterations``).
     """
     if badjust not in ("incr", "last", "none"):
         raise ValueError(f"badjust {badjust!r}")
@@ -309,6 +320,7 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     params[src] = 0.0
     params[src, :3] = lead
     enabled = torch.zeros(ne, dtype=torch.bool, device=device)
+    lm_iters, polish_iters = [], 0
     for k, (dst, src_i, hom) in enumerate(adds):
         r_src = geo.exp_so3(params[src_i, 3:6])
         hom_t = torch.as_tensor(np.asarray(hom, np.float32), **tt)
@@ -318,12 +330,19 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
         rmse = prob.edge_rmse(params)
         enabled = enabled | ((edge_add_t == k) & (rmse < MIN_MATCH_ERROR))
         if badjust == "incr":
-            params = lm_core(params, prob, prob.mask * enabled[:, None])
+            params, it = lm_core(params, prob, prob.mask * enabled[:, None])
+            lm_iters.append(it)
     emask = prob.mask * enabled[:, None]
     if badjust == "last":
-        params = lm_core(params, prob, emask)
+        params, it = lm_core(params, prob, emask)
+        lm_iters.append(it)
     if polish and badjust != "none":
-        params = lm_polish(params, prob, emask)
+        params, polish_iters = lm_polish(params, prob, emask)
+    if stats is not None:
+        stats.update(focal0=float(focal), ba_edges=len(edges),
+                     ba_edges_enabled=int(enabled.sum()),
+                     ba_edge_points=mp, lm_iterations=lm_iters,
+                     polish_iterations=polish_iters)
     placed_idx = torch.as_tensor(sorted(placed), **tt)
     if use_straighten:
         rots = geo.exp_so3(params[placed_idx, 3:6])

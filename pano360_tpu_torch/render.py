@@ -54,15 +54,26 @@ def _border_points(shape: Tuple[int, int], nel: int) -> np.ndarray:
 
 
 def proj_img_range_border(shape: Tuple[int, int], homs: torch.Tensor,
-                          projection=geo.SphProj,
-                          nel: int = 100) -> torch.Tensor:
+                          projection=geo.SphProj, nel: int = 100,
+                          shapes: Optional[np.ndarray] = None
+                          ) -> torch.Tensor:
     """Projected extent of the image borders for (N, 3, 3) homs: one
     (4, N, 2) array [rmin, rmax, uw_min, uw_max], where the ``uw`` pair
     is the azimuth range unwrapped around each view's center direction
-    (a contiguous interval that may leave [-pi, pi) at the seam)."""
+    (a contiguous interval that may leave [-pi, pi) at the seam).
+    ``shapes``: optional per-image (N, 2) (h, w) in place of the single
+    ``shape`` when the images have mixed sizes."""
     homs = homs.to(torch.float32)
-    borders = torch.as_tensor(_border_points(shape, nel), device=homs.device)
-    pts = projection.hom2proj(torch.einsum("nij,kj->nki", homs, borders))
+    if shapes is None:
+        borders = torch.as_tensor(_border_points(shape, nel),
+                                  device=homs.device)
+        pts = torch.einsum("nij,kj->nki", homs, borders)
+    else:
+        borders = torch.as_tensor(np.stack(
+            [_border_points((hh, ww), nel) for hh, ww in np.asarray(shapes)]),
+            device=homs.device)
+        pts = torch.einsum("nij,nkj->nki", homs, borders)
+    pts = projection.hom2proj(pts)
     rmin = pts.min(dim=1).values
     rmax = pts.max(dim=1).values
     azc = projection.hom2proj(homs[:, :, 2])[:, 0]
@@ -128,11 +139,26 @@ def hat(size: int, device=None) -> torch.Tensor:
     return 0.5 - torch.abs(xx / size)
 
 
-def add_weights(imgs: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, 3) BGR [0, 1] -> (N, H, W, 4) with hat-product alpha."""
+def add_weights(imgs: torch.Tensor,
+                shapes: Optional[np.ndarray] = None) -> torch.Tensor:
+    """(N, H, W, 3) BGR [0, 1] -> (N, H, W, 4) with hat-product alpha.
+    ``shapes``: optional per-image (N, 2) true (h, w) of a stack
+    zero-padded to a common shape; the hat then spans each image's true
+    extent and is zero over the padding."""
     n, h, w, _ = imgs.shape
-    alpha = hat(h, imgs.device)[:, None] * hat(w, imgs.device)[None, :]
-    alpha = alpha.expand(n, h, w)
+    dev = imgs.device
+    if shapes is None:
+        alpha = hat(h, dev)[:, None] * hat(w, dev)[None, :]
+        alpha = alpha.expand(n, h, w)
+    else:
+        dims = torch.as_tensor(np.asarray(shapes), dtype=torch.float32,
+                               device=dev)
+        hs, ws = dims[:, 0, None, None], dims[:, 1, None, None]
+        yy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+        xx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+        hy = torch.clamp(0.5 - torch.abs((yy - hs / 2) / hs), min=0.0)
+        hx = torch.clamp(0.5 - torch.abs((xx - ws / 2) / ws), min=0.0)
+        alpha = hy * hx * (yy < hs) * (xx < ws)
     return torch.cat([imgs, alpha[..., None]], dim=-1).contiguous()
 
 
@@ -152,24 +178,31 @@ def find_gains(overlaps: np.ndarray, sizes: np.ndarray,
 
 def _pair_overlap_stats(imgs: torch.Tensor, homs_win: torch.Tensor,
                         pair_i: torch.Tensor, pair_j: torch.Tensor,
-                        origins: torch.Tensor, wh: int, ww: int):
+                        origins: torch.Tensor, wh: int, ww: int,
+                        dims_i: Optional[torch.Tensor] = None):
     """Overlap mean intensities of all pairs in one batched warp.
 
     Pair p works in its (wh, ww) window of image i's frame, at
     ``origins[p]`` (oy, ox): image j is warped into the window by
     ``homs_win[p]`` (j's pixels -> window pixels, cv2 convention) with a
     zero constant border, and the overlap is where the warped alpha is
-    nonzero. imgs: (N, H, W, 4). Returns (mean_i, mean_j, count), each
-    (P,): the mean of i's and of j's RGB over the overlap.
+    nonzero. imgs: (N, H, W, 4). ``dims_i``: optional per-pair (P, 2)
+    true (h_i, w_i), restricting the overlap to image i's true region
+    (zero-padded mixed-size stacks). Returns (mean_i, mean_j, count),
+    each (P,): the mean of i's and of j's RGB over the overlap.
     """
     map_x, map_y = perspective_maps(homs_win, (wh, ww))
     overlap = bilinear_taps(imgs, map_x, map_y, "constant", 0.0,
                             index=pair_j)                 # (P, wh, ww, 4)
-    mask = (overlap[..., 3] != 0)[..., None]
-    cnt = mask.sum(dim=(1, 2, 3))
     dev = imgs.device
     yy = origins[:, 0, None, None] + torch.arange(wh, device=dev)[:, None]
     xx = origins[:, 1, None, None] + torch.arange(ww, device=dev)[None, :]
+    mask = overlap[..., 3] != 0
+    if dims_i is not None:
+        mask = mask & (yy < dims_i[:, 0, None, None]) \
+            & (xx < dims_i[:, 1, None, None])
+    mask = mask[..., None]
+    cnt = mask.sum(dim=(1, 2, 3))
     win_i = imgs[pair_i[:, None, None], yy, xx]           # (P, wh, ww, 4)
     zero = torch.zeros((), device=dev)
     sum_i = torch.where(mask, win_i[..., :3], zero).sum(dim=(1, 2, 3))
@@ -182,23 +215,30 @@ def _np_hom_to_from(c1: PanoImage, c2: PanoImage) -> np.ndarray:
     return (c1.intr @ c1.rot) @ (c2.rot.T @ np.linalg.inv(c2.intr))
 
 
-def overlap_matrices(regions: List[PanoImage], imgs_rgba: torch.Tensor):
+def overlap_matrices(regions: List[PanoImage], imgs_rgba: torch.Tensor,
+                     shapes: Optional[np.ndarray] = None):
     """(overlaps, sizes) matrices feeding the gain solve: overlaps[i, j]
     = mean intensity of image i over the (i, j) overlap, sizes[i, j] =
     the overlap's pixel count. Pairs are pruned on the host (a warped
     corner behind the camera, or a warped-quad bbox missing i's frame);
     the rest share one window shape (64-px buckets), clamped into the
-    frame."""
+    frame. ``shapes``: optional per-image true (h, w) of a zero-padded
+    mixed-size stack."""
     n = len(regions)
     height, width = imgs_rgba.shape[1:3]
+    mixed = shapes is not None
+    if shapes is None:
+        shapes = np.array([[height, width]] * n)
     pair_i, pair_j, homs, boxes = [], [], [], []
     for i in range(n):
-        tr = np.array([[1, 0, width / 2], [0, 1, height / 2], [0, 0, 1]])
+        hi, wi = shapes[i]
+        tr = np.array([[1, 0, wi / 2], [0, 1, hi / 2], [0, 0, 1]])
         for j in range(i + 1, n):
-            inv_tr = np.array([[1, 0, -width / 2], [0, 1, -height / 2],
+            hj, wj = shapes[j]
+            inv_tr = np.array([[1, 0, -wj / 2], [0, 1, -hj / 2],
                                [0, 0, 1]])
-            corners = np.array([[0, 0, 1], [width, 0, 1],
-                                [width, height, 1], [0, height, 1]])
+            corners = np.array([[0, 0, 1], [wj, 0, 1],
+                                [wj, hj, 1], [0, hj, 1]])
             hom = tr @ _np_hom_to_from(regions[i], regions[j]) @ inv_tr
             pts = corners @ hom.T
             if np.any(pts[:, 2] < 0):
@@ -206,8 +246,8 @@ def overlap_matrices(regions: List[PanoImage], imgs_rgba: torch.Tensor):
             q = pts[:, :2] / pts[:, 2:3]
             x0 = max(int(np.floor(q[:, 0].min())) - 2, 0)
             y0 = max(int(np.floor(q[:, 1].min())) - 2, 0)
-            x1 = min(int(np.ceil(q[:, 0].max())) + 2, int(width))
-            y1 = min(int(np.ceil(q[:, 1].max())) + 2, int(height))
+            x1 = min(int(np.ceil(q[:, 0].max())) + 2, int(wi))
+            y1 = min(int(np.ceil(q[:, 1].max())) + 2, int(hi))
             if x0 >= x1 or y0 >= y1:
                 continue
             pair_i.append(i)
@@ -232,7 +272,9 @@ def overlap_matrices(regions: List[PanoImage], imgs_rgba: torch.Tensor):
                                    device=dev),
         torch.as_tensor(pair_i, device=dev),
         torch.as_tensor(pair_j, device=dev),
-        torch.as_tensor(np.stack([oy, ox], axis=1), device=dev), wh, ww))
+        torch.as_tensor(np.stack([oy, ox], axis=1), device=dev), wh, ww,
+        torch.as_tensor(shapes[np.asarray(pair_i)], device=dev)
+        if mixed else None))
     for k in range(len(homs)):
         i, j = pair_i[k], pair_j[k]
         if cnt[k] == 0:
@@ -243,10 +285,11 @@ def overlap_matrices(regions: List[PanoImage], imgs_rgba: torch.Tensor):
     return overlaps, sizes
 
 
-def estimate_gains(regions: List[PanoImage],
-                   imgs_rgba: torch.Tensor) -> np.ndarray:
-    """Per-image exposure gains over the pairwise overlaps: (N,)."""
-    gains = find_gains(*overlap_matrices(regions, imgs_rgba))
+def estimate_gains(regions: List[PanoImage], imgs_rgba: torch.Tensor,
+                   shapes: Optional[np.ndarray] = None) -> np.ndarray:
+    """Per-image exposure gains over the pairwise overlaps: (N,).
+    ``shapes``: per-image true (h, w) of a zero-padded stack."""
+    gains = find_gains(*overlap_matrices(regions, imgs_rgba, shapes))
     LOG.debug("Gains: %s", gains)
     return gains
 
@@ -259,10 +302,11 @@ def apply_gains(imgs_rgba: torch.Tensor, gains) -> torch.Tensor:
     return torch.cat([rgb, imgs_rgba[..., 3:]], dim=-1).contiguous()
 
 
-def equalize_gains(regions: List[PanoImage],
-                   imgs_rgba: torch.Tensor) -> torch.Tensor:
+def equalize_gains(regions: List[PanoImage], imgs_rgba: torch.Tensor,
+                   shapes: Optional[np.ndarray] = None) -> torch.Tensor:
     """Estimate and apply exposure gains: the corrected (N, H, W, 4)."""
-    return apply_gains(imgs_rgba, estimate_gains(regions, imgs_rgba))
+    return apply_gains(imgs_rgba,
+                       estimate_gains(regions, imgs_rgba, shapes))
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +460,9 @@ class MosaicLayout(NamedTuple):
     period: Optional[int]       # full-turn width when periodic, else None
     resolution: np.ndarray      # (2,) rad/px
     im_range: Tuple[np.ndarray, np.ndarray]
+    # (N, 2) true (h, w) of mixed-size images zero-padded into one stack
+    # (set by ``prepare``); None when all share one shape
+    shapes: Optional[np.ndarray] = None
 
 
 def plan_layout(regions: List[PanoImage], ranges: np.ndarray, blender: str,
@@ -508,30 +555,43 @@ def prepare(regions: List[PanoImage], blender: str,
             max_resolution: int, device, dev_images=None,
             projection=geo.SphProj):
     """Upload (or reuse) the images, set each region's range and plan the
-    layout: -> (imgs_rgba (N, H, W, 4) f32 on ``device``, layout)."""
-    shapes = {r.img.shape[:2] for r in regions}
-    if len(shapes) != 1:
-        raise NotImplementedError(
-            "mixed image shapes are not ported yet (ROADMAP Queue 1: "
-            "mixed image shapes)")
-    (h, w), = shapes
-    if dev_images is not None and dev_images.shape[0] == len(regions):
+    layout: -> (imgs_rgba (N, H, W, 4) f32 on ``device``, layout).
+    Images of mixed sizes are zero-padded to the largest (H, W) and
+    ``layout.shapes`` is their (N, 2) true (h, w) (None when all share
+    one shape): it masks the padding in the weights, the warp bounds and
+    the equalization. ``dev_images``: the uint8 stack already on the
+    device, or a ``pipeline.BucketStacks`` (padded there, not uploaded
+    again) when it holds all N regions."""
+    n = len(regions)
+    shapes = np.array([r.img.shape[:2] for r in regions])
+    uniform = bool((shapes == shapes[0]).all())
+    h, w = int(shapes[:, 0].max()), int(shapes[:, 1].max())
+    if dev_images is not None and hasattr(dev_images, "to_padded"):
+        dev_images = dev_images.to_padded(h, w) if dev_images.n == n else None
+    if dev_images is not None and dev_images.shape[0] == n:
         imgs = dev_images
-    else:
+    elif uniform:
         imgs = torch.as_tensor(np.stack([r.img for r in regions]),
                                device=device)
+    else:
+        stack = np.zeros((n, h, w, 3), regions[0].img.dtype)
+        for k, r in enumerate(regions):
+            hk, wk = r.img.shape[:2]
+            stack[k, :hk, :wk] = r.img
+        imgs = torch.as_tensor(stack, device=device)
     if imgs.dtype == torch.uint8:
         imgs = imgs.to(torch.float32) / 255.0
     imgs = imgs.to(torch.float32)
+    shapes = None if uniform else shapes
     homs = torch.as_tensor(np.stack([r.hom() for r in regions]),
                            dtype=torch.float32, device=device)
-    ranges = proj_img_range_border((h, w), homs, projection).cpu().numpy(
-        ).astype(np.float64)
+    ranges = proj_img_range_border((h, w), homs, projection, shapes=shapes
+                                   ).cpu().numpy().astype(np.float64)
     for k, reg in enumerate(regions):
         reg.range = (ranges[0][k], ranges[1][k])
     layout = plan_layout(regions, ranges, blender, max_resolution,
-                         projection)
-    return add_weights(imgs), layout
+                         projection)._replace(shapes=shapes)
+    return add_weights(imgs, shapes), layout
 
 
 def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
@@ -547,7 +607,10 @@ def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
     ``warp``: "auto" and "xla" take the exact kernel at any resolution;
     "pallas" takes the mip-sampled kernel at ``plan_windows``'s levels,
     or, when a tile's window fits the caps at no level, warns and takes
-    the exact kernel (the JAX package's policy).
+    the exact kernel (the JAX package's policy). With ``layout.shapes``
+    (a zero-padded mixed-size stack) "pallas" takes the exact kernel
+    too, as the JAX package does: the mip-sampled kernel takes one
+    image size.
     """
     if warp not in WARP_POLICIES:
         raise ValueError(f"warp must be one of {WARP_POLICIES}, got {warp!r}")
@@ -555,7 +618,7 @@ def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
     dev = imgs_rgba.device
     args = (projs, layout.bottoms, layout.wins, layout.resolution,
             layout.im_range[0])
-    if warp == "pallas":
+    if warp == "pallas" and layout.shapes is None:
         hw = tuple(imgs_rgba.shape[1:3])
         origins, ok, win_y, win_x, n_levels = plan_windows(
             projs, layout.bottoms, layout.resolution, layout.im_range[0], hw,
@@ -569,7 +632,8 @@ def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
         LOG.warning("pallas warp requested but a tile source window "
                     "cannot fit the window caps at any mip level; using "
                     "the exact warp")
-    plan = prepare_warp(*args, layout.ph, layout.pw, layout.period, cyl, dev)
+    plan = prepare_warp(*args, layout.ph, layout.pw, layout.period, cyl, dev,
+                        layout.shapes)
     return launch_warp(imgs_rgba, plan)
 
 
@@ -580,8 +644,10 @@ def stitch(regions: List[PanoImage], blender: str = "multiband",
     """Full render: ranges -> layout -> weights -> (gains) -> warp ->
     blend -> (crop).
 
-    ``regions[k].img``: uint8 BGR (or float BGR in [0, 1]), one shape.
-    ``dev_images``: the (N, H, W, 3) uint8 stack already on the device.
+    ``regions[k].img``: uint8 BGR (or float BGR in [0, 1]); mixed image
+    shapes are zero-padded to the largest with each image's true size
+    masking the padding. ``dev_images``: the (N, H, W, 3) uint8 stack
+    already on the device (or ``pipeline.BucketStacks``).
     ``equalize``: exposure gains from the pairwise overlaps, applied
     before the warp. ``crop``: cut to the largest rectangle of valid
     pixels (the native library, else its Python fallback).
@@ -593,7 +659,7 @@ def stitch(regions: List[PanoImage], blender: str = "multiband",
     imgs_rgba, layout = prepare(regions, blender, max_resolution, device,
                                 dev_images, proj)
     if equalize:
-        imgs_rgba = equalize_gains(regions, imgs_rgba)
+        imgs_rgba = equalize_gains(regions, imgs_rgba, layout.shapes)
     projs = np.stack([r.proj() for r in regions])
     patches, invalid = warp_patches(imgs_rgba, projs, layout, proj, warp)
     mosaic = BLENDERS[blender](patches, invalid, layout.bottoms,

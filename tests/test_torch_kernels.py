@@ -26,8 +26,8 @@ from pano360_tpu_torch.ops import gauss_octave as G
 from pano360_tpu_torch.ops import warp_kernel as W
 from pano360_tpu_torch.ops import warp_mip as M
 from pano360_tpu_torch.ops.color import bgr2gray
-from torch_warp_scenes import (mip_call, mip_scene, regions,  # noqa: F401
-                               warp_scene, warp_setup)
+from torch_warp_scenes import (mip_call, mip_scene, mixed_scene,  # noqa: F401
+                               regions, warp_scene, warp_setup)
 
 torch.set_num_threads(1)
 
@@ -92,6 +92,22 @@ def test_backward_warp_cpu_tensor_takes_plain_version(warp_scene):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert W.launches == before
     assert (~a[1]).sum() > 1000
+
+
+def test_backward_warp_mixed_cpu_takes_plain_version(mixed_scene):
+    """Per-image true sizes through the wrapper on CPU tensors: the plain
+    version's result, no launch; the true sizes change the result."""
+    args, kw = mixed_scene
+    before = W.launches
+    out, bad = W.backward_warp(*args, **kw)
+    assert W.launches == before
+    ref, ref_bad = W.backward_warp_ref(*args, **kw)
+    assert torch.equal(out, ref) and torch.equal(bad, ref_bad)
+    padded, _ = W.backward_warp_ref(*args, **dict(kw, shapes=None))
+    assert not torch.equal(padded, ref)
+    # the zero padding is never sampled as valid content: alpha is zero
+    # wherever the padded stack's alpha is
+    assert int((~bad).sum()) > 1000
 
 
 def test_backward_warp_mip_cpu_tensor_takes_plain_version(mip_scene):
@@ -276,6 +292,35 @@ def test_backward_warp_kernel_shapes_exact(warp_scene, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("periodic", [False, True])
+def test_backward_warp_kernel_per_image_dims_exact(mixed_scene, periodic):
+    """Views of mixed sizes zero-padded into one stack, each region's
+    true (h, w) in its parameter row: bit for bit the plain version."""
+    (rgba, *small), kw = mixed_scene
+    if periodic:
+        kw = dict(kw, period=small[-1] // 3 + 7)
+    args = (rgba.to(_cuda()), *small)
+    before = W.launches
+    kernel = W.backward_warp(*args, **kw)
+    assert W.launches == before + 1
+    _equal_warps(kernel, W.backward_warp_ref(*args, **kw), 1000)
+    padded = W.backward_warp(*args, **dict(kw, shapes=None))
+    assert not torch.equal(padded[0], kernel[0])
+
+
+@pytest.mark.gpu
+def test_backward_warp_kernel_stack_dims_equal_none(warp_scene):
+    """A uniform stack: true sizes equal to the stack's give the bits of
+    a plan without sizes (zeros in the parameter rows)."""
+    args, kw = _exact_case(warp_scene, "ragged")
+    n, h, w, _ = args[0].shape
+    a = W.backward_warp(*args, **kw)
+    b = W.backward_warp(*args, shapes=np.array([[h, w]] * n), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
 def test_backward_warp_plan_reused_same_bits(warp_scene):
     (imgs, *small, ph, pw), kw = _exact_case(warp_scene, "periodic")
     plan = W.prepare_warp(small[0], small[1], kw["wins"], *small[2:], ph, pw,
@@ -436,3 +481,21 @@ def test_backward_warp_kernel_rejects_bad_input(warp_scene):
         W.backward_warp(args[0], args[1][:1], *args[2:])
     with pytest.raises(ValueError, match="range_min"):
         W.backward_warp(*args[:4], args[4].to(dev), *args[5:])
+
+
+@pytest.mark.gpu
+def test_refit_homography_pair_without_inliers_on_card():
+    """On the card a singular or non-finite system makes
+    ``torch.linalg.solve`` raise for the whole batch: a pair without
+    inliers must come out non-finite and leave the others refitted."""
+    from pano360_tpu_torch import match
+    rng = np.random.default_rng(8)
+    p1 = torch.tensor(rng.random((2, 40, 2)) * 200 - 100,
+                      dtype=torch.float32, device=_cuda())
+    p2 = p1 * 1.01 + 3.0
+    w = torch.ones((2, 40), device=_cuda())
+    w[0] = 0.0
+    hom = match.refit_homography(p1, p2, w)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(hom[0]).all() and torch.isfinite(hom[1]).all()
+    assert abs(float(hom[1, 0, 0]) - 1.01) < 1e-3

@@ -45,6 +45,32 @@ def warp_scene(request):
         request.param == "cylindrical"
 
 
+def mixed_regions(shapes=((120, 160), (96, 140), (120, 160), (110, 128))):
+    """A sweep whose views have mixed sizes (same focal and texture),
+    with its true cameras."""
+    big = max(s[1] for s in shapes)
+    _, rots, focal = synth.make_views(n_views=len(shapes), shape=(120, big),
+                                      overlap=0.5, seed=5)
+    tex = synth.world_texture(seed=5)
+    intr = np.diag([focal, focal, 1.0])
+    return [PanoImage((synth.render_view(tex, r, focal, shp) * 255
+                       ).astype(np.uint8), r, intr.copy())
+            for r, shp in zip(rots, shapes)]
+
+
+@pytest.fixture(scope="module", params=["spherical", "cylindrical"])
+def mixed_scene(request):
+    """Four views of mixed sizes zero-padded into one stack: ->
+    ((rgba, projs, bottoms, resolution, range_min, ph, pw), keywords of
+    the exact warp with the views' true ``shapes``)."""
+    args, lay, _ = warp_setup(mixed_regions(), 1400, request.param)
+    assert lay.shapes is not None and args[0].shape[1:3] == (120, 160)
+    return args + (lay.ph, lay.pw), dict(
+        wins=torch.as_tensor(lay.wins, dtype=torch.float32),
+        period=lay.period, cylindrical=request.param == "cylindrical",
+        shapes=lay.shapes)
+
+
 # two views of 300x700 under a 120-px cap (aperiodic), and a 401-degree
 # sweep of eight 120x320 views on a periodic 400-px canvas
 MIP_SCENES = {"aperiodic": ((2, (300, 700), 0.5), 120),
