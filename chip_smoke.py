@@ -66,7 +66,32 @@ Phases (any failure exits non-zero):
    D. the extras: ``blend_extra.demo`` on two 864x1152 views (warp,
       graph-cut seam, Laplacian blend, Poisson blend): uint8 results of
       the expected shapes, the Poisson residual fallen, each step's
-      seconds.
+      seconds;
+9. the mesh and the dense descriptor:
+   A. the production pipeline (``parallel.dryrun.pipeline``: matching,
+      ``--ba incr``, multiband) over 2 rank processes that share the one
+      GPU over gloo, on phase 5's views, held to phase 5's one-process
+      run: features and match graph equal, 15 of 15 placed within phase
+      5's bounds, the same LM iteration counts, the mosaic >= 70 dB, the
+      octave and exact warp kernels launched in each rank (counted per
+      rank); each rank's stage seconds, seconds in collectives and peak
+      memory. In the same launch ``distributed_lm_stats`` of 137 random
+      edges, bit for bit one process's; in this process the bundle
+      adjuster's per-edge terms of every shard of those edges over 2, 3
+      and 4 ranks, bit for bit the one-process rows. Then the pipeline
+      at ``-e -c`` on phase 8 B's mixed-size views against a one-process
+      run, and ``--mesh 2`` through the CLI, which on one GPU warns and
+      runs the one-process path;
+   B. ``upload_extract`` with ``descr_mode='dense'`` on the bench views
+      beside the grid descriptor's (time, peak memory): the same
+      keypoints, descriptors of unit norm; the CLI with
+      ``PANO_SIFT_DESCR=dense`` registers within phase 5's bounds; one
+      ``upscale=False`` extraction (keypoints, time);
+10. the kernels line.
+
+Phase 5 also holds ``render.add_weights``'s per-image branch, fed the
+uniform sizes, to its uniform branch on the bench stack (within 1e-6;
+they are not bit-equal on the card).
 
 Times: CUDA events over ``REPS`` calls (a warp's and ``grid_sample``'s
 over ``measure.WARP_REPS``), kernel and plain version in turns; a
@@ -317,15 +342,15 @@ def phase_slice(torch, u8, rots, focal):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         stages = {k: round(v, 4) for k, v in timer.stages.items()}
         log(f"  {label} run: {total:.3f} s; stages {stages}; peak device "
-            f"memory {peak:.2f} GiB; LM iterations "
-            f"{timer.extra['lm_iterations']} + polish "
+            f"memory {peak:.2f} GiB; BA edges {timer.extra['ba_edges']}; LM "
+            f"iterations {timer.extra['lm_iterations']} + polish "
             f"{timer.extra['polish_iterations']}")
-        runs[label] = (args, mosaic)
+        runs[label] = (args, mosaic, timer.extra)
     log(f"  launches on the cold run: {launches}")
     check(all(v > 0 for v in launches.values()),
           f"main path did not launch every kernel: {launches}")
 
-    args, mosaic = runs["warm"]
+    args, mosaic, _ = runs["warm"]
     regs = cli.load_ba_cache(os.path.join(args.cache_dir,
                                           "ba_bench_s1.0.pkl"))
     check(len(regs) == BENCH_VIEWS, f"{len(regs)} of {BENCH_VIEWS} placed")
@@ -342,7 +367,34 @@ def phase_slice(torch, u8, rots, focal):
     again = cli.run_images(u8, args, "bench_s1.0")
     check(np.array_equal(again, mosaic), "cached re-run differs")
     log(f"  mosaic {mosaic.shape}; cached re-run identical")
-    return launches, walls["warm"], args.cache_dir
+    hold_add_weights(torch, u8)
+    kpts, matches = cli.load_match_cache(os.path.join(
+        args.cache_dir, "matches_bench_s1.0.npz"))
+    extra = runs["warm"][2]
+    ref = dict(kpts=kpts, matches=matches, mosaic=mosaic,
+               cams=[(r.rot, r.intr) for r in regs],
+               lm_iterations=extra["lm_iterations"],
+               polish_iterations=extra["polish_iterations"])
+    return launches, walls["warm"], args.cache_dir, ref
+
+
+def hold_add_weights(torch, u8):
+    """``render.add_weights``'s per-image branch fed the uniform sizes
+    against its uniform branch on the bench stack. They are not bit-equal
+    on the card (the uniform hat divides by a host scalar, which CUDA
+    turns into a multiply by its reciprocal), so both stay; the gate is
+    f32 rounding."""
+    from pano360_tpu_torch import render
+    imgs = torch.as_tensor(np.stack(u8), device="cuda").float() / 255
+    n, h, w = imgs.shape[:3]
+    uniform = render.add_weights(imgs)
+    per_image = render.add_weights(imgs, np.array([[h, w]] * n))
+    d = (uniform - per_image).abs()
+    err = float(d.max())
+    log(f"  add_weights on the {n}x{h}x{w} stack, per-image branch vs "
+        f"uniform: equal {bool(torch.equal(uniform, per_image))}, max|d| "
+        f"{err:.3e} at {int((d > 0).sum())} values")
+    check(err <= 1e-6, f"add_weights' branches differ by {err}")
 
 
 def run_cli(torch, imgs, flags, cache, label, timer=None):
@@ -500,9 +552,10 @@ def msop_graph_gates(label, cache, rots, focal, width):
     MSOP_MIN_INLIERS inliers whose homography H (centre-relative pixels,
     K^-1 H K = R_j R_i^T) gives the true relative rotation within
     MSOP_EDGE_ROT_BOUND_DEG."""
-    arr = np.load(os.path.join(cache, "matches_bench_s1.0.npz"),
-                  allow_pickle=True)
-    matches = arr["matches"].item()
+    from pano360_tpu_torch import cli
+    _, matches = cli.load_match_cache(os.path.join(cache,
+                                                   "matches_bench_s1.0.npz"))
+    matches = matches.item()
     n = len(rots)
     fov = np.degrees(2 * np.arctan(width / 2 / focal))
     k = np.diag([focal, focal, 1.0])
@@ -746,6 +799,199 @@ def phase_extras(torch):
     check(res["poisson"].any() and res["laplacian"].any(), "D: empty blend")
 
 
+def cams_errors(cams, rots, focal):
+    from pano360_tpu_torch.register import PanoImage
+    return registration_errors([PanoImage(None, r, k) for r, k in cams],
+                               rots, focal)
+
+
+def lm_inputs(e: int, m: int = 1024, c: int = BENCH_VIEWS, seed: int = 7):
+    """A random bundle-adjustment problem of e edges between c cameras
+    of m match points each (30 % masked): the keyword arguments of
+    ``distributed_lm_stats``."""
+    rng = np.random.default_rng(seed)
+    params = (rng.standard_normal((c, 6)) * 0.1
+              + np.array([1000, 0, 0, 0, 0, 0])).astype(np.float32)
+    cam1 = rng.integers(0, c, e)
+    cam2 = (rng.integers(1, c, e) + cam1) % c
+    pts = np.ones((e, m, 6), np.float32)
+    pts[..., :2] = rng.uniform(-400, 400, (e, m, 2))
+    pts[..., 3:5] = rng.uniform(-400, 400, (e, m, 2))
+    mask = (rng.random((e, m)) > 0.3).astype(np.float32)
+    return dict(params=params, cam1=cam1, cam2=cam2, pts=pts, mask=mask)
+
+
+def lm_one_process(torch, kw):
+    """``distributed_lm_stats``' quadruple on one process, and the
+    ``Problem`` it came from."""
+    from pano360_tpu_torch import register
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in kw.items()}
+    prob = register.Problem(t["cam1"], t["cam2"], t["pts"], t["mask"],
+                            t["params"].shape[0])
+    sq, cnt = prob.edge_sums(t["params"], prob.mask)
+    return (torch.sum(sq), 2.0 * torch.sum(cnt),
+            *prob.normal_equations(t["params"], prob.mask)), prob, t
+
+
+def hold_edge_shards(torch, kw):
+    """The per-edge terms of every shard of ``kw``'s edges over 2, 3 and
+    4 ranks against the one-process rows: -> the shards that differ."""
+    from types import SimpleNamespace
+    from pano360_tpu_torch import register
+    _, one, t = lm_one_process(torch, kw)
+    want = torch.cat([one._edge_terms(t["params"], one.mask),
+                      torch.stack(one.edge_sums(t["params"], one.mask), 1)],
+                     1)
+    bad = []
+    for world in (2, 3, 4):
+        for rank in range(world):
+            prob = register.Problem(t["cam1"], t["cam2"], t["pts"], t["mask"],
+                                    t["params"].shape[0],
+                                    SimpleNamespace(rank=rank, size=world))
+            prob.mesh = None                   # the shard's rows alone
+            got = torch.cat([prob._edge_terms(t["params"], prob.mask),
+                             torch.stack(prob.edge_sums(t["params"],
+                                                        prob.mask), 1)], 1)
+            n = min(got.shape[0], one.n_edges - prob.lo)
+            if not torch.equal(got[:n], want[prob.lo:prob.lo + n]):
+                bad.append((world, rank))
+    return bad
+
+
+def mesh_run(torch, label, u8, ref, rots, focal, opts=(), extra=()):
+    """``dryrun.pipeline`` over 2 ranks on the one GPU, held to ``ref``
+    (a one-process run of the same images and options), with the jobs
+    of ``extra`` in the same launch: -> (the pipeline's result, the
+    extra jobs' results)."""
+    from pano360_tpu_torch.parallel import dryrun, mesh
+    todo = [(dryrun.pipeline, (), dict(
+        imgs=u8, device="cuda", **dict(zip(("blender", "equalize", "crop"),
+                                           opts)))), *extra]
+    t0 = time.time()
+    res, *more = mesh.launch(dryrun.jobs, 2, "cuda", todo)
+    wall = time.time() - t0
+    cmp = dryrun.compare(res, ref)
+    log(f"  {label}: 2 ranks sharing one GPU over gloo (a correctness "
+        f"configuration, not a speedup): {wall:.3f} s with the ranks' "
+        f"start; features equal {cmp['features_equal']}, match graph "
+        f"equal {cmp['match_graph_equal']}, placed {cmp['placed']}, "
+        f"rotations within {cmp['rot_max_diff']:.2e}, focal within "
+        f"{cmp['focal_max_rel_diff']:.2e}, LM iterations equal "
+        f"{cmp['lm_iterations_equal']} ({res['lm_iterations']} + polish "
+        f"{res['polish_iterations']}), mosaic {cmp['mosaic_shape']} at "
+        f"{cmp['mosaic_psnr_db']:.1f} dB")
+    for r in res["ranks"]:
+        secs = {k: round(v, 4) for k, v in r["seconds"].items()}
+        log(f"    rank {r['rank']}: seconds {secs}; in collectives "
+            f"{r['gather_seconds']:.4f} s ({r['gathers']} of them); "
+            f"launches {r['launches']}; peak device memory "
+            f"{r['peak_gib']:.2f} GiB")
+    check(cmp["ok"], f"9 A, {label}: the mesh run differs: {cmp}")
+    check(all(v > 0 for r in res["ranks"] for v in r["launches"].values()),
+          f"9 A, {label}: a rank launched no kernel: "
+          f"{[r['launches'] for r in res['ranks']]}")
+    f_err, r_err = cams_errors(res["cams"], rots, focal)
+    log(f"  focal max rel err {f_err:.5f}; rel-rot err mean "
+        f"{r_err.mean():.4f} max {r_err.max():.4f} deg")
+    check(len(res["cams"]) == BENCH_VIEWS and f_err <= 0.005
+          and r_err.mean() <= 0.1, f"9 A, {label}: registration {f_err}, "
+          f"{r_err.mean()}")
+    return res, more
+
+
+LM_EDGES = 137          # neither 2, 3 nor 4 divides it
+
+
+def phase_mesh(torch, u8, rots, focal, ref5):
+    """9 A: the sharded pipeline on the card, 2 ranks on cuda:0."""
+    from pano360_tpu_torch.measure import bench_mixed_views
+    from pano360_tpu_torch.parallel import dryrun, mesh
+    kw = lm_inputs(LM_EDGES)
+    _, (got,) = mesh_run(torch, "bench views", u8, ref5, rots, focal,
+                         extra=[(mesh.distributed_lm_stats, (), kw)])
+    want = lm_one_process(torch, kw)[0]
+    same = all(torch.equal(a.cuda(), b) for a, b in zip(got, want))
+    bad = hold_edge_shards(torch, kw)
+    log(f"  distributed_lm_stats of {LM_EDGES} edges over 2 ranks: one "
+        f"process's bit for bit {same}; per-edge terms of the shards over "
+        f"2, 3 and 4 ranks equal to the one-process rows: "
+        f"{'all' if not bad else f'not {bad}'}")
+    check(same, "9 A: distributed_lm_stats differs from one process")
+    check(not bad, f"9 A: per-edge terms of shards {bad} differ")
+    mixed, _, _ = bench_mixed_views()
+    opts = ("multiband", True, True)
+    ref = dryrun.pipeline(None, mixed, "cuda", *opts)
+    mesh_run(torch, "mixed sizes, -e -c", mixed, ref, rots, focal, opts)
+    cache = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    mosaic, launches, _ = run_cli(torch, u8, BASE_FLAGS + ["--mesh", "2"],
+                                  cache, "--mesh 2 on one GPU")
+    check(all(v > 0 for k, v in launches.items() if k != "backward_warp_mip"),
+          f"9 A: --mesh 2 on one GPU did not run in this process: "
+          f"{launches}")
+    check(mosaic.shape == ref5["mosaic"].shape,
+          f"9 A: --mesh 2 mosaic {mosaic.shape}")
+
+
+def phase_dense(torch, u8, rots, focal):
+    """9 B: the dense descriptor and upscale=False on the card."""
+    from pano360_tpu_torch import cli, pipeline
+    from pano360_tpu_torch.features import sift as S
+    dev = torch.device("cuda")
+    feats, secs, peak = {}, {}, {}
+    for mode in ("grid", "dense", "grid", "dense"):   # cold, then warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        _, feats[mode] = pipeline.upload_extract(
+            u8, dev, S.SiftConfig(descr_mode=mode))
+        torch.cuda.synchronize()
+        secs[mode] = time.time() - t0
+        peak[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+    grid, dense = feats["grid"], feats["dense"]
+    norms = dense.desc[dense.valid].norm(dim=-1)
+    same = bool(torch.equal(grid.valid, dense.valid)
+                and torch.equal(grid.xy, dense.xy))
+    # orientations on the circle: the two histograms sum different
+    # patches, so a peak near 0 may land on either side of 2 pi
+    dang = torch.remainder(grid.angle - dense.angle + np.pi,
+                           2 * np.pi) - np.pi
+    log(f"  extraction of {len(u8)} views, warm: grid {secs['grid']:.3f} s "
+        f"(peak {peak['grid']:.2f} GiB), dense {secs['dense']:.3f} s (peak "
+        f"{peak['dense']:.2f} GiB); keypoints {int(dense.valid.sum())}, the "
+        f"grid's {same}; angles within "
+        f"{float(dang[dense.valid].abs().max()):.2e} rad; "
+        f"|norm - 1| max {float((norms - 1).abs().max()):.2e}")
+    check(same, "9 B: the dense run's keypoints differ from the grid's")
+    check(float((norms - 1).abs().max()) <= 1e-4, "9 B: descriptor norms")
+    del feats, grid, dense
+    cache = tempfile.mkdtemp(prefix="chip_smoke_dense_")
+    os.environ["PANO_SIFT_DESCR"] = "dense"
+    try:
+        timer = cli.StageTimer()
+        run_cli(torch, u8, BASE_FLAGS, cache, "PANO_SIFT_DESCR=dense", timer)
+    finally:
+        del os.environ["PANO_SIFT_DESCR"]
+    regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
+    f_err, r_err = registration_errors(regs, rots, focal)
+    log(f"  {len(regs)} of {BENCH_VIEWS} placed; focal max rel err "
+        f"{f_err:.5f}; rel-rot err mean {r_err.mean():.4f} max "
+        f"{r_err.max():.4f} deg; LM iterations "
+        f"{timer.extra['lm_iterations']}")
+    check(len(regs) == BENCH_VIEWS and f_err <= 0.005
+          and r_err.mean() <= 0.1, f"9 B: dense registration {f_err}, "
+          f"{r_err.mean()}")
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, f = pipeline.upload_extract(u8, dev, S.SiftConfig(upscale=False))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    log(f"  upscale=False extraction, warm: {wall:.3f} s, keypoints "
+        f"{int(f.valid.sum())} ({S.n_octaves_for(u8[0].shape[:2], False)} "
+        f"octaves)")
+    check(int(f.valid.sum()) > 100 * len(u8), "9 B: upscale=False keypoints")
+
+
 def busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -float("inf")
@@ -839,7 +1085,7 @@ def main():
     log("phase 4: backward_warp kernel vs plain")
     k2 = phase_warp(u8, rots, focal)
     log("phase 5: CLI main path on the bench dataset")
-    launches, warm_s, cache5 = phase_slice(torch, u8, rots, focal)
+    launches, warm_s, cache5, ref5 = phase_slice(torch, u8, rots, focal)
     log("phase 6: profile of one more main-path run")
     phase_profile(torch, u8, warm_s)
     log("phase 7 B: render options")
@@ -850,7 +1096,11 @@ def main():
     k2m = phase_mixed(torch, rots, focal)
     log("phase 8 D: the extras")
     phase_extras(torch)
-    log("phase 9: the kernels line")
+    log("phase 9 A: the mesh, 2 ranks on one GPU")
+    phase_mesh(torch, u8, rots, focal, ref5)
+    log("phase 9 B: the dense descriptor")
+    phase_dense(torch, u8, rots, focal)
+    log("phase 10: the kernels line")
 
     kernels = [
         dict(name="octave_stack", route="cuda",

@@ -3,9 +3,10 @@
 Same flags, defaults and cache files as the JAX package
 (``matches_{name}_s{shrink}.npz``, ``ba_{name}_s{shrink}.pkl``), plus
 ``--device`` (default ``cuda``; the CPU runs only when named).
-``--mesh``, which the port does not carry yet, raises
-``NotImplementedError`` naming its ROADMAP item instead of being
-ignored.
+``--mesh N`` runs the pipeline over N rank processes
+(``parallel.mesh.launch``): N is clamped to the GPUs there are with
+``--device cuda`` (one GPU runs the single-process path, as the JAX CLI
+does on one chip) and is N gloo ranks with ``--device cpu``.
 
 ``run`` = ``load_images`` + ``run_images(imgs, args, name)``; the latter
 is the entry point for in-memory images (``chip_smoke.py``).
@@ -16,10 +17,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import logging
 import os
 import pickle
 import sys
+import zipfile
 from typing import List, Optional
 
 import numpy as np
@@ -72,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "mip-sampled kernel (anti-aliased under "
                              "minification).")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="multi-device sharding (not ported yet).")
+                        help="run over this many rank processes (clamped "
+                             "to the GPUs there are with --device cuda).")
     parser.add_argument("--show", action="store_true",
                         help="display the mosaic in an image viewer.")
     parser.add_argument("--profile", action="store_true",
@@ -86,16 +90,19 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-_NOT_PORTED = [
-    (lambda a: a.mesh and a.mesh > 1, "--mesh", "ROADMAP Queue 1: parallel/"),
-]
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag the port does not carry."""
-    for test, flag, item in _NOT_PORTED:
-        if test(args):
-            raise NotImplementedError(f"{flag} is not ported yet ({item})")
+def mesh_ranks(args) -> int:
+    """The rank processes ``--mesh N`` runs: N, clamped with a warning
+    to ``torch.cuda.device_count()`` with a CUDA device (the JAX CLI's
+    clamp); N gloo ranks on the CPU. 1 means the single-process path."""
+    n = args.mesh or 0
+    if n <= 1:
+        return 1
+    have = (torch.cuda.device_count()
+            if resolve_device(args.device).type == "cuda" else n)
+    if have < n:
+        LOG.warning("--mesh %d requested but only %d device(s) available; "
+                    "using %d", n, have, have)
+    return max(1, min(n, have))
 
 
 def shrink_images(imgs: List[np.ndarray], shrink: float,
@@ -124,15 +131,31 @@ class _CacheUnpickler(pickle.Unpickler):
     """Loads only this package's classes and numpy's array helpers."""
 
     _NUMPY = {"_reconstruct", "ndarray", "dtype", "_frombuffer", "scalar"}
+    _ROOTS = ("pano360_tpu_torch",)
+    WHAT = "BA cache"
 
     def find_class(self, module, name):
         root = module.split(".")[0]
-        if root == "pano360_tpu_torch" or (root == "numpy"
-                                           and name in self._NUMPY):
+        if root in self._ROOTS or (root == "numpy" and name in self._NUMPY):
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
-            f"BA cache holds {module}.{name}, which this package does not "
+            f"{self.WHAT} holds {module}.{name}, which this package does not "
             "load (a cache written by another package?): delete the cache")
+
+
+class _NpzUnpickler(_CacheUnpickler):
+    """The object arrays of a ``matches_*.npz``: numpy's array helpers
+    and the builtin containers and numbers only."""
+
+    _ROOTS = ()
+    _BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int",
+                 "float", "complex", "bool", "str", "bytes", "slice"}
+    WHAT = "match cache"
+
+    def find_class(self, module, name):
+        if module == "builtins" and name in self._BUILTINS:
+            return super(_CacheUnpickler, self).find_class(module, name)
+        return super().find_class(module, name)
 
 
 def load_ba_cache(path: str):
@@ -141,66 +164,120 @@ def load_ba_cache(path: str):
         return _CacheUnpickler(fid).load()
 
 
+def _npz_member(zf: zipfile.ZipFile, key: str) -> np.ndarray:
+    buf = io.BytesIO(zf.read(key + ".npy"))
+    major, _ = np.lib.format.read_magic(buf)
+    read = (np.lib.format.read_array_header_1_0 if major == 1
+            else np.lib.format.read_array_header_2_0)
+    _, _, dtype = read(buf)
+    if dtype.hasobject:
+        return _NpzUnpickler(buf).load()
+    buf.seek(0)
+    return np.lib.format.read_array(buf, allow_pickle=False)
+
+
+def load_match_cache(path: str):
+    """``(kpts, matches)`` of a ``matches_*.npz`` cache of either package
+    (the two share one layout). Its object arrays are read through a
+    restricted unpickler, which refuses any class but numpy's arrays and
+    the builtin containers."""
+    with zipfile.ZipFile(path) as zf:
+        return _npz_member(zf, "kpts"), _npz_member(zf, "matches")
+
+
+def _stitch(mesh, imgs: List[np.ndarray], args, name: str, draw_fn,
+            matched, regions, timer: Optional[StageTimer] = None):
+    """Match (unless ``matched`` holds the match cache's ``(kpts,
+    matches)``), register (unless ``regions`` holds the BA cache's) and
+    render. One process, or one rank of ``mesh``: then rank 0 alone
+    writes the caches. -> (mosaic or None without connected images, the
+    stage seconds, the stages' counts)."""
+    timer = timer or StageTimer()
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    write = mesh is None or mesh.rank == 0
+    dev_images = None
+    if matched is None:
+        with timer.stage("Matched features"):
+            feats = None
+            if args.detector == "sift" and mesh is None:
+                dev_images, feats = upload_extract(imgs, device)
+            kpts, matches = matching(imgs, device, seed=args.seed,
+                                     feats=feats, draw_fn=draw_fn,
+                                     detector=args.detector,
+                                     stats=timer.extra, mesh=mesh)
+            if write:
+                np.savez(os.path.join(args.cache_dir,
+                                      f"matches_{name}.npz"),
+                         kpts=kpts, matches=matches)
+    else:
+        kpts, matches = matched
+    if regions is None:
+        with timer.stage("Image registration"):
+            regions = traverse(imgs, idx_to_keypoints(matches, kpts),
+                               badjust=args.ba, device=device,
+                               stats=timer.extra, mesh=mesh)
+        if write:
+            with open(os.path.join(args.cache_dir, f"ba_{name}.pkl"),
+                      "wb") as fid:
+                pickle.dump(regions, fid, protocol=pickle.HIGHEST_PROTOCOL)
+    mosaic = None
+    if regions:
+        with timer.stage("Built mosaic"):
+            mosaic = render.stitch(regions, blender=args.blend,
+                                   equalize=args.equalize, crop=args.crop,
+                                   dev_images=dev_images,
+                                   max_resolution=args.max_resolution,
+                                   warp=args.warp,
+                                   projection=args.projection,
+                                   device=device, mesh=mesh)
+    return mosaic, timer.stages, timer.extra
+
+
 def run_images(imgs: List[np.ndarray], args, name: str,
                timer: Optional[StageTimer] = None, draw_fn=None):
     """Stitch in-memory uint8 BGR images; ``name`` keys the caches.
 
     ``draw_fn(pair_k, n_valid)``: optional RANSAC draws (tests inject the
-    JAX package's). SIFT uploads the images once for extraction and
-    render (one stack per shape when the sizes are mixed); MSOP extracts
-    inside ``matching`` and the render uploads. Returns the uint8 BGR
-    mosaic.
+    JAX package's; picklable, e.g. ``match.DrawTable``, under
+    ``--mesh``). SIFT uploads the images once for extraction and render
+    (one stack per shape when the sizes are mixed); MSOP extracts inside
+    ``matching`` and the render uploads. The caches are read here, before
+    any rank starts. Returns the uint8 BGR mosaic.
     """
-    check_ported(args)
     timer = timer or StageTimer()
     device = resolve_device(args.device)
     if not imgs:
         raise ValueError("no images to process (empty directory?)")
-
-    dev_images = None
-    match_cache = os.path.join(args.cache_dir, f"matches_{name}.npz")
+    matched = regions = None
     try:
-        arr = np.load(match_cache, allow_pickle=True)
-        kpts, matches = arr["kpts"], arr["matches"]
+        matched = load_match_cache(
+            os.path.join(args.cache_dir, f"matches_{name}.npz"))
     except IOError:
-        with timer.stage("Matched features"):
-            feats = None
-            if args.detector == "sift":
-                dev_images, feats = upload_extract(imgs, device)
-            kpts, matches = matching(imgs, device, seed=args.seed,
-                                     feats=feats, draw_fn=draw_fn,
-                                     detector=args.detector,
-                                     stats=timer.extra)
-            np.savez(match_cache, kpts=kpts, matches=matches)
-
-    ba_cache = os.path.join(args.cache_dir, f"ba_{name}.pkl")
+        pass
     try:
-        regions = load_ba_cache(ba_cache)
+        regions = load_ba_cache(os.path.join(args.cache_dir,
+                                             f"ba_{name}.pkl"))
     except IOError:
-        with timer.stage("Image registration"):
-            regions = traverse(imgs, idx_to_keypoints(matches, kpts),
-                               badjust=args.ba, device=device,
-                               stats=timer.extra)
-        with open(ba_cache, "wb") as fid:
-            pickle.dump(regions, fid, protocol=pickle.HIGHEST_PROTOCOL)
-
-    if not regions:
+        pass
+    ranks = mesh_ranks(args)
+    if ranks > 1:
+        from pano360_tpu_torch.parallel.mesh import launch
+        mosaic, stages, extra = launch(_stitch, ranks, device, imgs, args,
+                                       name, draw_fn, matched, regions)
+        timer.stages.update(stages)
+        timer.extra.update(extra)
+    else:
+        mosaic, _, _ = _stitch(None, imgs, args, name, draw_fn, matched,
+                               regions, timer)
+    if mosaic is None:
         raise SystemExit(
             "no connected images: the match graph is empty (need "
             "overlapping views with enough texture)")
-    with timer.stage("Built mosaic"):
-        mosaic = render.stitch(regions, blender=args.blend,
-                               equalize=args.equalize, crop=args.crop,
-                               dev_images=dev_images,
-                               max_resolution=args.max_resolution,
-                               warp=args.warp, projection=args.projection,
-                               device=device)
     return mosaic
 
 
 def run(args, timer: Optional[StageTimer] = None) -> np.ndarray:
     """Stitch the images of ``args.path`` (the CLI's main path)."""
-    check_ported(args)
     timer = timer or StageTimer()
     device = resolve_device(args.device)
     name = f"{os.path.basename(os.path.normpath(args.path))}_s{args.shrink}"

@@ -18,21 +18,19 @@ from pano360_tpu_torch.register import PanoImage
 
 def sift_config_from_jax(cfg) -> SiftConfig:
     """A ``pano360_tpu`` SiftConfig -> the port's. Raises on what the
-    port does not carry: ``gauss_mode='direct'``, a bfloat16
-    ``patch_dtype``, ``upscale=False`` or ``descr_mode='dense'``. The JAX
-    ``pallas`` and ``incremental`` modes are one scale space here (the
-    octave kernel and the chain agree to f32 rounding)."""
+    port does not carry: ``gauss_mode='direct'`` and a bfloat16
+    ``patch_dtype``. The JAX ``pallas`` and ``incremental`` modes are one
+    scale space here (the octave kernel and the chain agree to f32
+    rounding)."""
     if cfg.gauss_mode not in ("pallas", "incremental"):
         raise ValueError(f"gauss_mode {cfg.gauss_mode!r} is not ported")
     if cfg.patch_dtype != "float32":
         raise ValueError(f"patch_dtype {cfg.patch_dtype!r} is not ported")
-    if not cfg.upscale:
-        raise ValueError("upscale=False is not ported")
     keep = ("n_layers", "sigma", "init_sigma", "contrast_thresh",
             "edge_thresh", "max_kpts", "img_border",
             "refine_iters", "n_orientations", "ori_bins", "descr_width",
             "descr_ori_bins", "descr_samples", "descr_mag_thresh",
-            "sel_shift", "descr_mode")
+            "sel_shift", "upscale", "descr_mode")
     return SiftConfig(**{k: getattr(cfg, k) for k in keep})
 
 
@@ -90,9 +88,9 @@ def regions_from_jax(regions) -> List[PanoImage]:
 
 def matches_from_npz(path: str):
     """(kpts, matches) from a ``matches_*.npz`` cache of either package
-    (the two share one structure)."""
-    arr = np.load(path, allow_pickle=True)
-    return arr["kpts"], arr["matches"]
+    (the two share one structure; ``cli.load_match_cache``)."""
+    from pano360_tpu_torch.cli import load_match_cache
+    return load_match_cache(path)
 
 
 __all__ = ["sift_config_from_jax", "features_from_jax",

@@ -246,7 +246,9 @@ def msop_extract_device(stack_u8: torch.Tensor,
     all the buffers are (N, 64, ...) zeros.
 
     ``stats``: an optional dict to which ``candidates`` and ``keypoints``
-    (per level, summed over images) and ``ssc_seconds`` are added."""
+    (per level, summed over images) and ``ssc_seconds`` are added, and
+    whose ``level_caps`` (each level's rows in the buffers, 0 for a level
+    without keypoints) is raised to this call's."""
     n = stack_u8.shape[0]
     dev = stack_u8.device
     cur = msop_gray(stack_u8)
@@ -267,7 +269,7 @@ def msop_extract_device(stack_u8: torch.Tensor,
     total = np.zeros(n, np.int32)
     off = 0
     ssc_s = 0.0
-    n_kept = []
+    n_kept, level_caps = [], []
     for lvl, (maxf, (rows_d, cols_d, theta_d, blurred, hw)) in \
             enumerate(zip(max_feat, levels)):
         h, w = hw
@@ -289,9 +291,11 @@ def msop_extract_device(stack_u8: torch.Tensor,
             ).astype(np.float32))
         n_kept.append(int(sum(len(s) for s in sels)))
         top = max((len(s) for s in sels), default=0)
+        level_caps.append(0 if top == 0
+                          else max(64, 1 << (top - 1).bit_length()))
         if top == 0:
             continue
-        capd = max(64, 1 << (top - 1).bit_length())
+        capd = level_caps[-1]
         idx_b = np.zeros((n, capd), np.int64)
         kcnt = np.zeros(n, np.int32)
         for i in range(n):
@@ -312,6 +316,8 @@ def msop_extract_device(stack_u8: torch.Tensor,
             old = stats.get(key, [0] * len(max_feat))
             stats[key] = [int(a) + int(b) for a, b in zip(old, new)]
         stats["ssc_seconds"] = stats.get("ssc_seconds", 0.0) + ssc_s
+        stats["level_caps"] = [max(a, b) for a, b in zip(
+            stats.get("level_caps", level_caps), level_caps)]
     kpts_out = [np.concatenate(k) if k else np.zeros((0, 2), np.float32)
                 for k in kpts_host]
     if not kp_parts:

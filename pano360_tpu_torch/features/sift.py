@@ -1,15 +1,16 @@
 """Batched SIFT extraction (counterpart of ``pano360_tpu.features.sift``).
 
-The default configuration of the JAX package, on PyTorch tensors:
-upscaled base, the incremental Gaussian chain (one fused CUDA pass per
-octave through ``ops.gauss_octave.octave_stack`` wherever the single
-reflect101 extension is legal), exact top-k DoG candidates, the dense
-Newton-step field and per-candidate refinement, the refined-contrast
-compaction (``sel_shift``), 36-bin orientation with up to two peaks,
-the rotated 16x16 ``grid`` descriptor and a global top-``max_kpts``.
-Keypoint buffers have a fixed capacity with a validity mask; the
-keypoint stage runs in chunks of 2048 candidates to bound its
-transients.
+The configuration of the JAX package, on PyTorch tensors: the base
+upscaled 2x (or not, ``upscale=False``), the incremental Gaussian chain
+(one fused CUDA pass per octave through ``ops.gauss_octave.octave_stack``
+wherever the single reflect101 extension is legal), exact top-k DoG
+candidates, the dense Newton-step field and per-candidate refinement,
+the refined-contrast compaction (``sel_shift``), 36-bin orientation with
+up to two peaks, the descriptor (``descr_mode``: the rotated 16x16
+``grid``, or ``dense``, cv2's integer window) and a global
+top-``max_kpts``. Keypoint buffers have a fixed capacity with a validity
+mask; the keypoint stage runs in chunks (2048 candidates for ``grid``,
+256 for ``dense``, which bins 25x the samples) to bound its transients.
 
 The fused octave op and the per-layer chain (the JAX package's CPU
 path, kept here for the octaves too small to reflect-pad) compute the
@@ -20,7 +21,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, NamedTuple, Tuple
+import os
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,8 +31,11 @@ from pano360_tpu_torch.ops import gauss_octave
 from pano360_tpu_torch.ops.filters import blur_bhw, cv2_sift_ksize
 from pano360_tpu_torch.ops.resize import upsample2x_bilinear
 
-DESCR_MODES = ("grid",)
-KP_CHUNK = 2048
+DESCR_MODES = ("grid", "dense")
+# keypoint-stage chunk per descriptor mode (the JAX package's lax.map
+# chunks): dense bins (2 * 40)^2 = 6400 samples per keypoint and
+# orientation, 25x the grid's 256
+KP_CHUNK = {"grid": 2048, "dense": 256}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,16 +55,24 @@ class SiftConfig:
     descr_samples: int = 16
     descr_mag_thresh: float = 0.2
     sel_shift: int = 2
-    descr_mode: str = "grid"
+    upscale: bool = True            # cv2 firstOctave = -1
+    # the JAX package's default comes from the same variable (its CLI
+    # reaches the dense descriptor through it)
+    descr_mode: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("PANO_SIFT_DESCR", "grid"))
 
     def __post_init__(self):
-        if self.descr_mode == "dense":
-            raise NotImplementedError(
-                "descr_mode='dense' is not ported yet (ROADMAP Queue 1: "
-                "extras)")
         if self.descr_mode not in DESCR_MODES:
             raise ValueError(f"descr_mode {self.descr_mode!r}: expected one "
                              f"of {DESCR_MODES}")
+
+    @property
+    def patch_half(self) -> int:
+        """Half-extent of the per-keypoint patch: 32 for ``grid`` (its
+        farthest gradient read is 30.07 px from the keypoint), 40 for
+        ``dense`` (cv2's window reaches 38.1 px from the rounded centre
+        at the largest octave-relative sigma; pano360_tpu's derivation)."""
+        return 32 if self.descr_mode == "grid" else 40
 
     @property
     def dim(self) -> int:
@@ -77,19 +90,19 @@ class SiftFeatures(NamedTuple):
     valid: torch.Tensor     # (N, K) bool
 
 
-# Half-extent of the per-keypoint patch: the farthest gradient read of
-# the 16x16 grid is 30.07 px from the keypoint (pano360_tpu's derivation).
-PATCH_HALF = 32
-
-
-def n_octaves_for(shape: Tuple[int, int]) -> int:
-    """cv2 with the 2x upscaled base: round(log2(2 min(H, W))) - 2."""
-    return max(int(round(math.log2(2 * min(shape)))) - 2, 1)
+def n_octaves_for(shape: Tuple[int, int], upscale: bool = True) -> int:
+    """cv2: round(log2(min(H, W))) - 2, plus one with the 2x upscaled
+    base."""
+    side = min(shape) * (2 if upscale else 1)
+    return max(int(round(math.log2(side))) - 2, 1)
 
 
 def _base_image(gray: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
-    img = upsample2x_bilinear(gray)
-    cur = cfg.init_sigma * 2.0
+    if cfg.upscale:
+        img = upsample2x_bilinear(gray)
+        cur = cfg.init_sigma * 2.0
+    else:
+        img, cur = gray, cfg.init_sigma
     delta = math.sqrt(max(cfg.sigma ** 2 - cur ** 2, 0.01))
     return blur_bhw(img, delta, cv2_sift_ksize(delta))
 
@@ -389,6 +402,74 @@ def _descriptors(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
     return acc / torch.clamp(nrm2, min=1e-12)
 
 
+def _descriptors_dense(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
+                       cfg: SiftConfig):
+    """cv2's integer-window descriptors (``descr_mode='dense'``): every
+    pixel (i, j) of the patch, offset from the ROUNDED keypoint centre,
+    whose rotated bin coordinates lie in (-1, d) and whose gradient
+    footprint lies inside the image, adds its own f32 gradient with
+    weight exp(-(c^2 + r^2) / (d^2 / 2)), binned trilinearly into the
+    (d+2) x (d+2) x nob histogram by scatter-adds of its 8 corners; then
+    cv2's clip and renormalisation.
+
+    gx/gy: (K, psg, psg) anchored at (cy+1, cx+1); angle: (K, n_ori).
+    Returns (K, n_ori, 128)."""
+    k, psg, _ = gx.shape
+    no = angle.shape[1]
+    d, nob = cfg.descr_width, cfg.descr_ori_bins
+    dev = gx.device
+    ar = torch.arange(psg, device=dev)
+    ay = cy[:, None] + 1 + ar[None, :]                 # (K, psg) rows
+    ax = cx[:, None] + 1 + ar[None, :]                 # (K, psg) columns
+    di = (ay - torch.round(yf)[:, None]).to(torch.float32)
+    dj = (ax - torch.round(xf)[:, None]).to(torch.float32)
+    hist_width = 3.0 * sig[:, None]
+    cosw = (torch.cos(angle) / hist_width)[..., None, None]   # (K, no, 1, 1)
+    sinw = (torch.sin(angle) / hist_width)[..., None, None]
+    dj = dj[:, None, None, :]                           # (K, 1, 1, psg)
+    di = di[:, None, :, None]                           # (K, 1, psg, 1)
+    c_rot = dj * cosw - di * sinw                       # (K, no, psg, psg)
+    r_rot = dj * sinw + di * cosw
+    rbin = r_rot + d / 2 - 0.5
+    cbin = c_rot + d / 2 - 0.5
+    hh, ww = oh[:, None], ow[:, None]
+    inb = (((ay >= 1) & (ay <= hh - 2))[:, :, None]
+           & ((ax >= 1) & (ax <= ww - 2))[:, None, :])  # (K, psg, psg)
+    valid = ((rbin > -1) & (rbin < d) & (cbin > -1) & (cbin < d)
+             & inb[:, None])
+    mag = torch.sqrt(gx * gx + gy * gy)[:, None]
+    ori = torch.remainder(torch.atan2(gy, gx)[:, None]
+                          - angle[..., None, None], 2 * math.pi)
+    obin = ori * (nob / (2 * math.pi))
+    wgt = torch.exp((c_rot * c_rot + r_rot * r_rot) * (-1.0 / (d * d * 0.5)))
+    val = (mag * wgt * valid).reshape(k * no, -1)
+
+    def corners(binc, n, wrap):
+        i0 = torch.floor(binc)
+        frac = (binc - i0).reshape(k * no, -1)
+        i0 = i0.to(torch.int64).reshape(k * no, -1)
+        if wrap:
+            i0 = torch.remainder(i0, n)
+            return ((i0, 1 - frac), (torch.remainder(i0 + 1, n), frac))
+        return ((torch.clamp(i0 + 1, 0, n - 1), 1 - frac),
+                (torch.clamp(i0 + 2, 0, n - 1), frac))
+
+    acc = torch.zeros((k * no, (d + 2) * (d + 2) * nob), device=dev)
+    for ri, rw in corners(rbin, d + 2, False):
+        vr = val * rw
+        for oi, ow_ in corners(obin, nob, True):
+            vro = vr * ow_
+            for ci, cw in corners(cbin, d + 2, False):
+                acc.scatter_add_(1, (ri * (d + 2) + ci) * nob + oi, vro * cw)
+    acc = acc.reshape(k, no, d + 2, d + 2, nob)[:, :, 1:-1, 1:-1]
+    acc = acc.reshape(k, no, -1)
+    nrm = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True))
+    acc = torch.minimum(acc, cfg.descr_mag_thresh
+                        * torch.clamp(nrm, min=1e-12))
+    nrm2 = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True))
+    return acc / torch.clamp(nrm2, min=1e-12)
+
+
 def _octave_caps(cfg: SiftConfig, n_oct: int,
                  base_shape: Tuple[int, int]) -> List[int]:
     """Per-octave DoG candidate budgets (half the geometric budget on
@@ -402,15 +483,21 @@ def _octave_caps(cfg: SiftConfig, n_oct: int,
     return caps
 
 
-def sift_extract(gray: torch.Tensor, cfg: SiftConfig = SiftConfig()
+def sift_extract(gray: torch.Tensor, cfg: Optional[SiftConfig] = None
                  ) -> SiftFeatures:
     """SIFT keypoints + descriptors of (N, H, W) f32 gray images in
-    [0, 1]; fixed-capacity ``SiftFeatures`` sorted by response."""
+    [0, 1]; fixed-capacity ``SiftFeatures`` sorted by response.
+    ``cfg``: by default ``SiftConfig()``, made at the call (so that
+    ``PANO_SIFT_DESCR`` is read then)."""
+    cfg = SiftConfig() if cfg is None else cfg
     n, h0, w0 = gray.shape
     gray = gray.to(torch.float32)
-    n_oct = n_octaves_for((h0, w0))
-    caps = _octave_caps(cfg, n_oct, (2 * h0, 2 * w0))
+    n_oct = n_octaves_for((h0, w0), cfg.upscale)
+    up = 2 if cfg.upscale else 1
+    caps = _octave_caps(cfg, n_oct, (up * h0, up * w0))
+    scale0 = 1.0 / up                       # octave -> original pixels
     s = cfg.n_layers
+    half = cfg.patch_half
     taps = gauss_octave.chain_taps(cfg.sigma, s)
     score_cfg = (0.5 * cfg.contrast_thresh / s, cfg.edge_thresh,
                  cfg.img_border)
@@ -437,18 +524,18 @@ def sift_extract(gray: torch.Tensor, cfg: SiftConfig = SiftConfig()
         xf = x.to(torch.float32) + offs[..., 0]
         yf = y.to(torch.float32) + offs[..., 1]
 
-        ps_y = min(2 * PATCH_HALF + 2, oh)
-        ps_x = min(2 * PATCH_HALF + 2, ow)
+        ps_y = min(2 * half + 2, oh)
+        ps_x = min(2 * half + 2, ow)
         patches, pcy, pcx = _extract_patches(gauss, l, y, x, ps_y, ps_x)
         gxp = patches[..., 1:-1, 2:] - patches[..., 1:-1, :-2]
         gyp = patches[..., :-2, 1:-1] - patches[..., 2:, 1:-1]
-        psg = 2 * PATCH_HALF
+        psg = 2 * half
         pad = (0, psg - gxp.shape[-1], 0, psg - gxp.shape[-2])
         if any(pad):
             gxp = torch.nn.functional.pad(gxp, pad)
             gyp = torch.nn.functional.pad(gyp, pad)
         k = l.shape[1]
-        factor = 0.5 * (2.0 ** o)
+        factor = scale0 * (2.0 ** o)
         outs.append(dict(
             gxp=gxp, gyp=gyp, y=y, x=x, yf=yf, xf=xf, pcy=pcy, pcx=pcx,
             sig=sig, response=torch.abs(contrast), ok=ok,
@@ -468,15 +555,17 @@ def sift_extract(gray: torch.Tensor, cfg: SiftConfig = SiftConfig()
     angles = torch.empty((m, no), device=gray.device)
     avalid = torch.empty((m, no), dtype=torch.bool, device=gray.device)
     descs = torch.empty((m, no, cfg.dim), device=gray.device)
-    for c0 in range(0, m, KP_CHUNK):
-        c = {key: v[c0:c0 + KP_CHUNK] for key, v in flat.items()}
+    describe = _descriptors if cfg.descr_mode == "grid" else _descriptors_dense
+    chunk = KP_CHUNK[cfg.descr_mode]
+    for c0 in range(0, m, chunk):
+        c = {key: v[c0:c0 + chunk] for key, v in flat.items()}
         hist = _orientation_hist(c["gxp"], c["gyp"], c["y"], c["x"],
                                  c["pcy"], c["pcx"], c["sig"], c["oh"],
                                  c["ow"], cfg)
         ang, av = _peak_angles(hist, cfg)
-        angles[c0:c0 + KP_CHUNK] = ang
-        avalid[c0:c0 + KP_CHUNK] = av
-        descs[c0:c0 + KP_CHUNK] = _descriptors(
+        angles[c0:c0 + chunk] = ang
+        avalid[c0:c0 + chunk] = av
+        descs[c0:c0 + chunk] = describe(
             c["gxp"], c["gyp"], c["yf"], c["xf"], c["pcy"], c["pcx"],
             c["sig"], ang, c["oh"], c["ow"], cfg)
 

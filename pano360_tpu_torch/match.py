@@ -10,11 +10,15 @@ over a leading pair axis B.
 
 Hypothesis draws: ``draws`` (B, K, 4) integers in [0, n_valid) may be
 given (the tests inject the JAX package's own draws); otherwise they
-come from a ``torch.Generator`` on the device.
+come from uniforms of a ``torch.Generator`` on the device, drawn chunk
+by chunk in pair order (``match_all_pairs``), so that a process-group
+mesh can replay the same sequence on every rank.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -223,25 +227,36 @@ def ransac_homography(p1, p2, valid, draws,
     return hom, final_inl, final_inl.sum(-1)
 
 
-def random_draws(n_valid, n_iters: int, generator: torch.Generator):
-    """(B, K, 4) uniform ranks in [0, n_valid) from a device generator."""
-    u = torch.rand((n_valid.shape[0], n_iters, 4), generator=generator,
-                   device=n_valid.device)
+def draws_from_uniforms(u: torch.Tensor, n_valid: torch.Tensor):
+    """(B, K, 4) uniforms in [0, 1) -> ranks in [0, n_valid)."""
     nv = n_valid.to(torch.float32)[:, None, None]
     return torch.minimum(torch.floor(u * nv).to(torch.int64),
                          n_valid[:, None, None] - 1)
 
 
+class DrawTable:
+    """Recorded RANSAC draws as a picklable ``draw_fn``: ``table[k]`` is
+    pair k's (K, 4) draws, made for that pair's ``n_valid`` (the tests
+    hand the JAX package's draws to spawned ranks this way)."""
+
+    def __init__(self, table: Dict[int, np.ndarray]):
+        self.table = table
+
+    def __call__(self, k: int, n_valid: int) -> torch.Tensor:
+        return torch.as_tensor(self.table[k])
+
+
 def match_pairs(kpts, desc, valid, pair_a, pair_b, first_pair: int = 0,
-                generator: Optional[torch.Generator] = None,
                 draw_fn: Optional[DrawFn] = None,
-                ratio: float = LOWE_RATIO, n_iters: int = RANSAC_ITERS,
+                uniforms: Optional[torch.Tensor] = None,
+                ratio: float = LOWE_RATIO,
                 thresh: float = RANSAC_THRESH) -> PairMatch:
     """Match a chunk of ordered pairs: top-2 -> ratio -> RANSAC.
 
     kpts/desc/valid: (N, K, ...) feature buffers; pair_a/pair_b: (B,)
     image indices. ``draw_fn(k, n_valid)`` returns pair k's (K, 4) draws
-    (k counts from ``first_pair``); otherwise ``generator`` draws.
+    (k counts from ``first_pair``); else ``uniforms`` (B, K, 4) in [0, 1)
+    scale to them.
     """
     best_idx, good = knn2_matches(desc[pair_a], desc[pair_b], valid[pair_a],
                                   valid[pair_b], ratio)
@@ -255,7 +270,7 @@ def match_pairs(kpts, desc, valid, pair_a, pair_b, first_pair: int = 0,
             torch.as_tensor(draw_fn(first_pair + j, int(nv[j])))
             for j in range(len(nv))]).to(p1.device)
     else:
-        draws = random_draws(n_valid, n_iters, generator)
+        draws = draws_from_uniforms(uniforms, n_valid)
     hom, inl, n_inl = ransac_homography(p1, p2, good, draws, thresh)
     ok = ((n_good >= N_MIN_MATCH)
           & torch.isfinite(hom.reshape(-1, 9)).all(-1) & (n_inl >= 4))
@@ -266,6 +281,49 @@ def match_pairs(kpts, desc, valid, pair_a, pair_b, first_pair: int = 0,
                      ok=ok)
 
 
+def match_all_pairs(kpts, desc, valid, pairs: List[Tuple[int, int]],
+                    batch: int, generator: Optional[torch.Generator] = None,
+                    draw_fn: Optional[DrawFn] = None, mesh=None) -> PairMatch:
+    """Every pair of ``pairs`` in chunks of ``batch``: -> ``PairMatch``
+    of host (numpy) arrays, one row per pair.
+
+    The generator draws each chunk's uniforms in chunk order. With a
+    ``mesh`` (``parallel.mesh.Mesh``) each rank runs a contiguous block
+    of whole chunks and replays every chunk's uniforms, so a pair gets
+    the same draws and the same result on any rank; the rows are
+    gathered in rank order (chunk order) onto every rank."""
+    starts = list(range(0, len(pairs), batch))
+    mine = set(starts if mesh is None else mesh.block(starts))
+    dev = kpts.device
+    out = []
+    for p0 in starts:
+        chunk = pairs[p0:p0 + batch]
+        u = None
+        if draw_fn is None:
+            u = torch.rand((len(chunk), RANSAC_ITERS, 4), generator=generator,
+                           device=dev)
+        if p0 not in mine:
+            continue
+        res = match_pairs(kpts, desc, valid,
+                          torch.tensor([p[0] for p in chunk], device=dev),
+                          torch.tensor([p[1] for p in chunk], device=dev),
+                          first_pair=p0, draw_fn=draw_fn, uniforms=u)
+        out.append(res)
+    m = kpts.shape[1]
+    rows = PairMatch(*[torch.cat(ts) for ts in zip(*out)]) if out else \
+        PairMatch(torch.zeros((0, m, 2), dtype=torch.int64, device=dev),
+                  torch.zeros((0, m), dtype=torch.bool, device=dev),
+                  torch.zeros((0, 3, 3), device=dev),
+                  torch.zeros((0,), dtype=torch.int64, device=dev),
+                  torch.zeros((0,), dtype=torch.bool, device=dev))
+    if mesh is not None:        # only the last chunk, the last rows, is short
+        per = mesh.per(len(starts)) * batch
+        rows = PairMatch(*[mesh.gather_rows(t, len(pairs), per)
+                           for t in rows])
+    return PairMatch(*[t.cpu().numpy() for t in rows])
+
+
 __all__ = ["PairMatch", "knn2_matches", "hom_from_4pts", "refit_homography",
-           "ransac_homography", "random_draws", "match_pairs",
+           "ransac_homography", "draws_from_uniforms",
+           "DrawTable", "match_pairs", "match_all_pairs",
            "LOWE_RATIO", "N_MIN_MATCH", "RANSAC_THRESH", "RANSAC_ITERS"]

@@ -7,6 +7,7 @@ Usage, on a CUDA machine::
 
     python -m pano360_tpu_torch.measure [--against A.cu [B.cu ...]]
     python -m pano360_tpu_torch.measure --warps [--before DIR]
+    python -m pano360_tpu_torch.measure --traverse [DIR ...]
 
 The first form builds ``csrc/gauss_octave.cu`` (and each ``--against``
 source: an octave-stack source with the same ``p360_octave_stack`` C
@@ -41,6 +42,17 @@ one. The checkout must have the warp plans (``prepare_warp``): its entry
 points have this tree's interface and take the parameter rows at that
 checkout's own ``PARAM_FLOATS`` (an older one knows no per-image sizes,
 so the mixed-size layout is not run on it).
+
+``--traverse`` times ``register.traverse`` (``--ba incr`` with the
+polish, one process) on the bench world and on the 25- and 50-view
+worlds of ``benchmarks/measure_scale.py`` (1296x1728, overlap 0.45, seed
+7), from one match graph per world made by this tree. Each ``DIR`` is
+another checkout of the package whose ``register.py`` is timed in turns
+with this tree's on the same graph (this, others, others reversed,
+this). Per version: the seconds of each run (host clock; the cameras
+come back to the host), the device operations and busy milliseconds of
+one more run (``torch.profiler``), the LM iterations, and the largest
+camera difference from this tree's.
 """
 from __future__ import annotations
 
@@ -584,6 +596,81 @@ def warps_main(args, smi: str):
         sys.exit("measure: a warp kernel differs from its plain version")
 
 
+SCALE_SHAPE, SCALE_OVERLAP, SCALE_SEED = (1296, 1728), 0.45, 7
+
+
+TRAVERSE_WORLDS = [
+    ("bench", BENCH_VIEWS, BENCH_SHAPE, BENCH_OVERLAP, BENCH_SEED),
+    ("scale25", 25, SCALE_SHAPE, SCALE_OVERLAP, SCALE_SEED),
+    ("scale50", 50, SCALE_SHAPE, SCALE_OVERLAP, SCALE_SEED)]
+
+
+def _traverse_run(reg, imgs, matches, device):
+    stats = {}
+    t0 = time.perf_counter()
+    regs = reg.traverse(imgs, matches, device=device, stats=stats)
+    return time.perf_counter() - t0, stats, regs
+
+
+def _device_ops(fn):
+    """(device operations, busy ms) of one ``fn()`` (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -float("inf")
+    for a, b in ev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return len(ev), busy / 1e3
+
+
+def traverse_main(args, smi: str, device="cuda"):
+    from pano360_tpu_torch import register, synth
+    from pano360_tpu_torch.pipeline import idx_to_keypoints, matching
+    versions = {"this": register}
+    for i, tree in enumerate(args.traverse):
+        versions[str(tree)] = _load_module(
+            tree / "pano360_tpu_torch" / "register.py",
+            f"p360_other_register_{i}")
+    for name, n, shape, overlap, seed in TRAVERSE_WORLDS:
+        imgs, _, _ = synth.make_views(n_views=n, shape=shape, overlap=overlap,
+                                      seed=seed)
+        u8 = [(im * 255).astype(np.uint8) for im in imgs]
+        del imgs
+        t0 = time.perf_counter()
+        kpts, matches = matching(u8, torch.device(device))
+        match_s = time.perf_counter() - t0
+        graph = idx_to_keypoints(matches, kpts)
+        order = list(versions) + list(versions)[::-1]
+        rows = {v: dict(seconds=[]) for v in versions}
+        for v in order:
+            secs, stats, regs = _traverse_run(versions[v], u8, graph, device)
+            rows[v]["seconds"].append(secs)
+            rows[v].update(lm_iterations=stats["lm_iterations"],
+                           polish_iterations=stats["polish_iterations"],
+                           placed=len(regs), _regs=regs, edges=stats[
+                               "ba_edges"], edge_points=stats["ba_edge_points"])
+        mine = rows["this"].pop("_regs")
+        for v, row in rows.items():
+            theirs = row.pop("_regs", mine)
+            row["mean_s"] = sum(row["seconds"]) / len(row["seconds"])
+            row["ops"], row["busy_ms"] = _device_ops(
+                lambda: versions[v].traverse(u8, graph, device=device))
+            row["rot_max_diff"] = max(
+                (float(np.abs(a.rot - b.rot).max()) for a, b in
+                 zip(theirs, mine)), default=0.0) \
+                if len(theirs) == len(mine) else None
+        print(json.dumps(dict(world=name, views=n, shape=list(shape),
+                              match_s=match_s, versions=rows)), flush=True)
+    print(json.dumps(dict(card=smi)), flush=True)
+
+
 def _identical(outs, refs) -> bool:
     return all(torch.equal(a, b) for a, b in zip(outs, refs))
 
@@ -598,6 +685,9 @@ def main(argv=None):
     parser.add_argument("--before", type=Path, default=None,
                         help="with --warps: another checkout of the package, "
                         "its warps timed in turns with this one's")
+    parser.add_argument("--traverse", type=Path, nargs="*", default=None,
+                        help="time register.traverse instead, beside the "
+                        "register.py of each other checkout given")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("measure: needs a CUDA device")
@@ -611,6 +701,8 @@ def main(argv=None):
     print(f"card: {smi}; torch {torch.__version__}", flush=True)
     if args.warps:
         return warps_main(args, smi)
+    if args.traverse is not None:
+        return traverse_main(args, smi)
     this = _kernels.lib().p360_octave_stack
     print("ptxas, this source:\n" + _kernels.build_log("gauss_octave"))
     others = []

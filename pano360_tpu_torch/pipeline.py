@@ -81,7 +81,7 @@ class BucketStacks:
 
 
 def upload_extract(imgs: List[np.ndarray], device: torch.device,
-                   cfg: S.SiftConfig = S.SiftConfig()):
+                   cfg: Optional[S.SiftConfig] = None, mesh=None):
     """Upload the uint8 images in batches of 4 and extract each batch.
 
     Returns ``(stack (N, H, W, 3) uint8 on the device, SiftFeatures over
@@ -89,27 +89,43 @@ def upload_extract(imgs: List[np.ndarray], device: torch.device,
     host link once. Mixed image shapes run one shape bucket at a time:
     the stack is then a ``BucketStacks`` and the features are in the
     input order (every bucket shares the ``max_kpts`` capacity).
+    ``cfg``: by default ``SiftConfig()``, made at the call.
+
+    ``mesh`` (``parallel.mesh.Mesh``): each rank uploads and extracts a
+    contiguous block of whole batches (a rank short of a block repeats
+    the last batch), the features are gathered in batch order, and the
+    stack is None: every image is extracted in the same batch as on one
+    process, so the features are bit-identical to it.
     """
+    cfg = S.SiftConfig() if cfg is None else cfg
     buckets = _shape_buckets(imgs)
     if len(buckets) != 1:
         feat_parts, order, stacks = [], [], []
         for idxs in buckets.values():
-            st, f = upload_extract([imgs[i] for i in idxs], device, cfg)
+            st, f = upload_extract([imgs[i] for i in idxs], device, cfg,
+                                   mesh)
             feat_parts.append(f)
             order.extend(idxs)
             stacks.append((idxs, st))
         inv = _input_order(order, device)
         feats = S.SiftFeatures(*[torch.cat(xs, dim=0)[inv]
                                  for xs in zip(*feat_parts)])
-        return BucketStacks(stacks), feats
+        return (None if mesh else BucketStacks(stacks)), feats
+    starts = list(range(0, len(imgs), BATCH))
+    if mesh is not None:
+        mine = mesh.block(starts)
+        starts = mine + [starts[-1]] * (mesh.per(len(starts)) - len(mine))
     chunks, parts = [], []
-    for b0 in range(0, len(imgs), BATCH):
+    for b0 in starts:
         chunk = _upload(np.stack(imgs[b0:b0 + BATCH]), device)
         chunks.append(chunk)
         parts.append(gray_extract(chunk, cfg))
-    stack = torch.cat(chunks, dim=0)
     feats = S.SiftFeatures(*[torch.cat(xs, dim=0) for xs in zip(*parts)])
-    return stack, feats
+    if mesh is not None:        # only the last batch, the last rows, is short
+        per = len(starts) * BATCH
+        return None, S.SiftFeatures(*[mesh.gather_rows(t, len(imgs), per)
+                                      for t in feats])
+    return torch.cat(chunks, dim=0), feats
 
 
 def valid_first(kp_buf, ds_buf, va_buf, counts, ccap: int):
@@ -131,30 +147,71 @@ def valid_first(kp_buf, ds_buf, va_buf, counts, ccap: int):
     return kp_buf, ds_buf, va_buf
 
 
+def _msop_cap(counts: np.ndarray, widths) -> int:
+    """The compact buffers' width: the largest valid count rounded up to
+    a power of two (at least 64), within the widest bucket's buffers."""
+    cmax = int(counts.max()) if len(counts) else 0
+    return min(max(64, 1 << max(cmax - 1, 0).bit_length()), max(widths))
+
+
 def msop_extract(imgs: List[np.ndarray], device: torch.device,
-                 stats=None) -> M.MsopFeatures:
+                 stats=None, mesh=None) -> M.MsopFeatures:
     """Upload the uint8 images and run the device-resident MSOP
     extraction once per shape bucket: -> the features of all images in
     the input order, keypoints relative to each image's centre and the
-    buffers compacted valid first."""
+    buffers compacted valid first.
+
+    ``mesh``: each rank extracts a contiguous block of each bucket's
+    images (extraction is per image, so the features do not depend on
+    the block); the host keypoint lists, the counts and each level's
+    buffer rows are gathered, so that every rank compacts to the width
+    one process would, and the buffers are gathered. ``stats`` then
+    counts this rank's block."""
     n = len(imgs)
     kpts: List[Optional[np.ndarray]] = [None] * n
-    parts, order = [], []
+    parts, order, widths = [], [], []
     for (h, w), idxs in _shape_buckets(imgs).items():
-        stack = _upload(np.stack([imgs[i] for i in idxs]), device)
-        kp_host, kp, ds, va, counts = M.msop_extract_device(stack,
-                                                            stats=stats)
+        mine = idxs if mesh is None else mesh.block(idxs)
+        st = {}
+        if mine:
+            stack = _upload(np.stack([imgs[i] for i in mine]), device)
+            kp_host, kp, ds, va, counts = M.msop_extract_device(stack,
+                                                                stats=st)
+        else:
+            kp_host, counts = [], np.zeros(0, np.int32)
+            kp = torch.zeros((0, 0, 2), device=device)
+            ds = torch.zeros((0, 0, M.DSIZE * M.DSIZE), device=device)
+            va = torch.zeros((0, 0), dtype=torch.bool, device=device)
+        if stats is not None:
+            for key in ("candidates", "keypoints"):
+                if key in st:
+                    old = stats.get(key, [0] * len(st[key]))
+                    stats[key] = [a + b for a, b in zip(old, st[key])]
+            stats["ssc_seconds"] = (stats.get("ssc_seconds", 0.0)
+                                    + st.get("ssc_seconds", 0.0))
+        caps = st.get("level_caps", [])
+        if mesh is not None:
+            got = mesh.all_gather_object((kp_host, counts, caps))
+            kp_host = [k for g in got for k in g[0]]
+            counts = np.concatenate([g[1] for g in got])
+            caps = [max(c) for c in zip(*[g[2] for g in got if g[2]])]
         cent = np.array([w / 2, h / 2], np.float32)
         for i, k in zip(idxs, kp_host):
             kpts[i] = k - cent
-        parts.append((kp - torch.as_tensor(cent, device=device), ds, va,
-                      counts))
+        widths.append(int(sum(caps)) or 64)
+        parts.append([kp - torch.as_tensor(cent, device=device), ds, va,
+                      counts, len(mine)])
         order.extend(idxs)
     counts = np.concatenate([p[3] for p in parts])
-    cmax = int(counts.max()) if len(counts) else 0
-    cap = min(max(64, 1 << max(cmax - 1, 0).bit_length()),
-              max(int(p[0].shape[1]) for p in parts))
-    bufs = [valid_first(*p, cap) for p in parts]
+    cap = _msop_cap(counts, widths)
+    bufs = []
+    for kp, ds, va, cnt, n_mine in parts:
+        if mesh is None:
+            bufs.append(valid_first(kp, ds, va, cnt, cap))
+            continue
+        lo = mesh.rank * mesh.per(len(cnt))
+        local = valid_first(kp, ds, va, cnt[lo:lo + n_mine], cap)
+        bufs.append([mesh.gather_rows(t, len(cnt)) for t in local])
     inv = _input_order(order, device)
     kp_buf, ds_buf, va_buf = (torch.cat(xs, dim=0)[inv] for xs in zip(*bufs))
     return M.MsopFeatures(kpts, kp_buf, ds_buf, va_buf,
@@ -179,7 +236,7 @@ def reverse_homography(hom: np.ndarray) -> np.ndarray:
 def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
              seed: int = 0, feats=None,
              draw_fn: Optional[pm.DrawFn] = None, detector: str = "sift",
-             stats=None):
+             stats=None, mesh=None):
     """All-pairs feature matching -> ``(kpts, matches)`` object arrays.
 
     ``detector``: "sift" (RootSIFT, 128-d) or "msop" (64-d oriented
@@ -189,7 +246,9 @@ def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
     hypothesis draws per pair (index k into the a < b pair list); by
     default a ``torch.Generator`` on the device seeded with ``seed``
     draws them. ``stats``: an optional dict for ``msop_extract``'s
-    counts.
+    counts. ``mesh`` (``parallel.mesh.Mesh``): extraction sharded over
+    images and the match graph over pairs; every rank returns the same
+    ``(kpts, matches)``, bit-identical to one process's.
     """
     if not imgs:
         raise ValueError("no images to process (empty directory?)")
@@ -200,14 +259,14 @@ def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
     start = time.time()
     if detector == "msop":
         if feats is None:
-            feats = msop_extract(imgs, device, stats)
+            feats = msop_extract(imgs, device, stats, mesh)
         kpts_host, kp_buf, ds_buf, va_buf = feats[:4]
         cap = int(kp_buf.shape[1])
         remap = None                # compact already
     else:
         if feats is None:
             _, feats = upload_extract(imgs, device,
-                                      S.SiftConfig(max_kpts=max_kpts))
+                                      S.SiftConfig(max_kpts=max_kpts), mesh)
         cents = torch.tensor([[im.shape[1] / 2, im.shape[0] / 2]
                               for im in imgs], dtype=torch.float32,
                              device=device)
@@ -239,31 +298,20 @@ def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
         generator.manual_seed(seed)
     # pairs per chunk bounded by the distance-matrix memory
     batch = max(1, min(16, (1 << 28) // max(cap * cap * 4, 1)))
-    results = []
-    for p0 in range(0, len(pairs), batch):
-        chunk = pairs[p0:p0 + batch]
-        pa = torch.tensor([p[0] for p in chunk], device=device)
-        pb = torch.tensor([p[1] for p in chunk], device=device)
-        res = pm.match_pairs(kp_buf, ds_buf, va_buf, pa, pb, first_pair=p0,
-                             generator=generator, draw_fn=draw_fn)
-        results.append(pm.PairMatch(*[t.cpu().numpy() for t in res]))
+    res = pm.match_all_pairs(kp_buf, ds_buf, va_buf, pairs, batch,
+                             generator=generator, draw_fn=draw_fn, mesh=mesh)
 
     matches: Dict[int, Dict[int, tuple]] = {i: {} for i in range(n)}
-    k = 0
-    for res in results:
-        for j in range(res.ok.shape[0]):
-            src, dst = pairs[k]
-            k += 1
-            if not bool(res.ok[j]):
-                continue
-            idx = res.idx[j][res.inlier[j]].astype(np.int32)
-            if remap is not None:
-                idx = np.stack([remap[src][idx[:, 0]],
-                                remap[dst][idx[:, 1]]], axis=1
-                               ).astype(np.int32)
-            hom = res.hom[j].astype(np.float64)
-            matches[src][dst] = (idx, hom)
-            matches[dst][src] = (np.fliplr(idx), reverse_homography(hom))
+    for k, (src, dst) in enumerate(pairs):
+        if not bool(res.ok[k]):
+            continue
+        idx = res.idx[k][res.inlier[k]].astype(np.int32)
+        if remap is not None:
+            idx = np.stack([remap[src][idx[:, 0]],
+                            remap[dst][idx[:, 1]]], axis=1).astype(np.int32)
+        hom = res.hom[k].astype(np.float64)
+        matches[src][dst] = (idx, hom)
+        matches[dst][src] = (np.fliplr(idx), reverse_homography(hom))
     LOG.info("Matched features, time: %s", time.time() - start)
 
     matches = {i: col for i, col in matches.items() if col}

@@ -68,10 +68,35 @@ def _np_camera_from_params(p: np.ndarray) -> PanoImage:
     return PanoImage(None, _np_exp_so3(p[3:6]), intr)
 
 
-def _edge_hom(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
-    """Homography mapping camera b's pixels into camera a's (batched)."""
-    return geo.hom_to_from(geo.params_to_camera(pa),
-                           geo.params_to_camera(pb))
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., i, k) @ (..., k, j), broadcast, as one product and a left
+    fold over k of elementwise adds. Every output then depends on its own
+    operands only, so an edge's bits do not change with the rows computed
+    beside it: on the card a batched GEMM's kernel and a reduction's split
+    follow the shape they are given."""
+    p = a[..., :, :, None] * b[..., None, :, :]
+    out = p[..., 0, :]
+    for k in range(1, p.shape[-2]):
+        out = out + p[..., k, :]
+    return out
+
+
+def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` (a power-of-two length) by pairwise halving adds:
+    elementwise, as ``_mm``."""
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
+def _dk(dtype, device) -> torch.Tensor:
+    """dK / d(f, cx, cy): three constant basis matrices, (3, 3, 3)."""
+    dk = torch.zeros((3, 3, 3), dtype=dtype, device=device)
+    dk[0, 0, 0] = dk[0, 1, 1] = 1.0
+    dk[1, 0, 2] = 1.0
+    dk[2, 1, 2] = 1.0
+    return dk
 
 
 def _exp_so3_jac(rad: torch.Tensor) -> torch.Tensor:
@@ -98,32 +123,61 @@ def _exp_so3_jac(rad: torch.Tensor) -> torch.Tensor:
             + b * (ei @ k + k @ ei))
 
 
-def _edge_hom_jac(pa: torch.Tensor, pb: torch.Tensor):
-    """dH/dpa, dH/dpb of ``_edge_hom`` for (E, 6) params: two (E, 9, 6).
+def _camera_terms(params: torch.Tensor, dk: Optional[torch.Tensor] = None):
+    """Per-camera factors of the edge homographies H = K_a R_a R_b^T
+    K_b^-1 for (C, 6) params: ``proj`` K R and ``back`` R^T K^-1 (C, 3,
+    3); with ``dk`` (``_dk``) also those of their derivatives: ``rot`` R,
+    ``k_dr`` K dR/dr_i, ``drt_kinv`` dR/dr_i^T K^-1 and ``dk_kinv``
+    dK/d(f, cx, cy) K^-1 (C, 3, 3, 3). A dict of tensors indexed by
+    camera first."""
+    cam = geo.params_to_camera(params)
+    kinv = geo.inv3x3(cam.intr)
+    out = dict(proj=geo.mm(cam.intr, cam.rot),
+               back=geo.mm(cam.rot.transpose(-1, -2), kinv))
+    if dk is not None:
+        d_rot = _exp_so3_jac(params[..., 3:6])
+        out.update(rot=cam.rot, k_dr=geo.mm(cam.intr[..., None, :, :], d_rot),
+                   drt_kinv=geo.mm(d_rot.transpose(-1, -2),
+                                   kinv[..., None, :, :]),
+                   dk_kinv=geo.mm(dk, kinv[..., None, :, :]))
+    return out
 
-    H = K_a R_a R_b^T K_b^-1 with K = [[f, 0, cx], [0, f, cy], [0, 0, 1]];
-    dK/d(f, cx, cy) are constant basis matrices and
-    d(K^-1) = -K^-1 dK K^-1."""
-    ca, cb = geo.params_to_camera(pa), geo.params_to_camera(pb)
-    kb_inv = geo.inv3x3(cb.intr)
-    dev, dt = pa.device, pa.dtype
-    dk = torch.zeros((3, 3, 3), dtype=dt, device=dev)   # d K / d(f, cx, cy)
-    dk[0, 0, 0] = dk[0, 1, 1] = 1.0
-    dk[1, 0, 2] = 1.0
-    dk[2, 1, 2] = 1.0
-    rbt_kbi = cb.rot.transpose(-1, -2) @ kb_inv              # (E, 3, 3)
-    ka_ra = ca.intr @ ca.rot
-    m_a = ca.rot @ rbt_kbi                                    # R_a R_b^T Kb^-1
-    da_k = dk @ m_a[:, None]                                  # (E, 3, 3, 3)
-    da_r = ca.intr[:, None] @ _exp_so3_jac(pa[:, 3:6]) @ rbt_kbi[:, None]
-    ka_ra_rbt = ka_ra @ cb.rot.transpose(-1, -2)
-    db_k = -(ka_ra_rbt @ kb_inv)[:, None] @ dk @ kb_inv[:, None]
-    db_r = (ka_ra[:, None]
-            @ _exp_so3_jac(pb[:, 3:6]).transpose(-1, -2) @ kb_inv[:, None])
-    e = pa.shape[0]
+
+def _rows(terms: dict, idx: torch.Tensor) -> dict:
+    """The cameras ``idx`` of ``_camera_terms``' result."""
+    return {k: v[idx] for k, v in terms.items()}
+
+
+def _hom(ca: dict, cb: dict) -> torch.Tensor:
+    """Homographies mapping camera b's pixels into camera a's, from the
+    ``_camera_terms`` rows of each edge's two cameras: (E, 3, 3)."""
+    return _mm(ca["proj"], cb["back"])
+
+
+def _hom_jac(ca: dict, cb: dict, hom: torch.Tensor, dk: torch.Tensor):
+    """dH/dpa, dH/dpb of ``_hom``: two (E, 9, 6). With K = [[f, 0, cx],
+    [0, f, cy], [0, 0, 1]], dK/d(f, cx, cy) are constant basis matrices
+    and d(K^-1) = -K^-1 dK K^-1, so dH/d(K_b) = -H dK K_b^-1."""
+    da_k = _mm(dk, _mm(ca["rot"], cb["back"])[:, None])      # (E, 3, 3, 3)
+    da_r = _mm(ca["k_dr"], cb["back"][:, None])
+    db_k = -_mm(hom[:, None], cb["dk_kinv"])
+    db_r = _mm(ca["proj"][:, None], cb["drt_kinv"])
+    e = hom.shape[0]
     ja = torch.cat([da_k, da_r], dim=1).reshape(e, 6, 9).transpose(1, 2)
     jb = torch.cat([db_k, db_r], dim=1).reshape(e, 6, 9).transpose(1, 2)
     return ja, jb
+
+
+def _edge_hom(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """Homography mapping camera b's pixels into camera a's (batched)."""
+    return _hom(_camera_terms(pa), _camera_terms(pb))
+
+
+def _edge_hom_jac(pa: torch.Tensor, pb: torch.Tensor):
+    """dH/dpa, dH/dpb of ``_edge_hom`` for (E, 6) params: two (E, 9, 6)."""
+    dk = _dk(pa.dtype, pa.device)
+    ca, cb = _camera_terms(pa, dk), _camera_terms(pb, dk)
+    return _hom_jac(ca, cb, _hom(ca, cb), dk)
 
 
 class Problem:
@@ -131,56 +185,132 @@ class Problem:
 
     ``pts`` (E, M, 6): [x_a, y_a, 1, x_b, y_b, 1] per match (camera a =
     ``cam1``, b = ``cam2``); ``mask`` (E, M) 0/1.
+
+    Every quantity is reduced in two stages: per-edge terms first (the
+    residual sums, the 6x6 blocks and 6-vectors of the normal equations),
+    then one reduction over the E edges. The per-edge terms come from
+    per-camera factors (``_camera_terms``, over all C cameras) by
+    elementwise operations only (``_mm``, ``_tree_sum`` over the points,
+    padded to a power of two with masked points): an edge's terms have
+    the same bits whichever edges are computed beside it. With a ``mesh``
+    (``parallel.mesh.Mesh``) each rank holds a contiguous shard of ceil(E
+    / size) edges (the last padded with all-masked edges) and computes
+    the per-edge terms of its shard; they are gathered and the second
+    stage runs on every rank as on one process, so every rank takes the
+    one process's LM steps. ``mask`` arguments of the methods are
+    shard-local (``local`` takes a global per-edge vector to the shard).
     """
 
-    def __init__(self, cam1, cam2, pts, mask, n_cams: int):
-        self.cam1, self.cam2, self.pts, self.mask = cam1, cam2, pts, mask
+    def __init__(self, cam1, cam2, pts, mask, n_cams: int, mesh=None):
+        self.mesh = mesh
+        e, m = int(cam1.shape[0]), int(pts.shape[1])
+        self.n_edges = e
         eye = torch.eye(n_cams, dtype=pts.dtype, device=pts.device)
         self.sel1, self.sel2 = eye[cam1], eye[cam2]      # (E, C) one-hot
+        size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        per = -(-e // size)                               # edges per shard
+        p2 = 1 << max(m - 1, 0).bit_length()
+        full = torch.zeros((per * size, p2, 6), dtype=pts.dtype,
+                           device=pts.device)
+        full[..., 2] = full[..., 5] = 1.0    # benign homogeneous padding
+        full[:e, :m] = pts
+        fmask = mask.new_zeros((per * size, p2))
+        fmask[:e, :m] = mask
+        self.lo = rank * per
+        sl = slice(self.lo, self.lo + per)
+        self.cam1, self.cam2 = (torch.cat([c, c.new_zeros(per * size - e)])[sl]
+                                for c in (cam1, cam2))
+        self.pts, self.mask = full[sl], fmask[sl]
+        self.dk = _dk(pts.dtype, pts.device)
 
-    def residuals(self, params, mask):
-        """(E, M, 2) masked residuals and the (E, M, 3) projections."""
-        hom = _edge_hom(params[self.cam1], params[self.cam2])
-        u = torch.einsum("eij,emj->emi", hom, self.pts[..., 3:6])
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """A global per-edge (E, ...) tensor -> this shard's rows."""
+        rows = t[self.lo:self.lo + self.cam1.shape[0]]
+        short = self.cam1.shape[0] - rows.shape[0]
+        return torch.cat([rows, rows.new_zeros((short,) + rows.shape[1:])])
+
+    def _gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """This shard's per-edge rows -> all E edges' rows, on every rank."""
+        if self.mesh is None:
+            return rows
+        return self.mesh.gather_rows(rows, self.n_edges)
+
+    def _residuals(self, ca: dict, cb: dict, mask):
+        """The shard's homographies (S, 3, 3), masked residuals (S, P, 2),
+        projections (S, P, 3) and their guarded depth (S, P)."""
+        hom = _hom(ca, cb)
+        u = _mm(self.pts[..., None, 3:6],
+                hom.transpose(-1, -2)[:, None])[..., 0, :]
         z = torch.where(torch.abs(u[..., 2]) > 1e-12, u[..., 2], 1.0)
         res = (self.pts[..., :2] - u[..., :2] / z[..., None]) * mask[..., None]
-        return res, u, z
+        return hom, res, u, z
+
+    def edge_sums(self, params, mask):
+        """Per-edge squared residual sums and match counts: two (E,)."""
+        terms = _camera_terms(params)
+        _, res, _, _ = self._residuals(_rows(terms, self.cam1),
+                                       _rows(terms, self.cam2), mask)
+        sq = res[..., 0] * res[..., 0] + res[..., 1] * res[..., 1]
+        sums = self._gather(torch.stack([_tree_sum(sq, 1),
+                                         _tree_sum(mask, 1)], dim=1))
+        return sums[:, 0], sums[:, 1]
 
     def loss(self, params, mask) -> torch.Tensor:
-        res, _, _ = self.residuals(params, mask)
-        return torch.sqrt(torch.sum(res * res)
-                          / torch.clamp(2.0 * torch.sum(mask), min=1.0))
+        sq, cnt = self.edge_sums(params, mask)
+        return torch.sqrt(torch.sum(sq)
+                          / torch.clamp(2.0 * torch.sum(cnt), min=1.0))
 
     def edge_rmse(self, params) -> torch.Tensor:
-        res, _, _ = self.residuals(params, self.mask)
-        sq = torch.sum(res * res, dim=(1, 2))
-        return torch.sqrt(sq / torch.clamp(2.0 * torch.sum(self.mask, 1),
-                                           min=1.0))
+        sq, cnt = self.edge_sums(params, self.mask)
+        return torch.sqrt(sq / torch.clamp(2.0 * cnt, min=1.0))
+
+    def _edge_terms(self, params, mask) -> torch.Tensor:
+        """The shard's per-edge (S, 120): J_a^T J_a, J_b^T J_b, J_a^T J_b
+        (6x6 each) and J_a^T r, J_b^T r."""
+        terms = _camera_terms(params, self.dk)
+        ca, cb = _rows(terms, self.cam1), _rows(terms, self.cam2)
+        hom, res, u, z = self._residuals(ca, cb, mask)
+        q = self.pts[..., 3:6]
+        guard = (torch.abs(u[..., 2]) > 1e-12).to(q.dtype)
+        w = mask[..., None]
+        # d res_r / d H (row-major 9-vector): -q / z at H's row r, u_r q /
+        # z^2 at its row 2, i.e. [a, 0, c_0] and [0, a, c_1]
+        a = -q * (1.0 / z)[..., None] * w
+        zz = (guard / (z * z))[..., None]
+        c0 = u[..., 0:1] * q * zz * w
+        c1 = u[..., 1:2] * q * zz * w
+        r0, r1 = res[..., 0:1], res[..., 1:2]
+
+        def outer(x, y):
+            return (x[..., :, None] * y[..., None, :]).flatten(-2)
+        sums = _tree_sum(torch.cat([
+            outer(a, a), outer(a, c0), outer(a, c1),
+            outer(c0, c0) + outer(c1, c1),
+            a * r0, a * r1, c0 * r0 + c1 * r1], dim=-1), 1)    # (S, 45)
+        aa, ac0, ac1, cc = (sums[:, 9 * i:9 * (i + 1)].reshape(-1, 3, 3)
+                            for i in range(4))
+        zero = torch.zeros_like(aa)
+        gram = torch.cat([torch.cat([aa, zero, ac0], -1),
+                          torch.cat([zero, aa, ac1], -1),
+                          torch.cat([ac0.transpose(1, 2),
+                                     ac1.transpose(1, 2), cc], -1)], 1)
+        ja, jb = _hom_jac(ca, cb, hom, self.dk)
+        jac = torch.cat([ja, jb], dim=-1)                      # (S, 9, 12)
+        jt = jac.transpose(1, 2)
+        jtgj = _mm(jt, _mm(gram, jac))                         # (S, 12, 12)
+        jtr = _mm(jt, sums[:, 36:45, None])[..., 0]            # (S, 12)
+        s = jtgj.shape[0]
+        return torch.cat([jtgj[:, :6, :6].reshape(s, 36),
+                          jtgj[:, 6:, 6:].reshape(s, 36),
+                          jtgj[:, :6, 6:].reshape(s, 36), jtr], dim=1)
 
     def normal_equations(self, params, mask):
         """(J^T J (6C, 6C), J^T r (6C,)) of the masked problem."""
         c = params.shape[0]
-        res, u, z = self.residuals(params, mask)
-        q = self.pts[..., 3:6]
-        guard = (torch.abs(u[..., 2]) > 1e-12).to(q.dtype)
-        e, m = q.shape[:2]
-        # d res_i / d H: -q / z on row i, + u_i q / z^2 on row 2
-        dr = torch.zeros((e, m, 2, 3, 3), dtype=q.dtype, device=q.device)
-        inv_z = (1.0 / z)[..., None]
-        dr[:, :, 0, 0] = -q * inv_z
-        dr[:, :, 1, 1] = -q * inv_z
-        zz = (guard / (z * z))[..., None]
-        dr[:, :, 0, 2] = u[..., 0:1] * q * zz
-        dr[:, :, 1, 2] = u[..., 1:2] * q * zz
-        dr = dr.reshape(e, m, 2, 9) * mask[..., None, None]
-        gram = torch.einsum("emri,emrj->eij", dr, dr)          # (E, 9, 9)
-        grad = torch.einsum("emri,emr->ei", dr, res)           # (E, 9)
-        ja, jb = _edge_hom_jac(params[self.cam1], params[self.cam2])
-        jaa = ja.transpose(1, 2) @ gram @ ja
-        jbb = jb.transpose(1, 2) @ gram @ jb
-        jab = ja.transpose(1, 2) @ gram @ jb
-        ra = (ja.transpose(1, 2) @ grad[..., None])[..., 0]
-        rb = (jb.transpose(1, 2) @ grad[..., None])[..., 0]
+        terms = self._gather(self._edge_terms(params, mask))
+        jaa, jbb, jab = (terms[:, 36 * i:36 * (i + 1)].reshape(-1, 6, 6)
+                         for i in range(3))
+        ra, rb = terms[:, 108:114], terms[:, 114:120]
         s1, s2 = self.sel1, self.sel2
         blocks = (torch.einsum("ea,eb,eij->aibj", s1, s1, jaa)
                   + torch.einsum("ea,eb,eij->aibj", s2, s2, jbb)
@@ -249,7 +379,7 @@ def lm_polish(params, prob: Problem, mask):
 
 def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
              use_straighten: bool = True, polish: bool = True,
-             device="cuda", stats=None) -> List[PanoImage]:
+             device="cuda", stats=None, mesh=None) -> List[PanoImage]:
     """Best-first expansion over the match graph + bundle adjustment.
 
     ``matches[i][j] = (kpt_pairs (M, 6), hom, n_inliers)`` (the cache's
@@ -259,11 +389,13 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     (``ba_edges``) and of those that passed the RMSE gate
     (``ba_edges_enabled``), the largest edge (``ba_edge_points``) and the
     LM iterations run (``lm_iterations``, one count per optimisation,
-    and ``polish_iterations``).
+    and ``polish_iterations``). ``mesh`` (``parallel.mesh.Mesh``): the
+    edges of the problem are sharded over the ranks (``Problem``); every
+    rank returns the same cameras, and runs on ``mesh.device``.
     """
     if badjust not in ("incr", "last", "none"):
         raise ValueError(f"badjust {badjust!r}")
-    device = torch.device(device)
+    device = torch.device(device if mesh is None else mesh.device)
     pair_list = [(i, matches[i][j][1], matches[i][j][2])
                  for i in matches.keys() for j in matches[i].keys()]
     if not pair_list:
@@ -307,7 +439,7 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     tt = dict(device=device)
     prob = Problem(torch.as_tensor(cam1, **tt), torch.as_tensor(cam2, **tt),
                    torch.as_tensor(pts, **tt), torch.as_tensor(mask, **tt),
-                   n)
+                   n, mesh)
     edge_add_t = torch.as_tensor(edge_add, **tt)
 
     homs_t = torch.as_tensor(np.stack(homs_all).astype(np.float32), **tt)
@@ -330,9 +462,10 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
         rmse = prob.edge_rmse(params)
         enabled = enabled | ((edge_add_t == k) & (rmse < MIN_MATCH_ERROR))
         if badjust == "incr":
-            params, it = lm_core(params, prob, prob.mask * enabled[:, None])
+            params, it = lm_core(params, prob,
+                                 prob.mask * prob.local(enabled)[:, None])
             lm_iters.append(it)
-    emask = prob.mask * enabled[:, None]
+    emask = prob.mask * prob.local(enabled)[:, None]
     if badjust == "last":
         params, it = lm_core(params, prob, emask)
         lm_iters.append(it)

@@ -337,15 +337,25 @@ def _to_u8(mosaic: torch.Tensor) -> torch.Tensor:
     return torch.clamp(mosaic * 255, 0, 255).to(torch.uint8)
 
 
-def blend_none(patches, masks, bottoms, shape, period=None):
-    """Sequential paste without blending (last writer wins)."""
+def blend_none(patches, masks, bottoms, shape, period=None, mesh=None):
+    """Sequential paste without blending (last writer wins).
+
+    ``mesh`` (``parallel.mesh.Mesh``, this and the other blenders): the
+    patches are this rank's contiguous shard; each rank pastes its shard
+    on its own canvas and the canvases combine in ascending rank order
+    (here the largest global writer id), so every rank returns the
+    mosaic."""
     n, ph, pw = patches.shape[:3]
     dev = patches.device
+    k0 = 0 if mesh is None else mesh.rank * n       # global id of patch 0
     acc = torch.zeros(_ext(shape, period, pw) + (4,), device=dev)
     for k, win in enumerate(_windows(bottoms, ph, pw)):
         tile = torch.cat([patches[k, ..., :3],
-                          torch.full((ph, pw, 1), k + 1.0, device=dev)], -1)
+                          torch.full((ph, pw, 1), k0 + k + 1.0, device=dev)],
+                         -1)
         acc[win] = torch.where(masks[k][..., None], acc[win], tile)
+    if mesh is not None:
+        acc = mesh.ordered_take(acc, 3)
     if period is None:
         return _to_u8(acc[..., :3])
     marg = acc[:, period:period + pw]
@@ -355,26 +365,33 @@ def blend_none(patches, masks, bottoms, shape, period=None):
     return _to_u8(main[..., :3])
 
 
-def blend_linear(patches, masks, bottoms, shape, period=None):
-    """Alpha-weighted average."""
+def blend_linear(patches, masks, bottoms, shape, period=None, mesh=None):
+    """Alpha-weighted average (``mesh``: the canvases' ordered sum)."""
     n, ph, pw = patches.shape[:3]
     acc = torch.zeros(_ext(shape, period, pw) + (4,), device=patches.device)
     for k, win in enumerate(_windows(bottoms, ph, pw)):
         p = patches[k]
         tile = torch.where(masks[k][..., None], 0.0, p[..., :3])
         acc[win] += torch.cat([tile * p[..., 3:], p[..., 3:]], dim=-1)
+    if mesh is not None:
+        acc = mesh.ordered_sum(acc)
     acc = _fold_add(acc, shape, period, pw)
     wsum = torch.where(acc[..., 3] == 0, 1.0, acc[..., 3])
     return _to_u8(acc[..., :3] / wsum[..., None])
 
 
 def blend_multiband(patches, masks, bottoms, shape, n_levels: int = 5,
-                    period: Optional[int] = None):
-    """Multi-band blending with sharp argmax-weight seams."""
+                    period: Optional[int] = None, mesh=None):
+    """Multi-band blending with sharp argmax-weight seams. ``mesh``: the
+    seam canvases combine by the strictly greater weight in ascending
+    rank order (the sequential loop's first-writer-wins), the validity
+    by OR and each band's sums by the ordered sum; the per-level blurs
+    run on the local shard."""
     n, ph, pw = patches.shape[:3]
     dev = patches.device
     ext = _ext(shape, period, pw)
     wins = _windows(bottoms, ph, pw)
+    k0 = 0 if mesh is None else mesh.rank * n
 
     # 1) argmax-weight seam assignment (first writer wins ties)
     best_w = torch.zeros(ext, device=dev)
@@ -383,9 +400,11 @@ def blend_multiband(patches, masks, bottoms, shape, n_levels: int = 5,
         w_new = patches[k, ..., 3]
         take = w_new > best_w[win]
         best_w[win] = torch.where(take, w_new, best_w[win])
-        best_i[win] = torch.where(take, float(k), best_i[win])
+        best_i[win] = torch.where(take, float(k0 + k), best_i[win])
+    packed = torch.stack([best_w, best_i], dim=-1)
+    if mesh is not None:
+        packed = mesh.ordered_take(packed, 0)
     if period is not None:
-        packed = torch.stack([best_w, best_i], dim=-1)
         marg = packed[:, period:period + pw]
         folded = packed[:, :shape[1]].clone()
         take = (marg[..., 0] > folded[:, :pw, 0])[..., None]
@@ -394,11 +413,10 @@ def blend_multiband(patches, masks, bottoms, shape, n_levels: int = 5,
             folded = torch.cat([folded, packed[:, shape[1]:period]], dim=1)
         packed = torch.cat([folded[:, :period],
                             folded[:, :ext[1] - period]], dim=1)
-        best_i = packed[..., 1]
-    best_i = best_i.to(torch.int32)
+    best_i = packed[..., 1].to(torch.int32)
 
     # sharp masks: alpha := (argmax == k)
-    sharp = torch.stack([(best_i[win] == k).to(torch.float32)
+    sharp = torch.stack([(best_i[win] == k0 + k).to(torch.float32)
                          for k, win in enumerate(wins)])
     patches = torch.cat([patches[..., :3], sharp[..., None]], dim=-1)
 
@@ -406,6 +424,8 @@ def blend_multiband(patches, masks, bottoms, shape, n_levels: int = 5,
     allmask = torch.zeros(ext, dtype=torch.bool, device=dev)
     for k, win in enumerate(wins):
         allmask[win] |= ~masks[k]
+    if mesh is not None:
+        allmask = mesh.any(allmask)
     if period is not None:
         marg = allmask[:, period:period + pw]
         allmask = allmask[:, :shape[1]].clone()
@@ -427,6 +447,8 @@ def blend_multiband(patches, masks, bottoms, shape, n_levels: int = 5,
         for k, win in enumerate(wins):
             acc[win] += torch.cat([tiles_rgb[k] * tiles_a[k][..., None],
                                    tiles_a[k][..., None]], dim=-1)
+        if mesh is not None:
+            acc = mesh.ordered_sum(acc)
         acc = _fold_add(acc, shape, period, pw)
         layer = torch.where(allmask[..., None], acc[..., :3], 0.0)
         wsum = torch.where(acc[..., 3] == 0, 1.0, acc[..., 3])
@@ -637,10 +659,38 @@ def warp_patches(imgs_rgba: torch.Tensor, projs: np.ndarray,
     return launch_warp(imgs_rgba, plan)
 
 
+def _region_shard(imgs_rgba: torch.Tensor, projs: np.ndarray,
+                  layout: MosaicLayout, mesh):
+    """This rank's contiguous shard of the regions, padded to the mesh's
+    shard size with regions that warp to nothing: identity projection,
+    zero image, an all-invalid window (the JAX package's padding). ->
+    (images, projections, layout of the shard)."""
+    n = imgs_rgba.shape[0]
+    per = mesh.per(n)
+    lo = min(mesh.rank * per, n)
+    hi = min(lo + per, n)
+    pad = per - (hi - lo)
+    rgba = imgs_rgba[lo:hi]
+    if pad:
+        rgba = torch.cat([rgba, rgba.new_zeros((pad,) + rgba.shape[1:])])
+
+    def rows(a, fill):
+        a = np.asarray(a)[lo:hi]
+        return np.concatenate([a, np.broadcast_to(
+            np.asarray(fill, a.dtype), (pad,) + a.shape[1:])])
+    shapes = layout.shapes
+    if shapes is not None:
+        shapes = rows(shapes, imgs_rgba.shape[1:3])
+    return rgba, rows(projs, np.eye(3)), layout._replace(
+        bottoms=rows(layout.bottoms, 0), wins=rows(layout.wins, -1),
+        shapes=shapes)
+
+
 def stitch(regions: List[PanoImage], blender: str = "multiband",
            equalize: bool = False, crop: bool = False, dev_images=None,
            max_resolution: int = MAX_RESOLUTION, warp: str = "auto",
-           projection: str = "spherical", device="cuda") -> np.ndarray:
+           projection: str = "spherical", device="cuda",
+           mesh=None) -> np.ndarray:
     """Full render: ranges -> layout -> weights -> (gains) -> warp ->
     blend -> (crop).
 
@@ -652,18 +702,30 @@ def stitch(regions: List[PanoImage], blender: str = "multiband",
     before the warp. ``crop``: cut to the largest rectangle of valid
     pixels (the native library, else its Python fallback).
     ``warp``: see ``warp_patches``. ``projection``: "spherical" or
-    "cylindrical". Returns the uint8 BGR mosaic.
+    "cylindrical". ``mesh`` (``parallel.mesh.Mesh``): the layout, the
+    weights and the gains are computed on every rank, each rank warps
+    its shard of the regions (the exact kernel, whatever ``warp`` says,
+    as in the JAX package) and blends it, the canvases combine across
+    the ranks, and the crop reads the gathered masks; every rank returns
+    the mosaic, on ``mesh.device``. Returns the uint8 BGR mosaic.
     """
     proj = geo.PROJECTIONS[projection]
-    device = torch.device(device)
+    device = torch.device(device if mesh is None else mesh.device)
     imgs_rgba, layout = prepare(regions, blender, max_resolution, device,
                                 dev_images, proj)
     if equalize:
         imgs_rgba = equalize_gains(regions, imgs_rgba, layout.shapes)
     projs = np.stack([r.proj() for r in regions])
-    patches, invalid = warp_patches(imgs_rgba, projs, layout, proj, warp)
-    mosaic = BLENDERS[blender](patches, invalid, layout.bottoms,
-                               layout.shape, period=layout.period)
+    if mesh is None:
+        patches, invalid = warp_patches(imgs_rgba, projs, layout, proj, warp)
+        lay = layout
+    else:
+        rgba, projs, lay = _region_shard(imgs_rgba, projs, layout, mesh)
+        patches, invalid = warp_patches(rgba, projs, lay, proj, "auto")
+    mosaic = BLENDERS[blender](patches, invalid, lay.bottoms, layout.shape,
+                               period=layout.period, mesh=mesh)
+    if mesh is not None:
+        invalid = mesh.gather_rows(invalid, len(regions))
     out_h, out_w = layout.out_hw
     mosaic = mosaic.cpu().numpy()[:out_h, :out_w]
     if crop:

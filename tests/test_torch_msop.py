@@ -737,11 +737,28 @@ def test_reverse_homography_of_a_singular_edge():
                                   np.linalg.inv(good))
 
 
-def test_cli_mesh_still_raises(tmp_path):
-    args = tcli.build_parser().parse_args(
-        [str(tmp_path), "--mesh", "4", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.run_images([np.zeros((8, 8, 3), np.uint8)], args, "x")
+def test_cli_mesh_still_raises(tmp_path, monkeypatch):
+    """``--mesh 4 --device cpu`` hands the run to four ranks, and
+    ``--mesh 1`` takes the one-process path (here it ends as any run
+    without a match graph does)."""
+    from pano360_tpu_torch.parallel import mesh as tmesh
+    calls = []
+
+    def fake_launch(fn, n, device, *args):
+        calls.append((fn, n, torch.device(device).type))
+        return np.zeros((4, 4, 3), np.uint8), {}, {}
+    monkeypatch.setattr(tmesh, "launch", fake_launch)
+    imgs = [np.zeros((8, 8, 3), np.uint8)] * 2
+    parse = tcli.build_parser().parse_args
+    args = parse([str(tmp_path), "--mesh", "4", "--device", "cpu",
+                  "--cache-dir", str(tmp_path)])
+    assert tcli.run_images(imgs, args, "x").shape == (4, 4, 3)
+    assert calls == [(tcli._stitch, 4, "cpu")]
+    args = parse([str(tmp_path), "--mesh", "1", "--device", "cpu",
+                  "--cache-dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="match graph is empty"):
+        tcli.run_images(imgs, args, "y")
+    assert len(calls) == 1
 
 
 def test_refit_homography_survives_a_pair_without_inliers():

@@ -400,6 +400,8 @@ def test_port_imports_no_jax():
             "from pano360_tpu_torch import blend_extra, features_cli, viz\n"
             "from pano360_tpu_torch import measure\n"
             "from pano360_tpu_torch.features import msop\n"
+            "import pano360_tpu_torch.parallel\n"
+            "from pano360_tpu_torch.parallel import dryrun, mesh\n"
             "assert native.largest_rectangle(np.ones((4, 5))) == (0, 0, 3, 4)\n"
             "assert len(msop.ssc(np.zeros((9, 2), np.float32), (8, 8), 4))\n"
             "assert native.seam_flood(np.ones((6, 9), np.float32), 2).any()\n"
@@ -483,12 +485,32 @@ def test_ba_cache_loader_reads_port_pickle(tmp_path):
     np.testing.assert_array_equal(out[0].rot, np.eye(3))
 
 
+def test_match_cache_loader_refuses_foreign_classes(tmp_path):
+    """A ``matches_*.npz`` whose object arrays name any class but numpy's
+    arrays and the builtin containers is refused before it runs."""
+    import os
+    import pickle
+
+    class Payload:
+        def __reduce__(self):
+            return (os.system, ("echo loaded",))
+    kpts = np.empty(1, dtype=object)
+    kpts[0] = Payload()
+    path = tmp_path / "matches_x.npz"
+    np.savez(path, kpts=kpts, matches=np.array({}, dtype=object))
+    with pytest.raises(pickle.UnpicklingError, match="delete the cache"):
+        tcli.load_match_cache(str(path))
+
+
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(gauss_mode="direct"), TypeError),   # one scale space, no knob
-    (dict(descr_mode="dense"), NotImplementedError),
+    (dict(descr_mode="dense"), None),         # carried: cv2's window
     (dict(descr_mode="grd"), ValueError),
 ])
 def test_sift_config_rejects_unknown_modes(kwargs, exc):
+    if exc is None:
+        assert tsift.SiftConfig(**kwargs).patch_half == 40
+        return
     with pytest.raises(exc):
         tsift.SiftConfig(**kwargs)
 
@@ -499,28 +521,23 @@ def test_sift_config_from_jax():
                            patch_dtype="float32", descr_mode="grid")
     assert convert.sift_config_from_jax(cfg) == tsift.SiftConfig(
         max_kpts=1024)
-    for bad in (dict(gauss_mode="direct"), dict(patch_dtype="bfloat16"),
-                dict(upscale=False)):
+    for bad in (dict(gauss_mode="direct"), dict(patch_dtype="bfloat16")):
         with pytest.raises(ValueError):
             convert.sift_config_from_jax(jsift.SiftConfig(
                 **{"patch_dtype": "float32", "descr_mode": "grid", **bad}))
-    with pytest.raises(NotImplementedError):
-        convert.sift_config_from_jax(jsift.SiftConfig(
-            patch_dtype="float32", descr_mode="dense"))
+    both = convert.sift_config_from_jax(jsift.SiftConfig(
+        patch_dtype="float32", descr_mode="dense", upscale=False))
+    assert both == tsift.SiftConfig(descr_mode="dense", upscale=False)
+    assert both.patch_half == 40
 
 
 @pytest.mark.parametrize("flags", [["--detector", "msop"], ["--mesh", "2"]])
 def test_cli_flags_off_the_slice_raise(flags, tmp_path):
-    """``--mesh`` is the one flag the port still refuses, naming its
-    ROADMAP item; ``--detector msop`` is carried now and passes the
-    check."""
+    """``--detector msop`` runs on one process, ``--mesh 2 --device
+    cpu`` on two gloo ranks."""
     args = tcli.build_parser().parse_args([str(tmp_path), "--device", "cpu"]
                                           + flags)
-    if flags[0] == "--detector":
-        tcli.check_ported(args)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.run_images([np.zeros((8, 8, 3), np.uint8)] * 2, args, "x")
+    assert tcli.mesh_ranks(args) == (2 if flags[0] == "--mesh" else 1)
 
 
 def test_cli_defaults_match_jax():

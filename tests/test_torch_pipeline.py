@@ -299,6 +299,27 @@ def test_cli_equalize_crop_matches_jax(ref, port_run):
     assert _psnr(ours, theirs) >= 40.0
 
 
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_match_cache_loader_reads_both_packages(ref, port_run, writer):
+    """The restricted loader reads a cache the JAX CLI wrote and one the
+    port wrote, to the same arrays as numpy's unrestricted one."""
+    args, _ = port_run
+    cache = ref["jdir"] if writer == "jax" else args.cache_dir
+    path = f"{cache}/matches_{NAME}.npz"
+    kpts, matches = tcli.load_match_cache(path)
+    arr = np.load(path, allow_pickle=True)
+    assert len(kpts) == len(arr["kpts"]) == 3
+    for a, b in zip(kpts, arr["kpts"]):
+        np.testing.assert_array_equal(a, b)
+    m, want = matches.item(), arr["matches"].item()
+    assert {i: sorted(c) for i, c in m.items()} == \
+        {i: sorted(c) for i, c in want.items()}
+    for i in want:
+        for j in want[i]:
+            np.testing.assert_array_equal(m[i][j][0], want[i][j][0])
+            np.testing.assert_array_equal(m[i][j][1], want[i][j][1])
+
+
 def test_cli_run_from_caches_reproduces(ref, port_run):
     args, mosaic = port_run
     again = tcli.run(args)
