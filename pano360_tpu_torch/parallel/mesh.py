@@ -46,6 +46,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pano360_tpu_torch import resolve_device
+
 TIMEOUT_S = 120     # every collective; a broken rank fails the run
 
 
@@ -155,9 +157,9 @@ def make_mesh(n: Optional[int] = None, device=None) -> Mesh:
     """This process's ``Mesh``, inside a rank process after
     ``torch.distributed.init_process_group`` (``launch`` does both).
     ``n``: the expected world size (raises if the group differs);
-    ``device``: this rank's device (default: ``cuda:(rank % count)``
-    whenever CUDA is available, whatever the backend; the CPU only when
-    named or when there is no card)."""
+    ``device``: this rank's device (default: ``cuda:(rank % count)``,
+    whatever the backend; without a card it raises as
+    ``resolve_device`` does: the CPU only when named)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(run inside parallel.mesh.launch)")
@@ -165,8 +167,8 @@ def make_mesh(n: Optional[int] = None, device=None) -> Mesh:
     if n is not None and n != size:
         raise ValueError(f"mesh of {n} ranks asked for in a group of {size}")
     if device is None:
-        device = (torch.device("cuda", rank % torch.cuda.device_count())
-                  if torch.cuda.is_available() else torch.device("cpu"))
+        resolve_device()                     # raises without a card
+        device = torch.device("cuda", rank % torch.cuda.device_count())
     return Mesh(dist.group.WORLD, rank, size, torch.device(device),
                 dist.get_backend())
 

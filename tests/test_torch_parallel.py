@@ -468,8 +468,8 @@ def test_edge_terms_do_not_depend_on_the_shard(world):
 
 def test_make_mesh_defaults_to_the_card(monkeypatch, tmp_path):
     """``make_mesh()`` in a gloo group takes ``cuda:(rank % count)``
-    whenever CUDA is available; the CPU only when named or without a
-    card."""
+    whenever CUDA is available; without a card it raises as
+    ``resolve_device`` does: the CPU only when named."""
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1)
@@ -479,7 +479,7 @@ def test_make_mesh_defaults_to_the_card(monkeypatch, tmp_path):
         assert tmesh.make_mesh().device == torch.device("cuda", 0)
         assert tmesh.make_mesh(1, "cpu").device == torch.device("cpu")
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        mesh = tmesh.make_mesh()
-        assert mesh.device == torch.device("cpu") and mesh.backend == "gloo"
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tmesh.make_mesh()
     finally:
         dist.destroy_process_group()
