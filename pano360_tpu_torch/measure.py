@@ -46,23 +46,30 @@ so the mixed-size layout is not run on it).
 ``--traverse`` times ``register.traverse`` (``--ba incr`` with the
 polish, one process) on the bench world and on the 25- and 50-view
 worlds of ``benchmarks/measure_scale.py`` (1296x1728, overlap 0.45, seed
-7), from one match graph per world made by this tree. Each ``DIR`` is
-another checkout of the package whose ``register.py`` is timed in turns
-with this tree's on the same graph (this, others, others reversed,
-this). Per version: the seconds of each run (host clock; the cameras
-come back to the host), the device operations and busy milliseconds of
-one more run (``torch.profiler``), the LM iterations, and the largest
-camera difference from this tree's.
+7), from one match graph per world made by this tree. Besides this
+tree's (LM and polish steps replayed from CUDA graphs) it runs this
+tree's steps eagerly (``capture=False``), and each ``DIR`` is another
+checkout of the package whose ``register.py`` is timed in turns with
+this tree's on the same graph (versions in order, then reversed). Per
+version: the seconds of each run (host clock; the cameras come back to
+the host) and per LM or polish iteration, the device operations and busy
+milliseconds of one more run (``torch.profiler``), the host syncs of one
+more (``torch.cuda.set_sync_debug_mode("warn")``, by source line), the
+LM iterations, and the cameras' largest difference from this tree's
+(and whether they are identical).
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
+import functools
 import hashlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -524,7 +531,6 @@ def _before_entries(tree: Path):
     """The warps of another checkout of the package, built here -> (a
     function binding its exact launch, a function binding its mip
     launch, its ``plan_windows``)."""
-    import functools
     import re
     from pano360_tpu_torch import _kernels
     pkg = tree / "pano360_tpu_torch"
@@ -605,10 +611,27 @@ TRAVERSE_WORLDS = [
     ("scale50", 50, SCALE_SHAPE, SCALE_OVERLAP, SCALE_SEED)]
 
 
-def _traverse_run(reg, imgs, matches, device):
+def host_syncs(fn):
+    """(``fn()``, {"file:line": count}) of the host syncs it made: the
+    warnings of ``torch.cuda.set_sync_debug_mode("warn")``, each with
+    the line of the package that made it."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return out, dict(sites)
+
+
+def _traverse_run(fn, imgs, matches, device):
     stats = {}
     t0 = time.perf_counter()
-    regs = reg.traverse(imgs, matches, device=device, stats=stats)
+    regs = fn(imgs, matches, device=device, stats=stats)
     return time.perf_counter() - t0, stats, regs
 
 
@@ -633,11 +656,13 @@ def _device_ops(fn):
 def traverse_main(args, smi: str, device="cuda"):
     from pano360_tpu_torch import register, synth
     from pano360_tpu_torch.pipeline import idx_to_keypoints, matching
-    versions = {"this": register}
+    versions = {"this": register.traverse,
+                "this, eager": functools.partial(register.traverse,
+                                                 capture=False)}
     for i, tree in enumerate(args.traverse):
         versions[str(tree)] = _load_module(
             tree / "pano360_tpu_torch" / "register.py",
-            f"p360_other_register_{i}")
+            f"p360_other_register_{i}").traverse
     for name, n, shape, overlap, seed in TRAVERSE_WORLDS:
         imgs, _, _ = synth.make_views(n_views=n, shape=shape, overlap=overlap,
                                       seed=seed)
@@ -660,12 +685,22 @@ def traverse_main(args, smi: str, device="cuda"):
         for v, row in rows.items():
             theirs = row.pop("_regs", mine)
             row["mean_s"] = sum(row["seconds"]) / len(row["seconds"])
+            iters = sum(row["lm_iterations"]) + row["polish_iterations"]
+            row["s_per_iteration"] = row["mean_s"] / iters
             row["ops"], row["busy_ms"] = _device_ops(
-                lambda: versions[v].traverse(u8, graph, device=device))
+                lambda: versions[v](u8, graph, device=device))
+            row["busy_ms_per_iteration"] = row["busy_ms"] / iters
+            _, sites = host_syncs(lambda: versions[v](u8, graph,
+                                                      device=device))
+            row["host_syncs"] = sum(sites.values())
+            row["sync_sites"] = sites
             row["rot_max_diff"] = max(
                 (float(np.abs(a.rot - b.rot).max()) for a, b in
                  zip(theirs, mine)), default=0.0) \
                 if len(theirs) == len(mine) else None
+            row["identical"] = len(theirs) == len(mine) and all(
+                np.array_equal(a.rot, b.rot) and np.array_equal(a.intr, b.intr)
+                for a, b in zip(theirs, mine))
         print(json.dumps(dict(world=name, views=n, shape=list(shape),
                               match_s=match_s, versions=rows)), flush=True)
     print(json.dumps(dict(card=smi)), flush=True)

@@ -21,12 +21,14 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pano360_tpu_torch import geometry as geo
+from pano360_tpu_torch import resolve_device
 
 LM_LAMBDA = 5.0
 LM_MAX_ITER = 100
@@ -34,6 +36,13 @@ LM_MIN_IMPROVE = 1e-3
 MIN_MATCH_ERROR = 150.0
 POLISH_MAX_ITER = 150
 POLISH_MAX_REJECTS = 12
+# LM steps between host reads of the stop flag. An add's LM ran 2-5
+# iterations on the bench world (PERF.md), so the first read after 2 is
+# never late there, and a chunk of 2 wastes at most one masked step per
+# add. The polish reads after the iterations certain to run (it stops
+# only after 12 consecutive rejects), so a chunk of 1 wastes none.
+LM_CHUNK = 2
+POLISH_CHUNK = 1
 
 
 @dataclasses.dataclass
@@ -321,8 +330,11 @@ class Problem:
         return blocks.reshape(6 * c, 6 * c), jtr.reshape(-1)
 
 
-def _damped_step(jtj, jtr, lam: float, shape):
-    """Jacobi-preconditioned solve of (J^T J + lam I) delta = J^T r."""
+
+
+def _damped_step(jtj, jtr, lam, shape):
+    """Jacobi-preconditioned solve of (J^T J + lam I) delta = J^T r;
+    ``lam`` a number or a 0-d tensor."""
     a = jtj + lam * torch.eye(jtj.shape[0], dtype=jtj.dtype,
                               device=jtj.device)
     d = torch.rsqrt(torch.diagonal(a) + 1e-12)
@@ -332,54 +344,164 @@ def _damped_step(jtj, jtr, lam: float, shape):
     return (delta * d).reshape(shape)
 
 
-def lm_core(params, prob: Problem, mask, max_iter: int = LM_MAX_ITER):
-    """Fixed-lambda LM; with rollback-on-reject the state after the first
-    rejection is frozen, so the loop stops there (the JAX package's
-    ``_lm_core`` schedule). Returns the best params and the number of
-    iterations run (the rejected one included)."""
-    best = params
-    best_err = np.float32(prob.loss(params, mask).item())
-    n_iter = 0
-    for _ in range(max_iter):
-        n_iter += 1
-        jtj, jtr = prob.normal_equations(best, mask)
-        trial = best - _damped_step(jtj, jtr, LM_LAMBDA, best.shape)
-        err = np.float32(prob.loss(trial, mask).item())
-        # f32 threshold arithmetic, as on the device in the JAX package
-        if not err < best_err - np.float32(LM_MIN_IMPROVE):
-            break
-        best, best_err = trial, err
-    return best, n_iter
+# The LM loops keep their whole state on the params' device: ``best``
+# (C, 6), ``err`` its loss and ``lam`` the damping (0-d, params' dtype),
+# and ``ctr`` (3,) int32 = [iterations run, stalls (LM) or consecutive
+# rejects (polish), stopped]. A step reads and writes it with no host
+# sync; once ``stopped`` is set a step changes nothing, so a driver may
+# run several steps between reads of the flag.
+
+def _lm_state(params, prob: Problem, mask, lam: float = LM_LAMBDA) -> dict:
+    return dict(best=params.clone(), err=prob.loss(params, mask),
+                lam=torch.full((), lam, dtype=params.dtype,
+                               device=params.device),
+                ctr=torch.zeros(3, dtype=torch.int32, device=params.device))
 
 
-def lm_polish(params, prob: Problem, mask):
-    """Adaptive-damping LM past the fixed-lambda stop: halve lambda on
-    accept, 4x on reject, stop after 12 consecutive rejects. Returns the
-    best params and the number of iterations run."""
-    best = params
-    best_err = np.float32(prob.loss(params, mask).item())
-    lam = np.float32(LM_LAMBDA)
-    rejects = 0
-    n_iter = 0
-    for _ in range(POLISH_MAX_ITER):
-        if rejects >= POLISH_MAX_REJECTS:
-            break
-        n_iter += 1
-        jtj, jtr = prob.normal_equations(best, mask)
-        trial = best - _damped_step(jtj, jtr, float(lam), best.shape)
-        err = np.float32(prob.loss(trial, mask).item())
-        if err < best_err:
-            best, best_err = trial, err
-            lam, rejects = lam * np.float32(0.5), 0
-        else:
-            lam, rejects = lam * np.float32(4.0), rejects + 1
-        lam = np.float32(np.clip(lam, np.float32(1e-5), np.float32(1e6)))
-    return best, n_iter
+def _lm_restart(state: dict, prob: Problem, mask, lam: float = LM_LAMBDA):
+    """Start another loop from ``state['best']`` in place."""
+    state["err"].copy_(prob.loss(state["best"], mask))
+    state["lam"].fill_(lam)
+    state["ctr"].zero_()
+
+
+def _trial(prob: Problem, mask, state: dict):
+    """The damped Gauss-Newton trial from ``best`` and its loss."""
+    best = state["best"]
+    jtj, jtr = prob.normal_equations(best, mask)
+    trial = best - _damped_step(jtj, jtr, state["lam"], best.shape)
+    return trial, prob.loss(trial, mask)
+
+
+def _accept(state: dict, improved, trial, err):
+    state["best"].copy_(torch.where(improved, trial, state["best"]))
+    state["err"].copy_(torch.where(improved, err, state["err"]))
+
+
+def lm_step(prob: Problem, mask, state: dict, max_iter: int = LM_MAX_ITER):
+    """One fixed-lambda iteration (the JAX package's ``_lm_core`` body):
+    accept on a loss gain above 1e-3, in the loss's dtype on the device;
+    with rollback on reject the state after the first rejection is frozen,
+    so the loop stops there (``_lm_core``'s ``stalls < 1``)."""
+    trial, err = _trial(prob, mask, state)
+    ctr = state["ctr"]
+    run = ctr[2] == 0
+    improved = run & (err < state["err"] - LM_MIN_IMPROVE)
+    _accept(state, improved, trial, err)
+    it = ctr[0] + run.int()
+    stalls = ctr[1] + (run & ~improved).int()
+    stop = ~improved | (it >= max_iter)
+    ctr.copy_(torch.stack([it, stalls, stop.int()]))
+
+
+def polish_step(prob: Problem, mask, state: dict,
+                max_iter: int = POLISH_MAX_ITER):
+    """One adaptive-damping iteration (``_lm_polish``'s body): halve
+    lambda on accept, 4x on reject, clipped to [1e-5, 1e6]; stop after
+    ``POLISH_MAX_REJECTS`` consecutive rejects or ``max_iter``."""
+    trial, err = _trial(prob, mask, state)
+    ctr, lam = state["ctr"], state["lam"]
+    run = ctr[2] == 0
+    improved = run & (err < state["err"])
+    _accept(state, improved, trial, err)
+    lam.copy_(torch.where(run, torch.clamp(
+        torch.where(improved, lam * 0.5, lam * 4.0), 1e-5, 1e6), lam))
+    it = ctr[0] + run.int()
+    rejects = torch.where(run, torch.where(improved, 0, ctr[1] + 1), ctr[1])
+    stop = ~run | (rejects >= POLISH_MAX_REJECTS) | (it >= max_iter)
+    ctr.copy_(torch.stack([it, rejects, stop.int()]))
+
+
+def _polish_sure(rejects: int) -> int:
+    """Polish iterations certain to run after a read: it stops only after
+    ``POLISH_MAX_REJECTS`` consecutive rejects (or at its cap)."""
+    return POLISH_MAX_REJECTS - rejects
+
+
+def drive(step, ctr, k: int, sure=None) -> int:
+    """Run ``step()`` until ``ctr`` (the loop state's counters) says
+    stopped: k steps between host reads of the counters, or more where
+    ``sure(count)`` says more are certain to run. The one host sync per
+    chunk is that read. -> the iterations run."""
+    n = max(k, sure(0) if sure else 0)
+    while True:
+        for _ in range(n):
+            step()
+        it, count, stopped = ctr.tolist()
+        if stopped:
+            return it
+        n = max(k, sure(count) if sure else 0)
+
+
+def lm_core(params, prob: Problem, mask, max_iter: int = LM_MAX_ITER,
+            k: int = LM_CHUNK):
+    """Fixed-lambda LM (``lm_step``) driven in chunks of k. Returns the
+    best params and the number of iterations run (the rejected one
+    included)."""
+    state = _lm_state(params, prob, mask)
+    n = drive(lambda: lm_step(prob, mask, state, max_iter), state["ctr"], k)
+    return state["best"], n
+
+
+def lm_polish(params, prob: Problem, mask, k: int = POLISH_CHUNK):
+    """Adaptive-damping LM past the fixed-lambda stop (``polish_step``)
+    driven in chunks of k or of the iterations certain to run. Returns
+    the best params and the number of iterations run."""
+    state = _lm_state(params, prob, mask)
+    n = drive(lambda: polish_step(prob, mask, state), state["ctr"], k,
+              _polish_sure)
+    return state["best"], n
+
+
+def _capture(fn) -> torch.cuda.CUDAGraph:
+    """``fn`` (one loop step on static buffers) captured as a CUDA graph.
+    It runs once first on the capture stream, outside the capture, for
+    the libraries' lazy handles and workspaces; the caller has set the
+    loop's stopped flag, so that run changes no state."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        graph.capture_begin()
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    return graph
+
+
+class _Replayed:
+    """A loop step replayed from a CUDA graph, captured at its first call
+    (once per traverse: the problem's shape is fixed for the whole
+    schedule and only the mask, a static buffer, changes)."""
+
+    def __init__(self, fn, ctr):
+        self.fn, self.ctr, self.graph = fn, ctr, None
+
+    def __call__(self):
+        if self.graph is None:
+            saved = self.ctr.clone()
+            self.ctr[2] = 1                     # the warm-up run is a no-op
+            self.graph = _capture(self.fn)
+            self.ctr.copy_(saved)
+        self.graph.replay()
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``, from pinned memory without a host
+    sync on a card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
              use_straighten: bool = True, polish: bool = True,
-             device="cuda", stats=None, mesh=None) -> List[PanoImage]:
+             device="cuda", stats=None, mesh=None,
+             capture: bool = True) -> List[PanoImage]:
     """Best-first expansion over the match graph + bundle adjustment.
 
     ``matches[i][j] = (kpt_pairs (M, 6), hom, n_inliers)`` (the cache's
@@ -392,6 +514,16 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     and ``polish_iterations``). ``mesh`` (``parallel.mesh.Mesh``): the
     edges of the problem are sharded over the ranks (``Problem``); every
     rank returns the same cameras, and runs on ``mesh.device``.
+
+    As the JAX package's ``_traverse_impl``, the schedule (which camera
+    is added when, from which pair homography, gating which edges) is
+    fixed on the host and uploaded once; the problem holds every edge
+    from the start and only its mask grows. On a card without a mesh
+    the LM and polish steps are each captured once as a CUDA graph on
+    static buffers and replayed (``capture=False`` runs the same steps
+    eagerly: the check of the graphs). On the CPU, and under a mesh,
+    whose gloo collectives stage through the host and cannot be
+    captured, the steps run eagerly on the device asked for.
     """
     if badjust not in ("incr", "last", "none"):
         raise ValueError(f"badjust {badjust!r}")
@@ -436,13 +568,14 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
         cam1[e], cam2[e], edge_add[e] = c1, c2, k
         pts[e, :len(m)] = m
         mask[e, :len(m)] = 1.0
-    tt = dict(device=device)
-    prob = Problem(torch.as_tensor(cam1, **tt), torch.as_tensor(cam2, **tt),
-                   torch.as_tensor(pts, **tt), torch.as_tensor(mask, **tt),
-                   n, mesh)
-    edge_add_t = torch.as_tensor(edge_add, **tt)
+    prob = Problem(_upload(cam1, device), _upload(cam2, device),
+                   _upload(pts, device), _upload(mask, device), n, mesh)
+    edge_add_t = _upload(edge_add, device)
+    homs_t = _upload(np.stack(homs_all).astype(np.float32), device)
+    add_homs = _upload(np.stack([np.asarray(h, np.float32)
+                                 for _, _, h in adds]), device)
+    placed_idx = _upload(np.array(sorted(placed), np.int64), device)
 
-    homs_t = torch.as_tensor(np.stack(homs_all).astype(np.float32), **tt)
     focal = torch.quantile(geo.focal_from_hom(homs_t), 0.5)
     intr = geo.intrinsics(focal)
     kinv = geo.inv3x3(intr)
@@ -451,36 +584,42 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     params[:, 0] = 1.0
     params[src] = 0.0
     params[src, :3] = lead
+    emask = torch.zeros_like(prob.mask)     # the gated problem, in place
+    state = _lm_state(params, prob, emask)
+    params = state["best"]                  # seeded in place
     enabled = torch.zeros(ne, dtype=torch.bool, device=device)
+    steps = [partial(lm_step, prob, emask, state),
+             partial(polish_step, prob, emask, state)]
+    if capture and device.type == "cuda" and mesh is None:
+        steps = [_Replayed(s, state["ctr"]) for s in steps]
+
+    def run(step, k, sure=None):
+        emask.copy_(prob.mask * prob.local(enabled)[:, None])
+        _lm_restart(state, prob, emask)
+        return drive(step, state["ctr"], k, sure)
+
     lm_iters, polish_iters = [], 0
-    for k, (dst, src_i, hom) in enumerate(adds):
+    for k, (dst, src_i, _) in enumerate(adds):
         r_src = geo.exp_so3(params[src_i, 3:6])
-        hom_t = torch.as_tensor(np.asarray(hom, np.float32), **tt)
-        r_rel = geo.nearest_rotation(geo.mm(geo.mm(kinv, hom_t), intr))
-        params = params.clone()
+        r_rel = geo.nearest_rotation(geo.mm(geo.mm(kinv, add_homs[k]), intr))
         params[dst] = torch.cat([lead, geo.log_so3(geo.mm(r_rel, r_src))])
         rmse = prob.edge_rmse(params)
         enabled = enabled | ((edge_add_t == k) & (rmse < MIN_MATCH_ERROR))
         if badjust == "incr":
-            params, it = lm_core(params, prob,
-                                 prob.mask * prob.local(enabled)[:, None])
-            lm_iters.append(it)
-    emask = prob.mask * prob.local(enabled)[:, None]
+            lm_iters.append(run(steps[0], LM_CHUNK))
     if badjust == "last":
-        params, it = lm_core(params, prob, emask)
-        lm_iters.append(it)
+        lm_iters.append(run(steps[0], LM_CHUNK))
     if polish and badjust != "none":
-        params, polish_iters = lm_polish(params, prob, emask)
+        polish_iters = run(steps[1], POLISH_CHUNK, _polish_sure)
+    if use_straighten:
+        rots = geo.exp_so3(params[placed_idx, 3:6])
+        params = params.clone()
+        params[placed_idx, 3:6] = geo.log_so3(geo.straighten(rots))
     if stats is not None:
         stats.update(focal0=float(focal), ba_edges=len(edges),
                      ba_edges_enabled=int(enabled.sum()),
                      ba_edge_points=mp, lm_iterations=lm_iters,
                      polish_iterations=polish_iters)
-    placed_idx = torch.as_tensor(sorted(placed), **tt)
-    if use_straighten:
-        rots = geo.exp_so3(params[placed_idx, 3:6])
-        params = params.clone()
-        params[placed_idx, 3:6] = geo.log_so3(geo.straighten(rots))
     params = params.cpu().numpy().astype(np.float64)
 
     cameras: List[Optional[PanoImage]] = [None] * n
@@ -491,5 +630,201 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     return [c for c in cameras if c is not None]
 
 
-__all__ = ["PanoImage", "traverse", "Problem", "lm_core", "lm_polish",
-           "LM_LAMBDA", "LM_MAX_ITER", "MIN_MATCH_ERROR"]
+# ---------------------------------------------------------------------------
+# The incremental bundle adjuster and the finite-difference check
+# ---------------------------------------------------------------------------
+
+def _next_pow2(x: int, lo: int) -> int:
+    n = lo
+    while n < x:
+        n *= 2
+    return n
+
+
+def _np_log_so3(rot: np.ndarray) -> np.ndarray:
+    """Host Rodrigues log (f64)."""
+    rad = np.array([rot[2, 1] - rot[1, 2], rot[0, 2] - rot[2, 0],
+                    rot[1, 0] - rot[0, 1]])
+    mod = np.linalg.norm(rad)
+    if mod < 1e-7:
+        return np.zeros(3)
+    theta = np.arccos(np.clip((np.trace(rot) - 1) / 2, -1, 1))
+    return rad * (theta / mod)
+
+
+def _np_params_from_camera(cam: PanoImage) -> np.ndarray:
+    intr = cam.intr
+    lead = np.array([intr[0, 0], intr[0, 2], intr[1, 2]])
+    return np.concatenate([lead, _np_log_so3(cam.rot)])
+
+
+def _edge_rmse(cam1: PanoImage, cam2: PanoImage, match: np.ndarray) -> float:
+    """Initial RMSE of an edge (host, f64) for the mismatch gate."""
+    hom = cam1.intr @ cam1.rot @ cam2.rot.T @ np.linalg.inv(cam2.intr)
+    tr = match[:, 3:6] @ hom.T
+    res = match[:, :2] - tr[:, :2] / tr[:, 2:3]
+    return float(np.sqrt(np.mean(np.square(res))))
+
+
+class BundleAdjuster:
+    """Incremental bundle adjustment (the JAX package's
+    ``BundleAdjuster``): cameras arrive one by one with their edges.
+
+    The match points live on ``device`` and are appended to as cameras
+    arrive (the buffers grow by doubling; ``edge_cap``/``match_cap`` fix
+    their size up front), so each ``optimize()`` uploads only the params
+    and the edges' camera indices and runs ``lm_core`` once. ``device``
+    defaults to the card, as every entry point of the port.
+    """
+
+    def __init__(self, n_cameras: int, mode: str = "incr",
+                 dtype=np.float32, edge_cap: Optional[int] = None,
+                 match_cap: Optional[int] = None, device="cuda"):
+        self.cameras: List[Optional[PanoImage]] = [None] * n_cameras
+        self.matches: List[Tuple[int, int, np.ndarray]] = []
+        self.mode = mode
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self._cp = _next_pow2(n_cameras, 4)
+        self._ep = _next_pow2(edge_cap, 4) if edge_cap else 4
+        self._mp = _next_pow2(match_cap, 64) if match_cap else 64
+        self._pts = None        # device (EP, MP, 6)
+        self._mask = None       # device (EP, MP)
+        self._n_dev = 0         # edges uploaded so far
+
+    def add(self, idx: int, camera: PanoImage, matches: Dict) -> None:
+        """Add a camera and those of its edges to placed cameras whose
+        initial RMSE is at most ``MIN_MATCH_ERROR``."""
+        self.cameras[idx] = camera
+        for new, cam in enumerate(self.cameras):
+            if cam is None or new not in matches[idx]:
+                continue
+            match = matches[idx][new][0]
+            if _edge_rmse(camera, cam, match) > MIN_MATCH_ERROR:
+                continue
+            self.matches.append((new, idx, match))
+        if self.mode == "incr":
+            self.optimize()
+
+    def _benign_rows(self, k: int) -> np.ndarray:
+        rows = np.zeros((k, self._mp, 6), self.dtype)
+        rows[..., 2] = 1.0   # benign homogeneous padding
+        rows[..., 5] = 1.0
+        return rows
+
+    def _sync_device(self) -> None:
+        """Upload the edges added since the last sync (rebuild the
+        buffers at a doubled size when they are full)."""
+        need_mp = max((len(m) for _, _, m in self.matches), default=1)
+        grow = need_mp > self._mp
+        while self._mp < need_mp:
+            self._mp *= 2
+        while self._ep < len(self.matches):
+            self._ep *= 2
+            grow = True
+        if self._pts is None or grow or self._pts.shape[0] != self._ep:
+            self._pts = _upload(self._benign_rows(self._ep), self.device)
+            self._mask = torch.zeros((self._ep, self._mp),
+                                     dtype=self._pts.dtype,
+                                     device=self.device)
+            self._n_dev = 0
+        new = self.matches[self._n_dev:]
+        if not new:
+            return
+        rows = self._benign_rows(len(new))
+        mrows = np.zeros((len(new), self._mp), self.dtype)
+        for e, (_, _, m) in enumerate(new):
+            rows[e, :len(m)] = m
+            mrows[e, :len(m)] = 1.0
+        e0 = self._n_dev
+        self._pts[e0:e0 + len(new)] = _upload(rows, self.device)
+        self._mask[e0:e0 + len(new)] = _upload(mrows, self.device)
+        self._n_dev = len(self.matches)
+
+    def _assemble(self):
+        """The padded problem on the host, cameras compacted: -> (placed
+        indices, params (CP, 6), cam1, cam2 (EP,), pts (EP, MP, 6), mask
+        (EP, MP))."""
+        idx = [i for i, c in enumerate(self.cameras) if c is not None]
+        pos = {c: k for k, c in enumerate(idx)}
+        cp = _next_pow2(len(idx), 4)
+        ep = _next_pow2(max(len(self.matches), 1), 4)
+        mp = _next_pow2(max((len(m) for _, _, m in self.matches),
+                            default=1), 64)
+        params = np.zeros((cp, 6), self.dtype)
+        params[:, 0] = 1.0  # benign focal for padding cameras
+        for k, i in enumerate(idx):
+            params[k] = _np_params_from_camera(self.cameras[i])
+        cam1 = np.zeros(ep, np.int32)
+        cam2 = np.zeros(ep, np.int32)
+        pts = np.zeros((ep, mp, 6), self.dtype)
+        pts[..., 2] = 1.0
+        pts[..., 5] = 1.0
+        mask = np.zeros((ep, mp), self.dtype)
+        for e, (i_new, j_idx, m) in enumerate(self.matches):
+            cam1[e] = pos[j_idx]
+            cam2[e] = pos[i_new]
+            pts[e, :len(m)] = m
+            mask[e, :len(m)] = 1.0
+        return idx, params, cam1, cam2, pts, mask
+
+    def optimize(self) -> None:
+        """One ``lm_core`` over every camera placed so far."""
+        if not self.matches:
+            return
+        self._sync_device()
+        idx = [i for i, c in enumerate(self.cameras) if c is not None]
+        params = np.zeros((self._cp, 6), self.dtype)
+        params[:, 0] = 1.0  # benign focal for unplaced cameras
+        for i in idx:
+            params[i] = _np_params_from_camera(self.cameras[i])
+        cam1 = np.zeros(self._ep, np.int64)
+        cam2 = np.zeros(self._ep, np.int64)
+        for e, (i_new, j_idx, _) in enumerate(self.matches):
+            cam1[e], cam2[e] = j_idx, i_new
+        prob = Problem(_upload(cam1, self.device), _upload(cam2, self.device),
+                       self._pts, self._mask, self._cp)
+        best, _ = lm_core(_upload(params, self.device), prob, prob.mask)
+        best = best.cpu().numpy().astype(np.float64)
+        for i in idx:
+            cam = _np_camera_from_params(best[i])
+            cam.img = self.cameras[i].img
+            self.cameras[i] = cam
+
+
+def jacobian_numeric(params: np.ndarray, cam1_idx, cam2_idx, pts, mask,
+                     step: float = 1e-6):
+    """(J^T J, J^T r) from symmetric differences of the port's masked
+    residuals (``Problem``), in f64 on the host: the check of the
+    analytic ``Problem.normal_equations`` on small problems."""
+    params = np.asarray(params, np.float64)
+    f64 = torch.float64
+    prob = Problem(torch.as_tensor(np.asarray(cam1_idx), dtype=torch.int64),
+                   torch.as_tensor(np.asarray(cam2_idx), dtype=torch.int64),
+                   torch.as_tensor(np.asarray(pts), dtype=f64),
+                   torch.as_tensor(np.asarray(mask), dtype=f64),
+                   params.shape[0])
+
+    def res_vec(p):
+        terms = _camera_terms(torch.as_tensor(p))
+        _, res, _, _ = prob._residuals(_rows(terms, prob.cam1),
+                                       _rows(terms, prob.cam2), prob.mask)
+        return res.numpy().ravel()
+
+    base = res_vec(params)
+    cols = []
+    for i in range(params.shape[0]):
+        for j in range(6):
+            dp = params.copy()
+            dp[i, j] += step
+            rp = res_vec(dp)
+            dp[i, j] -= 2 * step
+            rm = res_vec(dp)
+            cols.append((rp - rm) / (2 * step))
+    jac = np.stack(cols, axis=1)
+    return jac.T @ jac, jac.T @ base
+
+
+__all__ = ["PanoImage", "BundleAdjuster", "traverse", "Problem", "lm_core",
+           "lm_polish", "lm_step", "polish_step", "drive",
+           "jacobian_numeric", "LM_LAMBDA", "LM_MAX_ITER", "MIN_MATCH_ERROR"]
