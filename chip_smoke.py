@@ -22,6 +22,11 @@ Phases (any failure exits non-zero):
    of 864x1152, seed 42, overlap 0.45): a cold and a warm run, per-stage
    seconds, peak device memory, kernel launch counts, registration
    accuracy against the synthetic ground truth, and a cached re-run;
+   on its match cache ``register.traverse`` with the LM and polish steps
+   replayed from CUDA graphs against the same steps run eagerly (the
+   same cameras bit for bit, the same LM counts; seconds per iteration
+   and host syncs per traverse of each), and ``BundleAdjuster`` on the
+   card against the CPU;
 6. profile: one more uncached run of the main path under
    ``torch.profiler``: device busy time, the device's idle share, the
    device operations that take the most time, and the octave and warp
@@ -370,12 +375,86 @@ def phase_slice(torch, u8, rots, focal):
     hold_add_weights(torch, u8)
     kpts, matches = cli.load_match_cache(os.path.join(
         args.cache_dir, "matches_bench_s1.0.npz"))
+    hold_traverse(torch, u8, kpts, matches)
+    hold_bundle_adjuster(regs, kpts, matches)
     extra = runs["warm"][2]
     ref = dict(kpts=kpts, matches=matches, mosaic=mosaic,
                cams=[(r.rot, r.intr) for r in regs],
                lm_iterations=extra["lm_iterations"],
                polish_iterations=extra["polish_iterations"])
     return launches, walls["warm"], args.cache_dir, ref
+
+
+def hold_traverse(torch, u8, kpts, matches):
+    """``register.traverse`` with its LM and polish steps replayed from
+    CUDA graphs against the same steps run eagerly, on phase 5's match
+    cache: the same cameras bit for bit and the same LM counts; each
+    one's seconds (warm: the second of two runs), seconds per LM or
+    polish iteration, and host syncs per traverse
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    from pano360_tpu_torch import register
+    from pano360_tpu_torch.measure import host_syncs
+    from pano360_tpu_torch.pipeline import idx_to_keypoints
+    graph = idx_to_keypoints(matches, kpts)
+    runs = {}
+    for capture in (True, False, True, False):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        regs = register.traverse(u8, graph, stats=stats, capture=capture)
+        runs[capture] = (time.perf_counter() - t0, stats, regs)
+    for capture, label in ((True, "graphs"), (False, "eager")):
+        secs, stats, _ = runs[capture]
+        iters = sum(stats["lm_iterations"]) + stats["polish_iterations"]
+        _, sites = host_syncs(lambda: register.traverse(u8, graph,
+                                                        capture=capture))
+        log(f"  traverse, steps {label}: {secs:.4f} s warm; "
+            f"{secs / iters * 1e3:.3f} ms per LM or polish iteration "
+            f"({iters}: {stats['lm_iterations']} + polish "
+            f"{stats['polish_iterations']}); host syncs per traverse "
+            f"{sum(sites.values())} {json.dumps(sites)}")
+    (_, s_g, r_g), (_, s_e, r_e) = runs[True], runs[False]
+    same = all(np.array_equal(a.rot, b.rot) and np.array_equal(a.intr, b.intr)
+               for a, b in zip(r_g, r_e)) and len(r_g) == len(r_e)
+    counts = (s_g["lm_iterations"] == s_e["lm_iterations"]
+              and s_g["polish_iterations"] == s_e["polish_iterations"])
+    log(f"  traverse, graphs vs eager on the same match cache: cameras "
+        f"equal {same}, LM counts equal {counts}")
+    check(same and counts, "the replayed traverse differs from the eager one")
+
+
+def hold_bundle_adjuster(regs, kpts, matches):
+    """``register.BundleAdjuster`` on the card against the same problem
+    on the CPU: phase 5's cameras with rotations perturbed by ~3e-3 rad
+    (numpy seed 0), every edge of the match cache, one ``optimize()``.
+    Held on what the residuals see (f32 rounding moves the two along the
+    global rotation): relative rotations of adjacent views and focals
+    within 1e-4."""
+    from pano360_tpu_torch import register as R
+    from pano360_tpu_torch.pipeline import idx_to_keypoints
+    graph = idx_to_keypoints(matches, kpts)
+    rng = np.random.default_rng(0)
+    start = [R.PanoImage(None, R._np_exp_so3(0.003 * rng.standard_normal(3))
+                         @ r.rot, r.intr.copy()) for r in regs]
+    cams, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        ba = R.BundleAdjuster(len(start), mode="none", device=dev)
+        for i, cam in enumerate(start):
+            ba.add(i, cam, graph)
+        t0 = time.perf_counter()
+        ba.optimize()
+        secs[dev] = time.perf_counter() - t0
+        cams[dev] = ba.cameras
+    pairs = list(zip(cams["cuda"], cams["cpu"]))
+    rel = max(rot_angle_deg(a1.rot @ a0.rot.T, b1.rot @ b0.rot.T)
+              for (a0, b0), (a1, b1) in zip(pairs, pairs[1:]))
+    foc = max(abs(a.intr[0, 0] / b.intr[0, 0] - 1) for a, b in pairs)
+    log(f"  BundleAdjuster, {len(ba.matches)} edges, one optimize(): card "
+        f"{secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s; card vs CPU: "
+        f"relative rotations within {np.radians(rel):.2e} rad, focals "
+        f"within {foc:.2e}")
+    check(np.radians(rel) <= 1e-4 and foc <= 1e-4,
+          f"BundleAdjuster on the card differs from the CPU: {rel}, {foc}")
 
 
 def hold_add_weights(torch, u8):

@@ -281,6 +281,50 @@ def match_pairs(kpts, desc, valid, pair_a, pair_b, first_pair: int = 0,
                      ok=ok)
 
 
+def match_pairs_batch(kpts, desc, valid, pair_a, pair_b,
+                      generator: Optional[torch.Generator] = None,
+                      draw_fn: Optional[DrawFn] = None,
+                      uniforms: Optional[torch.Tensor] = None,
+                      ratio: float = LOWE_RATIO,
+                      n_iters: int = RANSAC_ITERS,
+                      thresh: float = RANSAC_THRESH) -> PairMatch:
+    """``match_pairs`` with the JAX package's argument order: the pairs
+    (pair_a[j], pair_b[j]) of the (N, K, ...) buffers. The RANSAC draws
+    of pair j are ``draw_fn(j, n_valid)``, or come from ``uniforms`` (P,
+    n_iters, 4), or else from ``generator`` (on the buffers' device)."""
+    if draw_fn is None and uniforms is None:
+        uniforms = torch.rand((len(pair_a), n_iters, 4), generator=generator,
+                              device=kpts.device)
+    return match_pairs(kpts, desc, valid, pair_a, pair_b, draw_fn=draw_fn,
+                       uniforms=uniforms, ratio=ratio, thresh=thresh)
+
+
+def match_pair(kpts1, desc1, valid1, kpts2, desc2, valid2,
+               generator: Optional[torch.Generator] = None,
+               draw_fn: Optional[DrawFn] = None,
+               uniforms: Optional[torch.Tensor] = None,
+               ratio: float = LOWE_RATIO, n_iters: int = RANSAC_ITERS,
+               thresh: float = RANSAC_THRESH) -> PairMatch:
+    """One pair (unbatched ``PairMatch``): image 1's (M, ...) features
+    against image 2's; draws as ``match_pairs_batch``'s (pair 0,
+    ``uniforms`` (n_iters, 4)). The shorter buffer is padded with
+    invalid rows; rows of image 1 come back as given."""
+    m = max(kpts1.shape[0], kpts2.shape[0])
+
+    def pad(*ts):
+        return torch.stack([torch.cat([t, t.new_zeros((m - t.shape[0],)
+                                                      + t.shape[1:])])
+                            for t in ts])
+    res = match_pairs_batch(
+        pad(kpts1, kpts2), pad(desc1, desc2), pad(valid1, valid2),
+        torch.tensor([0], device=kpts1.device),
+        torch.tensor([1], device=kpts1.device), generator, draw_fn,
+        None if uniforms is None else uniforms[None], ratio, n_iters, thresh)
+    n = kpts1.shape[0]
+    return PairMatch(res.idx[0, :n], res.inlier[0, :n], res.hom[0],
+                     res.n_inliers[0], res.ok[0])
+
+
 def match_all_pairs(kpts, desc, valid, pairs: List[Tuple[int, int]],
                     batch: int, generator: Optional[torch.Generator] = None,
                     draw_fn: Optional[DrawFn] = None, mesh=None) -> PairMatch:
@@ -325,5 +369,6 @@ def match_all_pairs(kpts, desc, valid, pairs: List[Tuple[int, int]],
 
 __all__ = ["PairMatch", "knn2_matches", "hom_from_4pts", "refit_homography",
            "ransac_homography", "draws_from_uniforms",
-           "DrawTable", "match_pairs", "match_all_pairs",
+           "DrawTable", "match_pair", "match_pairs", "match_pairs_batch",
+           "match_all_pairs",
            "LOWE_RATIO", "N_MIN_MATCH", "RANSAC_THRESH", "RANSAC_ITERS"]

@@ -13,4 +13,12 @@ def bgr2gray(img: torch.Tensor) -> torch.Tensor:
     return img[..., 0] * w[0] + img[..., 1] * w[1] + img[..., 2] * w[2]
 
 
-__all__ = ["bgr2gray"]
+def add_alpha(img: torch.Tensor, alpha=None) -> torch.Tensor:
+    """Append an alpha channel ((..., H, W, 3) -> (..., H, W, 4)); ones
+    when ``alpha`` (..., H, W) is not given."""
+    if alpha is None:
+        alpha = torch.ones(img.shape[:-1], dtype=img.dtype, device=img.device)
+    return torch.cat([img, alpha[..., None]], dim=-1)
+
+
+__all__ = ["bgr2gray", "add_alpha"]

@@ -40,4 +40,17 @@ def upsample2x_bilinear(img: torch.Tensor) -> torch.Tensor:
     return up_axis(up_axis(img, -2), -1)
 
 
-__all__ = ["resize_bilinear", "upsample2x_bilinear"]
+def shrink_area(img: torch.Tensor, factor: int) -> torch.Tensor:
+    """Integer-factor area downsample of (H, W[, C]) (mean pool over
+    factor x factor blocks, the rest cropped): cv2.INTER_AREA for
+    integer factors. Integer images come back as float32."""
+    h, w = img.shape[:2]
+    nh, nw = h // factor, w // factor
+    crop = img[:nh * factor, :nw * factor]
+    if not crop.is_floating_point():
+        crop = crop.float()
+    return crop.reshape((nh, factor, nw, factor) + img.shape[2:]).mean(
+        dim=(1, 3))
+
+
+__all__ = ["resize_bilinear", "upsample2x_bilinear", "shrink_area"]

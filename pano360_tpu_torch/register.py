@@ -2,12 +2,18 @@
 (counterpart of ``pano360_tpu.register``).
 
 The best-first heap walk over the match graph runs on the host and fixes
-the order of adds up front (it depends only on match scores). The
-numbers then run as a PyTorch loop on the device: seed each new camera
-from its pair homography, gate its edges by initial RMSE (< 150), run
-the fixed-lambda LM (lambda 5, at most 100 iterations, accept only on a
-1e-3 RMSE gain, stop at the first rejection), then an adaptive-damping
-polish, the median Szeliski-Shum focal and straightening.
+the order of adds up front (it depends only on match scores); the
+schedule is uploaded once. The numbers then run on the device: seed each
+new camera from its pair homography, gate its edges by initial RMSE (<
+150), run the fixed-lambda LM (lambda 5, at most 100 iterations, accept
+only on a 1e-3 RMSE gain, stop at the first rejection), then an
+adaptive-damping polish, the median Szeliski-Shum focal and
+straightening. The LM loops keep their state and their stop flag on the
+device (``lm_step``, ``polish_step``); a host driver (``drive``) runs
+them in chunks and reads the flag once per chunk, and on a card each
+step is one CUDA graph replayed (the JAX package's ``_traverse_impl``
+runs the same schedule as one XLA program with ``while_loop``s; PyTorch
+2.11 captures no device-side loop in eager mode).
 
 Jacobians are written analytically: each edge's homography H(pa, pb)
 has a closed-form derivative (E x 9 x 12 numbers, ``_edge_hom_jac``),
@@ -328,8 +334,6 @@ class Problem:
         jtr = (torch.einsum("ea,ei->ai", s1, ra)
                + torch.einsum("ea,ei->ai", s2, rb))
         return blocks.reshape(6 * c, 6 * c), jtr.reshape(-1)
-
-
 
 
 def _damped_step(jtj, jtr, lam, shape):

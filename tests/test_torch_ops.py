@@ -28,6 +28,7 @@ from pano360_tpu.ops import pallas_gauss as PG
 from pano360_tpu.ops import pallas_warp as PW
 from pano360_tpu.ops import resize as jresize
 from pano360_tpu.ops import warp as jwarp
+from pano360_tpu.ops.color import add_alpha as jadd_alpha
 from pano360_tpu.ops.color import bgr2gray as jbgr2gray
 from pano360_tpu.register import PanoImage as JPanoImage
 
@@ -39,6 +40,7 @@ from pano360_tpu_torch.ops import gauss_octave as TG
 from pano360_tpu_torch.ops import resize as tresize
 from pano360_tpu_torch.ops import warp as twarp
 from pano360_tpu_torch.ops import warp_kernel as TW
+from pano360_tpu_torch.ops.color import add_alpha as tadd_alpha
 from pano360_tpu_torch.ops.color import bgr2gray as tbgr2gray
 
 torch.set_num_threads(1)
@@ -85,6 +87,25 @@ def test_resize_and_upsample_match_jax():
     ref = np.asarray(jresize.upsample2x_bilinear(jnp.asarray(g)))
     out = tresize.upsample2x_bilinear(_t(g)).numpy()
     np.testing.assert_allclose(out, ref, atol=DENSE_TOL)
+
+
+def test_shrink_area_matches_jax():
+    for shape, factor in (((37, 53, 3), 2), ((37, 53), 3), ((36, 48, 4), 4)):
+        img = RNG.random(shape, np.float32) * 255
+        ref = np.asarray(jresize.shrink_area(jnp.asarray(img), factor))
+        out = tresize.shrink_area(_t(img), factor).numpy()
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out, ref, atol=DENSE_TOL * 255)
+
+
+def test_add_alpha_matches_jax():
+    img = RNG.random((2, 20, 30, 3), np.float32)
+    alpha = RNG.random((2, 20, 30), np.float32)
+    for a in (None, alpha):
+        ref = np.asarray(jadd_alpha(jnp.asarray(img),
+                                    None if a is None else jnp.asarray(a)))
+        out = tadd_alpha(_t(img), None if a is None else _t(a)).numpy()
+        np.testing.assert_array_equal(out, ref)
 
 
 def test_bgr2gray_matches_jax():

@@ -161,6 +161,58 @@ def test_ransac_with_jax_draws_matches_jax(ref):
     assert rel <= 1e-4, rel
 
 
+def _same_pair_match(t, j):
+    """A port ``PairMatch`` against JAX's: inliers, counts and flags
+    equal, the matched index on the inlier rows (elsewhere it may be a
+    near-tie's, as in ``test_knn2_matches_jax``), the homographies of
+    the pairs that pass within 1e-4 relative."""
+    for name in ("inlier", "n_inliers", "ok"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(j, name)))
+    inl = np.asarray(j.inlier)
+    assert inl.sum() >= 8
+    np.testing.assert_array_equal(t.idx.numpy()[inl], np.asarray(j.idx)[inl])
+    ok = np.asarray(j.ok)
+    jh = np.asarray(j.hom)[ok]
+    rel = np.abs(t.hom.numpy()[ok] - jh).max() / np.abs(jh).max()
+    assert rel <= 1e-4, rel
+
+
+def test_match_pair_with_jax_draws_matches_jax(ref):
+    f = ref["feats"]
+    desc = np.asarray(jsift.root_sift(jnp.asarray(f.desc)))
+    key = jax.random.key(5)
+    args = (f.xy[0], desc[0], f.valid[0], f.xy[1], desc[1], f.valid[1])
+    j = jmatch.match_pair(*(jnp.asarray(a) for a in args), key)
+
+    def draws(k, n_valid):
+        assert k == 0
+        return torch.as_tensor(np.asarray(jax.random.randint(
+            key, (jmatch.RANSAC_ITERS, 4), 0, n_valid)))
+    t = tmatch.match_pair(*(torch.tensor(a) for a in args), draw_fn=draws)
+    assert bool(t.ok) and int(t.n_inliers) >= 8
+    _same_pair_match(t, j)
+
+
+def test_match_pairs_batch_with_jax_draws_matches_jax(ref):
+    f = ref["feats"]
+    desc = np.asarray(jsift.root_sift(jnp.asarray(f.desc)))
+    pair_a, pair_b = np.array([0, 1, 2, 0]), np.array([1, 2, 0, 2])
+    keys = jax.random.split(jax.random.key(11), len(pair_a))
+    j = jmatch.match_pairs_batch(
+        jnp.asarray(f.xy), jnp.asarray(desc), jnp.asarray(f.valid),
+        jnp.asarray(pair_a), jnp.asarray(pair_b), keys)
+
+    def draws(k, n_valid):
+        return torch.as_tensor(np.asarray(jax.random.randint(
+            keys[k], (jmatch.RANSAC_ITERS, 4), 0, n_valid)))
+    t = tmatch.match_pairs_batch(
+        *(torch.tensor(a) for a in (f.xy, desc, f.valid, pair_a, pair_b)),
+        draw_fn=draws)
+    assert t.ok[:2].all()        # views 0 and 2 share no pixel
+    _same_pair_match(t, j)
+
+
 def test_match_graph_matches_jax(ref):
     n = len(ref["u8"])
     feats = convert.features_from_jax(ref["feats"])
