@@ -389,31 +389,35 @@ def hold_traverse(torch, u8, kpts, matches):
     """``register.traverse`` with its LM and polish steps replayed from
     CUDA graphs against the same steps run eagerly, on phase 5's match
     cache: the same cameras bit for bit and the same LM counts; each
-    one's seconds (warm: the second of two runs), seconds per LM or
-    polish iteration, and host syncs per traverse
+    one's seconds (the median of four runs in turns after a first), per
+    LM or polish iteration, and host syncs per traverse
     (``torch.cuda.set_sync_debug_mode("warn")``)."""
     from pano360_tpu_torch import register
     from pano360_tpu_torch.measure import host_syncs
     from pano360_tpu_torch.pipeline import idx_to_keypoints
     graph = idx_to_keypoints(matches, kpts)
-    runs = {}
-    for capture in (True, False, True, False):
+    runs, secs = {}, {True: [], False: []}
+    for capture in (True, False) + (True, False, False, True) * 2:
         stats = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         regs = register.traverse(u8, graph, stats=stats, capture=capture)
-        runs[capture] = (time.perf_counter() - t0, stats, regs)
+        secs[capture].append(time.perf_counter() - t0)
+        runs[capture] = (stats, regs)
     for capture, label in ((True, "graphs"), (False, "eager")):
-        secs, stats, _ = runs[capture]
+        stats = runs[capture][0]
+        med = float(np.median(secs[capture][1:]))
         iters = sum(stats["lm_iterations"]) + stats["polish_iterations"]
         _, sites = host_syncs(lambda: register.traverse(u8, graph,
                                                         capture=capture))
-        log(f"  traverse, steps {label}: {secs:.4f} s warm; "
-            f"{secs / iters * 1e3:.3f} ms per LM or polish iteration "
+        log(f"  traverse, steps {label}: {med:.4f} s (median of "
+            f"{[round(x, 4) for x in secs[capture][1:]]}; first "
+            f"{secs[capture][0]:.4f} s); "
+            f"{med / iters * 1e3:.3f} ms per LM or polish iteration "
             f"({iters}: {stats['lm_iterations']} + polish "
             f"{stats['polish_iterations']}); host syncs per traverse "
             f"{sum(sites.values())} {json.dumps(sites)}")
-    (_, s_g, r_g), (_, s_e, r_e) = runs[True], runs[False]
+    (s_g, r_g), (s_e, r_e) = runs[True], runs[False]
     same = all(np.array_equal(a.rot, b.rot) and np.array_equal(a.intr, b.intr)
                for a, b in zip(r_g, r_e)) and len(r_g) == len(r_e)
     counts = (s_g["lm_iterations"] == s_e["lm_iterations"]

@@ -50,9 +50,11 @@ worlds of ``benchmarks/measure_scale.py`` (1296x1728, overlap 0.45, seed
 tree's (LM and polish steps replayed from CUDA graphs) it runs this
 tree's steps eagerly (``capture=False``), and each ``DIR`` is another
 checkout of the package whose ``register.py`` is timed in turns with
-this tree's on the same graph (versions in order, then reversed). Per
-version: the seconds of each run (host clock; the cameras come back to
-the host) and per LM or polish iteration, the device operations and busy
+this tree's on the same graph (after one untimed run of each, in
+``TRAVERSE_ROUNDS`` rounds of turns: versions in order, then reversed).
+Per version: the seconds of each run (host clock; the cameras come back
+to the host), their median and the median per LM or polish iteration,
+the device operations and busy
 milliseconds of one more run (``torch.profiler``), the host syncs of one
 more (``torch.cuda.set_sync_debug_mode("warn")``, by source line), the
 LM iterations, and the cameras' largest difference from this tree's
@@ -605,6 +607,11 @@ def warps_main(args, smi: str):
 SCALE_SHAPE, SCALE_OVERLAP, SCALE_SEED = (1296, 1728), 0.45, 7
 
 
+# rounds of turns (every version in order, then reversed) per world: the
+# host's clock varies between runs by tens of percent on the card's
+# machine, so each version's median of 2 x TRAVERSE_ROUNDS runs is kept
+TRAVERSE_ROUNDS = 3
+
 TRAVERSE_WORLDS = [
     ("bench", BENCH_VIEWS, BENCH_SHAPE, BENCH_OVERLAP, BENCH_SEED),
     ("scale25", 25, SCALE_SHAPE, SCALE_OVERLAP, SCALE_SEED),
@@ -672,7 +679,9 @@ def traverse_main(args, smi: str, device="cuda"):
         kpts, matches = matching(u8, torch.device(device))
         match_s = time.perf_counter() - t0
         graph = idx_to_keypoints(matches, kpts)
-        order = list(versions) + list(versions)[::-1]
+        for fn in versions.values():         # first runs: the allocator
+            fn(u8, graph, device=device)      # grows for this world's sizes
+        order = (list(versions) + list(versions)[::-1]) * TRAVERSE_ROUNDS
         rows = {v: dict(seconds=[]) for v in versions}
         for v in order:
             secs, stats, regs = _traverse_run(versions[v], u8, graph, device)
@@ -684,9 +693,9 @@ def traverse_main(args, smi: str, device="cuda"):
         mine = rows["this"].pop("_regs")
         for v, row in rows.items():
             theirs = row.pop("_regs", mine)
-            row["mean_s"] = sum(row["seconds"]) / len(row["seconds"])
+            row["median_s"] = float(np.median(row["seconds"]))
             iters = sum(row["lm_iterations"]) + row["polish_iterations"]
-            row["s_per_iteration"] = row["mean_s"] / iters
+            row["s_per_iteration"] = row["median_s"] / iters
             row["ops"], row["busy_ms"] = _device_ops(
                 lambda: versions[v](u8, graph, device=device))
             row["busy_ms_per_iteration"] = row["busy_ms"] / iters

@@ -42,13 +42,6 @@ LM_MIN_IMPROVE = 1e-3
 MIN_MATCH_ERROR = 150.0
 POLISH_MAX_ITER = 150
 POLISH_MAX_REJECTS = 12
-# LM steps between host reads of the stop flag. An add's LM ran 2-5
-# iterations on the bench world (PERF.md), so the first read after 2 is
-# never late there, and a chunk of 2 wastes at most one masked step per
-# add. The polish reads after the iterations certain to run (it stops
-# only after 12 consecutive rejects), so a chunk of 1 wastes none.
-LM_CHUNK = 2
-POLISH_CHUNK = 1
 
 
 @dataclasses.dataclass
@@ -108,9 +101,8 @@ def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _dk(dtype, device) -> torch.Tensor:
     """dK / d(f, cx, cy): three constant basis matrices, (3, 3, 3)."""
     dk = torch.zeros((3, 3, 3), dtype=dtype, device=device)
-    dk[0, 0, 0] = dk[0, 1, 1] = 1.0
-    dk[1, 0, 2] = 1.0
-    dk[2, 1, 2] = 1.0
+    for i, r, c in ((0, 0, 0), (0, 1, 1), (1, 0, 2), (2, 1, 2)):
+        dk[i, r, c].fill_(1.0)      # a kernel, not a copy from the host
     return dk
 
 
@@ -348,30 +340,31 @@ def _damped_step(jtj, jtr, lam, shape):
     return (delta * d).reshape(shape)
 
 
-# The LM loops keep their whole state on the params' device: ``best``
-# (C, 6), ``err`` its loss and ``lam`` the damping (0-d, params' dtype),
-# and ``ctr`` (3,) int32 = [iterations run, stalls (LM) or consecutive
-# rejects (polish), stopped]. A step reads and writes it with no host
-# sync; once ``stopped`` is set a step changes nothing, so a driver may
-# run several steps between reads of the flag.
+# The LM loops keep their whole state on the device, in a dict of
+# tensors: ``best`` (C, 6), ``mask`` the problem's (S, P) mask, ``err``
+# the loss of ``best`` and ``lam`` the damping (0-d, params' dtype), and
+# ``ctr`` (3,) int32 = [iterations run, stalls (LM) or consecutive
+# rejects (polish), stopped]. A step reads and writes the state in place
+# with no host sync; once ``stopped`` is set a step changes nothing, so a
+# driver may run several steps between reads of ``ctr``.
 
-def _lm_state(params, prob: Problem, mask, lam: float = LM_LAMBDA) -> dict:
-    return dict(best=params.clone(), err=prob.loss(params, mask),
-                lam=torch.full((), lam, dtype=params.dtype,
+def _lm_state(params, prob: Problem, mask) -> dict:
+    return dict(best=params.clone(), mask=mask, err=prob.loss(params, mask),
+                lam=torch.full((), LM_LAMBDA, dtype=params.dtype,
                                device=params.device),
                 ctr=torch.zeros(3, dtype=torch.int32, device=params.device))
 
 
-def _lm_restart(state: dict, prob: Problem, mask, lam: float = LM_LAMBDA):
-    """Start another loop from ``state['best']`` in place."""
-    state["err"].copy_(prob.loss(state["best"], mask))
-    state["lam"].fill_(lam)
+def _lm_restart(prob: Problem, state: dict):
+    """Start another loop from ``state['best']`` on ``state['mask']``."""
+    state["err"].copy_(prob.loss(state["best"], state["mask"]))
+    state["lam"].fill_(LM_LAMBDA)
     state["ctr"].zero_()
 
 
-def _trial(prob: Problem, mask, state: dict):
+def _trial(prob: Problem, state: dict):
     """The damped Gauss-Newton trial from ``best`` and its loss."""
-    best = state["best"]
+    best, mask = state["best"], state["mask"]
     jtj, jtr = prob.normal_equations(best, mask)
     trial = best - _damped_step(jtj, jtr, state["lam"], best.shape)
     return trial, prob.loss(trial, mask)
@@ -382,12 +375,12 @@ def _accept(state: dict, improved, trial, err):
     state["err"].copy_(torch.where(improved, err, state["err"]))
 
 
-def lm_step(prob: Problem, mask, state: dict, max_iter: int = LM_MAX_ITER):
+def lm_step(prob: Problem, state: dict, max_iter: int = LM_MAX_ITER):
     """One fixed-lambda iteration (the JAX package's ``_lm_core`` body):
     accept on a loss gain above 1e-3, in the loss's dtype on the device;
     with rollback on reject the state after the first rejection is frozen,
     so the loop stops there (``_lm_core``'s ``stalls < 1``)."""
-    trial, err = _trial(prob, mask, state)
+    trial, err = _trial(prob, state)
     ctr = state["ctr"]
     run = ctr[2] == 0
     improved = run & (err < state["err"] - LM_MIN_IMPROVE)
@@ -398,12 +391,11 @@ def lm_step(prob: Problem, mask, state: dict, max_iter: int = LM_MAX_ITER):
     ctr.copy_(torch.stack([it, stalls, stop.int()]))
 
 
-def polish_step(prob: Problem, mask, state: dict,
-                max_iter: int = POLISH_MAX_ITER):
+def polish_step(prob: Problem, state: dict, max_iter: int = POLISH_MAX_ITER):
     """One adaptive-damping iteration (``_lm_polish``'s body): halve
     lambda on accept, 4x on reject, clipped to [1e-5, 1e6]; stop after
     ``POLISH_MAX_REJECTS`` consecutive rejects or ``max_iter``."""
-    trial, err = _trial(prob, mask, state)
+    trial, err = _trial(prob, state)
     ctr, lam = state["ctr"], state["lam"]
     run = ctr[2] == 0
     improved = run & (err < state["err"])
@@ -416,60 +408,95 @@ def polish_step(prob: Problem, mask, state: dict,
     ctr.copy_(torch.stack([it, rejects, stop.int()]))
 
 
-def _polish_sure(rejects: int) -> int:
-    """Polish iterations certain to run after a read: it stops only after
-    ``POLISH_MAX_REJECTS`` consecutive rejects (or at its cap)."""
+# Steps between host reads of ``ctr`` (a function of the counters read).
+# A step after the stop is masked but costs a whole step's device time
+# (1.1-2.4 ms on an H100 at 23-309 edges, PERF.md) against ~0.1 ms for a
+# read, so a chunk is what is sure or likely to run: an add's LM ran 2-11
+# iterations (never fewer than 2 in PERF.md's worlds), so 2 before the
+# first read and 1 after; the polish stops only after 12 consecutive
+# rejects, so the steps up to that are certain.
+
+def lm_chunk(it: int, stalls: int) -> int:
+    return 2 if it == 0 else 1
+
+
+def polish_chunk(it: int, rejects: int) -> int:
     return POLISH_MAX_REJECTS - rejects
 
 
-def drive(step, ctr, k: int, sure=None) -> int:
+def drive(step, ctr, chunk) -> int:
     """Run ``step()`` until ``ctr`` (the loop state's counters) says
-    stopped: k steps between host reads of the counters, or more where
-    ``sure(count)`` says more are certain to run. The one host sync per
-    chunk is that read. -> the iterations run."""
-    n = max(k, sure(0) if sure else 0)
+    stopped, ``chunk(iterations, count)`` steps between host reads of
+    the counters: the one host sync of each chunk. -> the iterations
+    run."""
+    n = chunk(0, 0)
     while True:
         for _ in range(n):
             step()
         it, count, stopped = ctr.tolist()
         if stopped:
             return it
-        n = max(k, sure(count) if sure else 0)
+        n = chunk(it, count)
+
+
+def _every(k: int):
+    return lambda it, count: k
 
 
 def lm_core(params, prob: Problem, mask, max_iter: int = LM_MAX_ITER,
-            k: int = LM_CHUNK):
-    """Fixed-lambda LM (``lm_step``) driven in chunks of k. Returns the
-    best params and the number of iterations run (the rejected one
-    included)."""
+            k: Optional[int] = None):
+    """Fixed-lambda LM (``lm_step``) driven in chunks of ``lm_chunk``, or
+    of k. Returns the best params and the number of iterations run (the
+    rejected one included)."""
     state = _lm_state(params, prob, mask)
-    n = drive(lambda: lm_step(prob, mask, state, max_iter), state["ctr"], k)
+    n = drive(lambda: lm_step(prob, state, max_iter), state["ctr"],
+              _every(k) if k else lm_chunk)
     return state["best"], n
 
 
-def lm_polish(params, prob: Problem, mask, k: int = POLISH_CHUNK):
+def lm_polish(params, prob: Problem, mask, k: Optional[int] = None):
     """Adaptive-damping LM past the fixed-lambda stop (``polish_step``)
-    driven in chunks of k or of the iterations certain to run. Returns
-    the best params and the number of iterations run."""
+    driven in chunks of ``polish_chunk``, or of k. Returns the best
+    params and the number of iterations run."""
     state = _lm_state(params, prob, mask)
-    n = drive(lambda: polish_step(prob, mask, state), state["ctr"], k,
-              _polish_sure)
+    n = drive(lambda: polish_step(prob, state), state["ctr"],
+              _every(k) if k else polish_chunk)
     return state["best"], n
 
 
-def _capture(fn) -> torch.cuda.CUDAGraph:
-    """``fn`` (one loop step on static buffers) captured as a CUDA graph.
-    It runs once first on the capture stream, outside the capture, for
-    the libraries' lazy handles and workspaces; the caller has set the
-    loop's stopped flag, so that run changes no state."""
+def _add_step(prob: Problem, sched: dict, state: dict):
+    """Place the next camera of the schedule (add ``state['k']``, a (1,)
+    counter): seed its rotation from its pair's (``sched['r_rel']``) and
+    its source camera's, gate the edges it brings by initial RMSE, mask
+    the problem with the edges gated so far and restart the LM there.
+    The JAX package's ``add_step`` of ``_traverse_impl``."""
+    k, best = state["k"], state["best"]
+    r_src = geo.exp_so3(best.index_select(
+        0, sched["src"].index_select(0, k))[0, 3:6])
+    r_rel = sched["r_rel"].index_select(0, k)[0]
+    row = torch.cat([sched["lead"], geo.log_so3(geo.mm(r_rel, r_src))])
+    best.index_copy_(0, sched["dst"].index_select(0, k), row[None])
+    rmse = prob.edge_rmse(best)
+    enabled = state["enabled"]
+    enabled.copy_(enabled | ((sched["edge_add"] == k)
+                             & (rmse < MIN_MATCH_ERROR)))
+    state["mask"].copy_(prob.mask * prob.local(enabled)[:, None])
+    _lm_restart(prob, state)
+    k.add_(1)
+
+
+def _capture(fn, state: dict) -> torch.cuda.CUDAGraph:
+    """``fn(state)``, a step on the static buffers of ``state``, captured
+    as a CUDA graph. A first run on copies of the buffers, outside the
+    capture, sets up the libraries' lazy handles and workspaces."""
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        fn()
+        fn({k: v.clone() for k, v in state.items()})
         graph.capture_begin()
         try:
-            fn()
+            fn(state)
         finally:
             graph.capture_end()
     torch.cuda.current_stream().wait_stream(stream)
@@ -477,19 +504,16 @@ def _capture(fn) -> torch.cuda.CUDAGraph:
 
 
 class _Replayed:
-    """A loop step replayed from a CUDA graph, captured at its first call
-    (once per traverse: the problem's shape is fixed for the whole
-    schedule and only the mask, a static buffer, changes)."""
+    """``fn(state)`` replayed from a CUDA graph captured at its first
+    call (once per traverse: the problem's shape is fixed for the whole
+    schedule; what changes lives in the state's buffers)."""
 
-    def __init__(self, fn, ctr):
-        self.fn, self.ctr, self.graph = fn, ctr, None
+    def __init__(self, fn, state: dict):
+        self.fn, self.state, self.graph = fn, state, None
 
     def __call__(self):
         if self.graph is None:
-            saved = self.ctr.clone()
-            self.ctr[2] = 1                     # the warm-up run is a no-op
-            self.graph = _capture(self.fn)
-            self.ctr.copy_(saved)
+            self.graph = _capture(self.fn, self.state)
         self.graph.replay()
 
 
@@ -520,13 +544,14 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     rank returns the same cameras, and runs on ``mesh.device``.
 
     As the JAX package's ``_traverse_impl``, the schedule (which camera
-    is added when, from which pair homography, gating which edges) is
-    fixed on the host and uploaded once; the problem holds every edge
-    from the start and only its mask grows. On a card without a mesh
-    the LM and polish steps are each captured once as a CUDA graph on
-    static buffers and replayed (``capture=False`` runs the same steps
-    eagerly: the check of the graphs). On the CPU, and under a mesh,
-    whose gloo collectives stage through the host and cannot be
+    is added when, from which camera and pair homography, gating which
+    edges) is fixed on the host and uploaded once; the problem holds
+    every edge from the start and only its mask grows. Each add, LM and
+    polish iteration is a step on the device with no host sync; on a
+    card without a mesh each of the three is captured once as a CUDA
+    graph on static buffers and replayed (``capture=False`` runs the
+    same steps eagerly: the check of the graphs). On the CPU, and under
+    a mesh, whose gloo collectives stage through the host and cannot be
     captured, the steps run eagerly on the device asked for.
     """
     if badjust not in ("incr", "last", "none"):
@@ -574,54 +599,57 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
         mask[e, :len(m)] = 1.0
     prob = Problem(_upload(cam1, device), _upload(cam2, device),
                    _upload(pts, device), _upload(mask, device), n, mesh)
-    edge_add_t = _upload(edge_add, device)
     homs_t = _upload(np.stack(homs_all).astype(np.float32), device)
     add_homs = _upload(np.stack([np.asarray(h, np.float32)
                                  for _, _, h in adds]), device)
+    place = _upload(np.array([(d, s) for d, s, _ in adds], np.int64).T,
+                    device)
     placed_idx = _upload(np.array(sorted(placed), np.int64), device)
 
     focal = torch.quantile(geo.focal_from_hom(homs_t), 0.5)
-    intr = geo.intrinsics(focal)
+    zero = torch.zeros_like(focal)
+    intr = geo.intrinsics(focal, (zero, zero))
     kinv = geo.inv3x3(intr)
     lead = torch.stack([intr[0, 0], intr[0, 2], intr[1, 2]])
+    # each add's relative rotation depends on the focal and its pair
+    # homography only: the SVDs (each checks its result with a host
+    # sync) run here, one per add as in the loop they come from
+    sched = dict(dst=place[0], src=place[1], lead=lead,
+                 edge_add=_upload(edge_add, device),
+                 r_rel=torch.stack([geo.nearest_rotation(geo.mm(geo.mm(
+                     kinv, add_homs[k]), intr)) for k in range(len(adds))]))
     params = torch.zeros((n, 6), dtype=f32, device=device)
     params[:, 0] = 1.0
     params[src] = 0.0
     params[src, :3] = lead
-    emask = torch.zeros_like(prob.mask)     # the gated problem, in place
-    state = _lm_state(params, prob, emask)
-    params = state["best"]                  # seeded in place
-    enabled = torch.zeros(ne, dtype=torch.bool, device=device)
-    steps = [partial(lm_step, prob, emask, state),
-             partial(polish_step, prob, emask, state)]
+    state = _lm_state(params, prob, torch.zeros_like(prob.mask))
+    state.update(enabled=torch.zeros(ne, dtype=torch.bool, device=device),
+                 k=torch.zeros(1, dtype=torch.int64, device=device))
+    steps = [partial(_add_step, prob, sched), partial(lm_step, prob),
+             partial(polish_step, prob)]
     if capture and device.type == "cuda" and mesh is None:
-        steps = [_Replayed(s, state["ctr"]) for s in steps]
-
-    def run(step, k, sure=None):
-        emask.copy_(prob.mask * prob.local(enabled)[:, None])
-        _lm_restart(state, prob, emask)
-        return drive(step, state["ctr"], k, sure)
+        add, lm, pol = (_Replayed(f, state) for f in steps)
+    else:
+        add, lm, pol = (partial(f, state) for f in steps)
 
     lm_iters, polish_iters = [], 0
-    for k, (dst, src_i, _) in enumerate(adds):
-        r_src = geo.exp_so3(params[src_i, 3:6])
-        r_rel = geo.nearest_rotation(geo.mm(geo.mm(kinv, add_homs[k]), intr))
-        params[dst] = torch.cat([lead, geo.log_so3(geo.mm(r_rel, r_src))])
-        rmse = prob.edge_rmse(params)
-        enabled = enabled | ((edge_add_t == k) & (rmse < MIN_MATCH_ERROR))
+    for _ in adds:
+        add()
         if badjust == "incr":
-            lm_iters.append(run(steps[0], LM_CHUNK))
+            lm_iters.append(drive(lm, state["ctr"], lm_chunk))
     if badjust == "last":
-        lm_iters.append(run(steps[0], LM_CHUNK))
+        lm_iters.append(drive(lm, state["ctr"], lm_chunk))
     if polish and badjust != "none":
-        polish_iters = run(steps[1], POLISH_CHUNK, _polish_sure)
+        _lm_restart(prob, state)
+        polish_iters = drive(pol, state["ctr"], polish_chunk)
+    params = state["best"]
     if use_straighten:
         rots = geo.exp_so3(params[placed_idx, 3:6])
         params = params.clone()
         params[placed_idx, 3:6] = geo.log_so3(geo.straighten(rots))
     if stats is not None:
         stats.update(focal0=float(focal), ba_edges=len(edges),
-                     ba_edges_enabled=int(enabled.sum()),
+                     ba_edges_enabled=int(state["enabled"].sum()),
                      ba_edge_points=mp, lm_iterations=lm_iters,
                      polish_iterations=polish_iters)
     params = params.cpu().numpy().astype(np.float64)
@@ -830,5 +858,6 @@ def jacobian_numeric(params: np.ndarray, cam1_idx, cam2_idx, pts, mask,
 
 
 __all__ = ["PanoImage", "BundleAdjuster", "traverse", "Problem", "lm_core",
-           "lm_polish", "lm_step", "polish_step", "drive",
+           "lm_polish", "lm_step", "polish_step", "drive", "lm_chunk",
+           "polish_chunk",
            "jacobian_numeric", "LM_LAMBDA", "LM_MAX_ITER", "MIN_MATCH_ERROR"]

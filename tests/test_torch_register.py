@@ -153,7 +153,7 @@ def test_a_stopped_step_changes_nothing():
         state = treg._lm_state(params, prob, prob.mask)
         state["ctr"][2] = 1
         before = {k: v.clone() for k, v in state.items()}
-        step(prob, prob.mask, state)
+        step(prob, state)
         assert all(torch.equal(state[k], v) for k, v in before.items())
 
 
