@@ -54,11 +54,11 @@ this tree's on the same graph (after one untimed run of each, in
 ``TRAVERSE_ROUNDS`` rounds of turns: versions in order, then reversed).
 Per version: the seconds of each run (host clock; the cameras come back
 to the host), their median and the median per LM or polish iteration,
-the device operations and busy
-milliseconds of one more run (``torch.profiler``), the host syncs of one
-more (``torch.cuda.set_sync_debug_mode("warn")``, by source line), the
-LM iterations, and the cameras' largest difference from this tree's
-(and whether they are identical).
+the device operations and busy milliseconds of one more run
+(``torch.profiler``), the host syncs of one more
+(``torch.cuda.set_sync_debug_mode("warn")``, by source line), the LM
+iterations, and the cameras' largest difference from this tree's (and
+whether they are identical).
 """
 from __future__ import annotations
 

@@ -409,18 +409,19 @@ def polish_step(prob: Problem, state: dict, max_iter: int = POLISH_MAX_ITER):
 
 
 # Steps between host reads of ``ctr`` (a function of the counters read).
-# A step after the stop is masked but costs a whole step's device time
-# (1.1-2.4 ms on an H100 at 23-309 edges, PERF.md) against ~0.1 ms for a
-# read, so a chunk is what is sure or likely to run: an add's LM ran 2-11
-# iterations (never fewer than 2 in PERF.md's worlds), so 2 before the
-# first read and 1 after; the polish stops only after 12 consecutive
-# rejects, so the steps up to that are certain.
+# A step after the stop is masked but still costs a whole step of device
+# time (1.0-2.1 ms on an H100 at 23-309 edges, PERF.md), where a read
+# only waits for the device to drain, so a chunk is what is sure or
+# likely to run: an add's LM ran 2-11 iterations (never fewer than 2 in
+# PERF.md's worlds), so 2 before the first read and 1 after; the polish
+# stops only after 12 consecutive rejects, so the steps up to that are
+# certain.
 
-def lm_chunk(it: int, stalls: int) -> int:
+def _lm_chunk(it: int, stalls: int) -> int:
     return 2 if it == 0 else 1
 
 
-def polish_chunk(it: int, rejects: int) -> int:
+def _polish_chunk(it: int, rejects: int) -> int:
     return POLISH_MAX_REJECTS - rejects
 
 
@@ -445,22 +446,22 @@ def _every(k: int):
 
 def lm_core(params, prob: Problem, mask, max_iter: int = LM_MAX_ITER,
             k: Optional[int] = None):
-    """Fixed-lambda LM (``lm_step``) driven in chunks of ``lm_chunk``, or
+    """Fixed-lambda LM (``lm_step``) driven in chunks of ``_lm_chunk``, or
     of k. Returns the best params and the number of iterations run (the
     rejected one included)."""
     state = _lm_state(params, prob, mask)
     n = drive(lambda: lm_step(prob, state, max_iter), state["ctr"],
-              _every(k) if k else lm_chunk)
+              _every(k) if k else _lm_chunk)
     return state["best"], n
 
 
 def lm_polish(params, prob: Problem, mask, k: Optional[int] = None):
     """Adaptive-damping LM past the fixed-lambda stop (``polish_step``)
-    driven in chunks of ``polish_chunk``, or of k. Returns the best
+    driven in chunks of ``_polish_chunk``, or of k. Returns the best
     params and the number of iterations run."""
     state = _lm_state(params, prob, mask)
     n = drive(lambda: polish_step(prob, state), state["ctr"],
-              _every(k) if k else polish_chunk)
+              _every(k) if k else _polish_chunk)
     return state["best"], n
 
 
@@ -636,12 +637,12 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     for _ in adds:
         add()
         if badjust == "incr":
-            lm_iters.append(drive(lm, state["ctr"], lm_chunk))
+            lm_iters.append(drive(lm, state["ctr"], _lm_chunk))
     if badjust == "last":
-        lm_iters.append(drive(lm, state["ctr"], lm_chunk))
+        lm_iters.append(drive(lm, state["ctr"], _lm_chunk))
     if polish and badjust != "none":
         _lm_restart(prob, state)
-        polish_iters = drive(pol, state["ctr"], polish_chunk)
+        polish_iters = drive(pol, state["ctr"], _polish_chunk)
     params = state["best"]
     if use_straighten:
         rots = geo.exp_so3(params[placed_idx, 3:6])
@@ -858,6 +859,5 @@ def jacobian_numeric(params: np.ndarray, cam1_idx, cam2_idx, pts, mask,
 
 
 __all__ = ["PanoImage", "BundleAdjuster", "traverse", "Problem", "lm_core",
-           "lm_polish", "lm_step", "polish_step", "drive", "lm_chunk",
-           "polish_chunk",
+           "lm_polish", "lm_step", "polish_step", "drive",
            "jacobian_numeric", "LM_LAMBDA", "LM_MAX_ITER", "MIN_MATCH_ERROR"]
