@@ -513,9 +513,10 @@ class _Replayed:
         self.fn, self.state, self.graph = fn, state, None
 
     def __call__(self):
-        if self.graph is None:
-            self.graph = _capture(self.fn, self.state)
-        self.graph.replay()
+        with torch.cuda.device(self.state["best"].device):
+            if self.graph is None:
+                self.graph = _capture(self.fn, self.state)
+            self.graph.replay()
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and their wrappers (no jax in this file).
+"""The port's CUDA kernels and their wrappers, and the registration's
+replayed CUDA graphs (no jax in this file).
 
 On a CPU tensor each wrapper must take its plain PyTorch version and
 launch nothing; on another device it must raise. The ``gpu`` tests hold
@@ -499,3 +500,38 @@ def test_refit_homography_pair_without_inliers_on_card():
     torch.cuda.synchronize()
     assert not torch.isfinite(hom[0]).all() and torch.isfinite(hom[1]).all()
     assert abs(float(hom[1, 0, 0]) - 1.01) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("badjust", ["incr", "last"])
+def test_traverse_replayed_equals_eager_on_card(badjust):
+    """``register.traverse`` with its add, LM and polish steps replayed
+    from CUDA graphs against the same steps run eagerly on the card: the
+    same cameras bit for bit and the same LM counts; at most one host
+    sync per read of the counters, two per add (the SVDs) and a few per
+    traverse."""
+    from pano360_tpu_torch import register
+    from pano360_tpu_torch.measure import host_syncs
+    from pano360_tpu_torch.pipeline import idx_to_keypoints, matching
+    dev = _cuda()
+    imgs, _, _ = synth.make_views(n_views=5, shape=(192, 256), overlap=0.45,
+                                  seed=3)
+    u8 = [(im * 255).astype(np.uint8) for im in imgs]
+    kpts, matches = matching(u8, dev)
+    graph = idx_to_keypoints(matches, kpts)
+    out = {}
+    for capture in (True, False):
+        stats = {}
+        regs = register.traverse(u8, graph, badjust=badjust, stats=stats,
+                                 capture=capture)
+        out[capture] = (regs, stats)
+    (rg, sg), (re, se) = out[True], out[False]
+    assert len(rg) == len(re) == 5
+    assert all(np.array_equal(a.rot, b.rot) and np.array_equal(a.intr, b.intr)
+               for a, b in zip(rg, re))
+    assert sg["lm_iterations"] == se["lm_iterations"]
+    assert sg["polish_iterations"] == se["polish_iterations"]
+    _, sites = host_syncs(lambda: register.traverse(u8, graph,
+                                                    badjust=badjust))
+    iters = sum(sg["lm_iterations"]) + sg["polish_iterations"]
+    assert sum(sites.values()) <= 2 * 4 + iters + 8, sites
