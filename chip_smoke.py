@@ -22,8 +22,8 @@ Phases (any failure exits non-zero):
    of 864x1152, seed 42, overlap 0.45): a cold and a warm run, per-stage
    seconds, peak device memory, kernel launch counts, registration
    accuracy against the synthetic ground truth, and a cached re-run;
-   on its match cache ``register.traverse`` with the LM and polish steps
-   replayed from CUDA graphs against the same steps run eagerly (the
+   on its match cache ``register.traverse`` with its add, LM and polish
+   steps replayed from CUDA graphs against the same steps run eagerly (the
    same cameras bit for bit, the same LM counts; seconds per iteration
    and host syncs per traverse of each), and ``BundleAdjuster`` on the
    card against the CPU;
@@ -386,8 +386,8 @@ def phase_slice(torch, u8, rots, focal):
 
 
 def hold_traverse(torch, u8, kpts, matches):
-    """``register.traverse`` with its LM and polish steps replayed from
-    CUDA graphs against the same steps run eagerly, on phase 5's match
+    """``register.traverse`` with its add, LM and polish steps replayed
+    from CUDA graphs against the same steps run eagerly, on phase 5's match
     cache: the same cameras bit for bit and the same LM counts; each
     one's seconds (the median of four runs in turns after a first), per
     LM or polish iteration, and host syncs per traverse
