@@ -9,7 +9,7 @@ new camera from its pair homography, gate its edges by initial RMSE (<
 only on a 1e-3 RMSE gain, stop at the first rejection), then an
 adaptive-damping polish, the median Szeliski-Shum focal and
 straightening. The LM loops keep their state and their stop flag on the
-device (``lm_step``, ``polish_step``); a host driver (``drive``) runs
+device (``lm_step``, ``polish_step``); a host loop (``drive``) runs
 them in chunks and reads the flag once per chunk, and on a card each
 step is one CUDA graph replayed (the JAX package's ``_traverse_impl``
 runs the same schedule as one XLA program with ``while_loop``s; PyTorch
@@ -346,7 +346,7 @@ def _damped_step(jtj, jtr, lam, shape):
 # ``ctr`` (3,) int32 = [iterations run, stalls (LM) or consecutive
 # rejects (polish), stopped]. A step reads and writes the state in place
 # with no host sync; once ``stopped`` is set a step changes nothing, so a
-# driver may run several steps between reads of ``ctr``.
+# host loop may run several steps between reads of ``ctr``.
 
 def _lm_state(params, prob: Problem, mask) -> dict:
     return dict(best=params.clone(), mask=mask, err=prob.loss(params, mask),

@@ -1,5 +1,5 @@
 """The port's bundle adjustment held against the JAX package's on small
-synthetic problems (CPU): the LM driver against a literal host loop,
+synthetic problems (CPU): the chunked LM loops against a literal host loop,
 ``lm_core``/``lm_polish`` against ``_lm_optimize``/``_lm_polish``,
 ``BundleAdjuster`` and ``jacobian_numeric`` against theirs.
 
@@ -7,7 +7,7 @@ Problems: 3-5 cameras on a yaw arc, 40-60 matches per adjacent pair made
 from the true geometry with pixel noise (numpy, seeded), as in the JAX
 package's own register tests.
 
-Tolerances: the driver equals the host loop bit for bit (the same
+Tolerances: the chunked loops equal the host loop bit for bit (the same
 arithmetic). Against JAX (Jacobians analytic here, forward-mode AD
 there): the LM loops in f64, params within 1e-5 and rotations within
 1e-5 rad; ``BundleAdjuster`` cameras in f64 within 1e-9, in f32 on
@@ -132,7 +132,7 @@ def host_lm_polish(params, prob, mask):
 @pytest.mark.parametrize("loop,scale,max_iter", [
     ("lm_core", 0.02, treg.LM_MAX_ITER), ("lm_core", 0.05, 2),
     ("lm_polish", 0.02, None), ("lm_polish", 0.05, None)])
-def test_driver_equals_host_loop(k, loop, scale, max_iter):
+def test_chunked_loop_equals_host_loop(k, loop, scale, max_iter):
     """Chunks of k steps with the stop flag on the device give the host
     loop's params bit for bit and its iteration count (a stop inside a
     chunk, and at the iteration cap, leaves the state as it was)."""
