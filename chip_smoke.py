@@ -19,18 +19,25 @@ Phases (any failure exits non-zero):
    and the taps' sector floor, and ``grid_sample``'s gather on its
    sample grid;
 5. the CLI main path (``cli.run_images``) on the bench dataset (15 views
-   of 864x1152, seed 42, overlap 0.45): a cold and a warm run, per-stage
-   seconds, peak device memory, kernel launch counts, registration
-   accuracy against the synthetic ground truth, and a cached re-run;
-   on its match cache ``register.traverse`` with its add, LM and polish
-   steps replayed from CUDA graphs against the same steps run eagerly (the
-   same cameras bit for bit, the same LM counts; seconds per iteration
-   and host syncs per traverse of each), and ``BundleAdjuster`` on the
-   card against the CPU;
+   of 864x1152, seed 42, overlap 0.45): a cold run (it captures the
+   extraction's and the match graph's CUDA graphs) and a warm one
+   (replays), per-stage seconds, peak device memory (allocated, and
+   reserved by where the allocator keeps it), kernel launch
+   counts (the warm run's are the main path's), three more warm runs'
+   stage seconds, registration accuracy against the synthetic ground
+   truth, and a cached re-run; SIFT's extraction and the match graph
+   replayed against the same steps run eagerly (features and match rows
+   bit for bit; seconds and host syncs of each); on the match cache
+   ``register.traverse`` with its add, LM and polish steps replayed from
+   CUDA graphs against the same steps run eagerly (the same cameras bit
+   for bit, the same LM counts; seconds per iteration and host syncs per
+   traverse of each), and ``BundleAdjuster`` on the card against the
+   CPU;
 6. profile: one more uncached run of the main path under
    ``torch.profiler``: device busy time, the device's idle share, the
    device operations that take the most time, and the octave and warp
-   kernels' entries;
+   kernels' entries; the octave kernel's launches in the profile (inside
+   the replays) equal to its count;
 7. render options, each path with the kernel counts set to 0 just
    before it and read just after:
    B. ``-e -c --warp pallas`` on the bench views at known per-view
@@ -65,7 +72,9 @@ Phases (any failure exits non-zero):
    B. mixed image sizes: the same world with the odd-numbered views at
       768x1024, ``-e -c`` with SIFT (cold and warm): 15 of 15 placed,
       phase 5's registration bounds, the octave kernel and the exact
-      warp launched, the crop rectangle inside its valid mask;
+      warp launched, the crop rectangle inside its valid mask; the
+      replayed extraction and match graph against the eager ones, as in
+      phase 5;
    C. kernel 2 with per-image true sizes vs its plain version at B's
       layout, bit for bit, as in phase 4;
    D. the extras: ``blend_extra.demo`` on two 864x1152 views (warp,
@@ -323,7 +332,6 @@ def phase_slice(torch, u8, rots, focal):
     from pano360_tpu_torch.ops import warp_mip as M
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     runs = {}
-    launches = None
     walls = {}
     for label in ("cold", "warm"):
         cache = os.path.join(work, label)
@@ -333,27 +341,40 @@ def phase_slice(torch, u8, rots, focal):
              "--cache-dir", cache])
         timer = cli.StageTimer()
         torch.cuda.reset_peak_memory_stats()
-        if label == "cold":
-            G.launches = W.launches = M.launches = 0
+        G.launches = W.launches = M.launches = 0
         t0 = time.time()
         mosaic = cli.run_images(u8, args, "bench_s1.0", timer)
         torch.cuda.synchronize()
         total = time.time() - t0
         walls[label] = total
-        if label == "cold":
-            launches = {"octave_stack": G.launches,
-                        "backward_warp": W.launches}
-            check(M.launches == 0, "the default path took the mip warp")
+        launches = {"octave_stack": G.launches, "backward_warp": W.launches}
+        check(M.launches == 0, "the default path took the mip warp")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        reserved = torch.cuda.max_memory_reserved() / 2 ** 30
         stages = {k: round(v, 4) for k, v in timer.stages.items()}
         log(f"  {label} run: {total:.3f} s; stages {stages}; peak device "
-            f"memory {peak:.2f} GiB; BA edges {timer.extra['ba_edges']}; LM "
-            f"iterations {timer.extra['lm_iterations']} + polish "
-            f"{timer.extra['polish_iterations']}")
+            f"memory {peak:.2f} GiB ({reserved:.2f} GiB reserved); BA edges "
+            f"{timer.extra['ba_edges']}; LM iterations "
+            f"{timer.extra['lm_iterations']} + polish "
+            f"{timer.extra['polish_iterations']}; launches {launches}")
         runs[label] = (args, mosaic, timer.extra)
-    log(f"  launches on the cold run: {launches}")
+    log(f"  reserved after the warm run, GiB: {reserved_split(torch)}")
+    # the warm run replays every graph: its counts are the main path's
+    # (the cold run's also count the eager first runs of the captures)
     check(all(v > 0 for v in launches.values()),
           f"main path did not launch every kernel: {launches}")
+    for rep in range(3):
+        cache = os.path.join(work, f"again{rep}")
+        os.makedirs(cache)
+        again_args = cli.build_parser().parse_args(
+            [cache, *BASE_FLAGS, "--cache-dir", cache])
+        timer = cli.StageTimer()
+        t0 = time.time()
+        cli.run_images(u8, again_args, "bench_s1.0", timer)
+        torch.cuda.synchronize()
+        stages = {k: round(v, 4) for k, v in timer.stages.items()}
+        log(f"  warm run again ({rep + 1} of 3): {time.time() - t0:.3f} s; "
+            f"stages {stages}")
 
     args, mosaic, _ = runs["warm"]
     regs = cli.load_ba_cache(os.path.join(args.cache_dir,
@@ -375,6 +396,7 @@ def phase_slice(torch, u8, rots, focal):
     hold_add_weights(torch, u8)
     kpts, matches = cli.load_match_cache(os.path.join(
         args.cache_dir, "matches_bench_s1.0.npz"))
+    hold_features(torch, u8, "bench world")
     hold_traverse(torch, u8, kpts, matches)
     hold_bundle_adjuster(regs, kpts, matches)
     extra = runs["warm"][2]
@@ -383,6 +405,63 @@ def phase_slice(torch, u8, rots, focal):
                lm_iterations=extra["lm_iterations"],
                polish_iterations=extra["polish_iterations"])
     return launches, walls["warm"], args.cache_dir, ref
+
+
+def reserved_split(torch) -> dict:
+    """The caching allocator's reserved GiB by where it is kept: blocks
+    of the default pool on the current stream and on the capture stream
+    (a captured step's eager first run), and the CUDA graphs' pools."""
+    from pano360_tpu_torch import graphs
+    names = {torch.cuda.current_stream().cuda_stream: "current stream"}
+    names.update({s.cuda_stream: "capture stream"
+                  for s in graphs._STREAMS.values()})
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        key = ("graph pools" if tuple(seg.get("segment_pool_id", (0, 0)))
+               != (0, 0) else names.get(seg["stream"], "other streams"))
+        out[key] = out.get(key, 0.0) + seg["total_size"] / 2 ** 30
+    return {k: round(v, 2) for k, v in sorted(out.items())}
+
+
+def hold_features(torch, u8, label):
+    """SIFT's extraction and the match graph replayed from CUDA graphs
+    against the same steps run eagerly (``capture=False``) on ``u8``: the
+    features (every ``SiftFeatures`` field) and the match rows (indices,
+    inlier masks, homographies, inlier counts, ``ok``) bit for bit; each
+    one's seconds (host clock ending in a sync; the graphs were captured
+    by the runs before) and host syncs."""
+    from pano360_tpu_torch import pipeline
+    from pano360_tpu_torch.features.sift import SiftFeatures
+    from pano360_tpu_torch.match import PairMatch
+    from pano360_tpu_torch.measure import synced, host_syncs
+    dev = torch.device("cuda")
+    out = {}
+    for capture, name in ((True, "replayed"), (False, "eager")):
+        def extract():
+            return pipeline.upload_extract(u8, dev, capture=capture)[1]
+        t_ex, feats = synced(extract)
+        _, kp, ds, va, _ = pipeline.sift_buffers(u8, feats)
+
+        def graph():
+            return pipeline.match_graph(kp, ds, va, capture=capture)
+        t_mg, rows = synced(graph)
+        syncs = [sum(host_syncs(fn)[1].values()) for fn in (extract, graph)]
+        log(f"  {label}, {name}: extraction {t_ex:.4f} s ({syncs[0]} host "
+            f"syncs), match graph of {len(rows.ok)} pairs {t_mg:.4f} s "
+            f"({syncs[1]} host syncs), {int(rows.ok.sum())} edges")
+        out[capture] = (feats, rows)
+    (fr, rr), (fe, re) = out[True], out[False]
+    fr, fe = ([t.cpu().numpy() for t in f] for f in (fr, fe))
+    # the bits (a pair without a homography has NaNs, which no
+    # comparison of values calls equal)
+    differ = [f for f, a, b in zip(SiftFeatures._fields + PairMatch._fields,
+                                   [*fr, *rr], [*fe, *re])
+              if a.dtype != b.dtype or a.shape != b.shape
+              or a.tobytes() != b.tobytes()]
+    log(f"  {label}: replayed vs eager, features and match rows bit for "
+        f"bit: {'equal' if not differ else f'differ in {differ}'}")
+    check(not differ, f"{label}: the replayed extraction or match graph "
+          f"differs from the eager one in {differ}")
 
 
 def hold_traverse(torch, u8, kpts, matches):
@@ -829,6 +908,7 @@ def phase_mixed(torch, rots, focal):
     check(r_err.mean() <= 0.1, f"B: mean relative rotation error "
           f"{r_err.mean()}")
 
+    hold_features(torch, u8, "mixed sizes")
     log("  C: kernel 2 with per-image true sizes vs plain at B's layout")
     rgba, small, lay = warp_inputs(regs)
     check(lay.shapes is not None and len(lay.shapes) == BENCH_VIEWS,
@@ -1092,14 +1172,30 @@ def phase_profile(torch, u8, warm_s: float):
     cache = tempfile.mkdtemp(prefix="chip_smoke_prof_")
     args = cli.build_parser().parse_args(
         [cache, *BASE_FLAGS, "--cache-dir", cache])
-    profile_device(torch, lambda: cli.run_images(u8, args, "bench_s1.0"),
-                   warm_s)
+    from pano360_tpu_torch.ops import gauss_octave as G
+    G.launches = 0
+    by_name = profile_device(
+        torch, lambda: cli.run_images(u8, args, "bench_s1.0"), warm_s)
+    if by_name is None:
+        log(f"  octave launches counted {G.launches}; in the profile: not "
+            "measured")
+        return
+    seen = [v for k, v in by_name.items() if "octave_stack_kernel" in k]
+    n_seen = sum(c for _, c in seen)
+    t_seen = sum(t for t, _ in seen)
+    per = t_seen / 1e3 / max(n_seen, 1)
+    log(f"  octave kernel inside the replays: {G.launches} launches "
+        f"counted, {n_seen} in the profile, {per:.4f} ms per launch on the "
+        "device")
+    check(n_seen == G.launches, f"the octave kernel's count {G.launches} is "
+          f"not the profile's {n_seen}")
 
 
 def profile_device(torch, fn, warm_s=None):
     """``fn()`` under torch.profiler: the device's busy time and idle
     share (also of ``warm_s``, the same work's unprofiled seconds) and
-    the device operations that take the most time."""
+    the device operations that take the most time. -> {name: (device
+    us, count)}, or None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1112,7 +1208,7 @@ def profile_device(torch, fn, warm_s=None):
     if not dev:
         log(f"  profiled run {wall:.3f} s; device time not measured (the "
             "profiler saw no device activity)")
-        return
+        return None
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in dev])
     log(f"  profiled run {wall:.3f} s; device busy {busy / 1e3:.1f} ms in "
         f"{len(dev)} device operations; idle share "
@@ -1132,6 +1228,7 @@ def profile_device(torch, fn, warm_s=None):
         for name, (t, c) in by_name.items():
             if key in name:
                 log(f"  {label}: {t / 1e3:.4f} ms in {c} launches")
+    return by_name
 
 
 def main():

@@ -186,7 +186,8 @@ def load_match_cache(path: str):
 
 
 def _stitch(mesh, imgs: List[np.ndarray], args, name: str, draw_fn,
-            matched, regions, timer: Optional[StageTimer] = None):
+            matched, regions, timer: Optional[StageTimer] = None,
+            capture: bool = True):
     """Match (unless ``matched`` holds the match cache's ``(kpts,
     matches)``), register (unless ``regions`` holds the BA cache's) and
     render. One process, or one rank of ``mesh``: then rank 0 alone
@@ -200,11 +201,13 @@ def _stitch(mesh, imgs: List[np.ndarray], args, name: str, draw_fn,
         with timer.stage("Matched features"):
             feats = None
             if args.detector == "sift" and mesh is None:
-                dev_images, feats = upload_extract(imgs, device)
+                dev_images, feats = upload_extract(imgs, device,
+                                                   capture=capture)
             kpts, matches = matching(imgs, device, seed=args.seed,
                                      feats=feats, draw_fn=draw_fn,
                                      detector=args.detector,
-                                     stats=timer.extra, mesh=mesh)
+                                     stats=timer.extra, mesh=mesh,
+                                     capture=capture)
             if write:
                 np.savez(os.path.join(args.cache_dir,
                                       f"matches_{name}.npz"),
@@ -215,7 +218,8 @@ def _stitch(mesh, imgs: List[np.ndarray], args, name: str, draw_fn,
         with timer.stage("Image registration"):
             regions = traverse(imgs, idx_to_keypoints(matches, kpts),
                                badjust=args.ba, device=device,
-                               stats=timer.extra, mesh=mesh)
+                               stats=timer.extra, mesh=mesh,
+                               capture=capture)
         if write:
             with open(os.path.join(args.cache_dir, f"ba_{name}.pkl"),
                       "wb") as fid:
@@ -234,12 +238,16 @@ def _stitch(mesh, imgs: List[np.ndarray], args, name: str, draw_fn,
 
 
 def run_images(imgs: List[np.ndarray], args, name: str,
-               timer: Optional[StageTimer] = None, draw_fn=None):
+               timer: Optional[StageTimer] = None, draw_fn=None,
+               capture: bool = True):
     """Stitch in-memory uint8 BGR images; ``name`` keys the caches.
 
     ``draw_fn(pair_k, n_valid)``: optional RANSAC draws (tests inject the
     JAX package's; picklable, e.g. ``match.DrawTable``, under
-    ``--mesh``). SIFT uploads the images once for extraction and render
+    ``--mesh``). ``capture``: on a card, SIFT's extraction, the match
+    graph and the registration's steps are replayed from CUDA graphs;
+    False runs the same steps eagerly (the CPU and ``--mesh`` always
+    do). SIFT uploads the images once for extraction and render
     (one stack per shape when the sizes are mixed); MSOP extracts inside
     ``matching`` and the render uploads. The caches are read here, before
     any rank starts. Returns the uint8 BGR mosaic.
@@ -268,7 +276,7 @@ def run_images(imgs: List[np.ndarray], args, name: str,
         timer.extra.update(extra)
     else:
         mosaic, _, _ = _stitch(None, imgs, args, name, draw_fn, matched,
-                               regions, timer)
+                               regions, timer, capture)
     if mosaic is None:
         raise SystemExit(
             "no connected images: the match graph is empty (need "

@@ -13,15 +13,21 @@ given (the tests inject the JAX package's own draws); otherwise they
 come from uniforms of a ``torch.Generator`` on the device, drawn chunk
 by chunk in pair order (``match_all_pairs``), so that a process-group
 mesh can replay the same sequence on every rank.
+
+``match_all_pairs`` runs the whole graph as steps on static buffers
+(``graphs``), on a card replayed from CUDA graphs: the JAX package's one
+``lax.map`` over all pairs.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 import torch
 
+from pano360_tpu_torch import graphs
 from pano360_tpu_torch.geometry import inv3x3
 
 LOWE_RATIO = 0.7
@@ -77,7 +83,7 @@ def _normalization(pts, w):
     t[..., 1, 1] = scale
     t[..., 0, 2] = -scale * mean[..., 0]
     t[..., 1, 2] = -scale * mean[..., 1]
-    t[..., 2, 2] = 1.0
+    t[..., 2, 2].fill_(1.0)        # no host tensor: a captured step
     return t
 
 
@@ -127,9 +133,12 @@ def _reproj_errors(hom, p1, p2):
     return torch.where(okw, du * du + dv * dv, torch.inf)
 
 
-def refit_homography(p1, p2, w, gn_iters: int = 3):
-    """Weighted normalized DLT + Gauss-Newton polish (h33 fixed) on
-    (B, M) weights."""
+def _refit_system(p1, p2, w):
+    """The weighted normalized DLT system of ``refit_homography``: ->
+    (t1, t2, A^T W A (B, 9, 9), bad (B,)). A pair without inliers has no
+    finite system: its homography comes out non-finite, as in the JAX
+    package (the caller then keeps the best hypothesis), while the
+    decomposition sees the identity (``bad``)."""
     t1 = _normalization(p1, w)
     t2 = _normalization(p2, w)
     n1 = p1 * t1[..., None, 0, 0, None] + t1[..., None, :2, 2]
@@ -137,14 +146,16 @@ def refit_homography(p1, p2, w, gn_iters: int = 3):
     rows = _dlt_rows(n1, n2)
     ww = torch.cat([w, w], dim=-1)[..., None]
     ata = torch.matmul(rows.transpose(-1, -2), rows * ww)
-    # a pair without inliers has no finite system: its homography comes
-    # out non-finite, as in the JAX package (the caller then keeps the
-    # best hypothesis), while the decomposition sees a finite matrix
     bad = ~torch.isfinite(ata).all(dim=-1).all(dim=-1)
     ata = torch.where(bad[..., None, None],
                       torch.eye(9, dtype=ata.dtype, device=ata.device), ata)
-    _, evecs = torch.linalg.eigh(ata)
-    h = evecs[..., :, 0].reshape(ata.shape[:-2] + (3, 3))
+    return t1, t2, ata, bad
+
+
+def _refit_polish(p1, p2, w, t1, t2, evecs, bad, gn_iters: int = 3):
+    """The DLT homography from the system's eigenvectors ``evecs`` (B,
+    9, 9), then the Gauss-Newton polish (h33 fixed)."""
+    h = evecs[..., :, 0].reshape(evecs.shape[:-2] + (3, 3))
     h = torch.where(bad[..., None, None], torch.nan, h)
     hom = inv3x3(t2) @ h @ t1
     hom = hom / hom[..., 2:3, 2:3]
@@ -185,6 +196,14 @@ def refit_homography(p1, p2, w, gn_iters: int = 3):
     return hom
 
 
+def refit_homography(p1, p2, w, gn_iters: int = 3):
+    """Weighted normalized DLT + Gauss-Newton polish (h33 fixed) on
+    (B, M) weights."""
+    t1, t2, ata, bad = _refit_system(p1, p2, w)
+    _, evecs = torch.linalg.eigh(ata)
+    return _refit_polish(p1, p2, w, t1, t2, evecs, bad, gn_iters)
+
+
 def _gather_rows(a, idx):
     """a (B, M, C), idx (B, ...) -> (B, ..., C)."""
     b, c = a.shape[0], a.shape[-1]
@@ -193,14 +212,9 @@ def _gather_rows(a, idx):
     return out.reshape(idx.shape + (c,))
 
 
-def ransac_homography(p1, p2, valid, draws,
-                      thresh: float = RANSAC_THRESH):
-    """Parallel-hypothesis RANSAC over B pairs.
-
-    p1, p2: (B, M, 2) correspondences; valid: (B, M); draws: (B, K, 4)
-    ranks in [0, max(n_valid, 1)) among the valid rows. Returns
-    (hom (B, 3, 3), inlier mask (B, M), n_inliers (B,)).
-    """
+def _hypotheses(p1, p2, valid, draws, thresh: float):
+    """RANSAC's parallel hypotheses over B pairs: -> (the best one (B, 3,
+    3), its inlier mask (B, M))."""
     bsz, m = valid.shape
     dev = p1.device
     cum = torch.cumsum(valid.to(torch.int64), dim=-1)
@@ -218,13 +232,30 @@ def ransac_homography(p1, p2, valid, draws,
     counts = torch.where(finite, inl.sum(-1), 0)
     best = torch.argmax(counts, dim=-1)
     ar = torch.arange(bsz, device=dev)
-    best_inl = inl[ar, best]
-    hom = refit_homography(p1, p2, best_inl.to(p1.dtype))
+    return homs[ar, best], inl[ar, best]
+
+
+def _final_inliers(p1, p2, valid, hom, best_hom, best_inl, thresh: float):
+    """The refit's inliers, or the best hypothesis and its inliers where
+    the refit is not finite: -> (hom, inlier mask, n_inliers)."""
     final_inl = (_reproj_errors(hom, p1, p2) < thresh * thresh) & valid
-    ok = torch.isfinite(hom.reshape(bsz, 9)).all(-1)
-    hom = torch.where(ok[:, None, None], hom, homs[ar, best])
+    ok = torch.isfinite(hom.reshape(-1, 9)).all(-1)
+    hom = torch.where(ok[:, None, None], hom, best_hom)
     final_inl = torch.where(ok[:, None], final_inl, best_inl)
     return hom, final_inl, final_inl.sum(-1)
+
+
+def ransac_homography(p1, p2, valid, draws,
+                      thresh: float = RANSAC_THRESH):
+    """Parallel-hypothesis RANSAC over B pairs.
+
+    p1, p2: (B, M, 2) correspondences; valid: (B, M); draws: (B, K, 4)
+    ranks in [0, max(n_valid, 1)) among the valid rows. Returns
+    (hom (B, 3, 3), inlier mask (B, M), n_inliers (B,)).
+    """
+    best_hom, best_inl = _hypotheses(p1, p2, valid, draws, thresh)
+    hom = refit_homography(p1, p2, best_inl.to(p1.dtype))
+    return _final_inliers(p1, p2, valid, hom, best_hom, best_inl, thresh)
 
 
 def draws_from_uniforms(u: torch.Tensor, n_valid: torch.Tensor):
@@ -246,6 +277,34 @@ class DrawTable:
         return torch.as_tensor(self.table[k])
 
 
+def _pair_inputs(kpts, desc, valid, pair_a, pair_b, ratio: float):
+    """Top-2 -> ratio test of a chunk of ordered pairs: -> (best_idx (B,
+    M), good (B, M), p1, p2 (B, M, 2) correspondences, n_good (B,))."""
+    best_idx, good = knn2_matches(desc[pair_a], desc[pair_b], valid[pair_a],
+                                  valid[pair_b], ratio)
+    p1 = kpts[pair_a].to(torch.float32)
+    p2 = _gather_rows(kpts[pair_b].to(torch.float32), best_idx)
+    return best_idx, good, p1, p2, good.sum(-1)
+
+
+def _host_draws(draw_fn: DrawFn, first_pair: int, n_valid: torch.Tensor):
+    """``draw_fn``'s (B, K, 4) draws of pairs ``first_pair`` on, made for
+    each pair's ``n_valid`` (read on the host)."""
+    nv = n_valid.tolist()
+    return torch.stack([torch.as_tensor(draw_fn(first_pair + j, int(nv[j])))
+                        for j in range(len(nv))]).to(n_valid.device)
+
+
+def _pair_rows(best_idx, good, n_good, hom, inl, n_inl) -> PairMatch:
+    ok = ((n_good >= N_MIN_MATCH)
+          & torch.isfinite(hom.reshape(-1, 9)).all(-1) & (n_inl >= 4))
+    m = best_idx.shape[1]
+    ar = torch.arange(m, device=best_idx.device).expand_as(best_idx)
+    idx = torch.stack([ar, best_idx], dim=-1)
+    return PairMatch(idx=idx, inlier=inl & good, hom=hom, n_inliers=n_inl,
+                     ok=ok)
+
+
 def match_pairs(kpts, desc, valid, pair_a, pair_b, first_pair: int = 0,
                 draw_fn: Optional[DrawFn] = None,
                 uniforms: Optional[torch.Tensor] = None,
@@ -258,27 +317,15 @@ def match_pairs(kpts, desc, valid, pair_a, pair_b, first_pair: int = 0,
     (k counts from ``first_pair``); else ``uniforms`` (B, K, 4) in [0, 1)
     scale to them.
     """
-    best_idx, good = knn2_matches(desc[pair_a], desc[pair_b], valid[pair_a],
-                                  valid[pair_b], ratio)
-    p1 = kpts[pair_a].to(torch.float32)
-    p2 = _gather_rows(kpts[pair_b].to(torch.float32), best_idx)
-    n_good = good.sum(-1)
+    best_idx, good, p1, p2, n_good = _pair_inputs(kpts, desc, valid, pair_a,
+                                                  pair_b, ratio)
     n_valid = torch.clamp(n_good, min=1)
     if draw_fn is not None:
-        nv = n_valid.tolist()
-        draws = torch.stack([
-            torch.as_tensor(draw_fn(first_pair + j, int(nv[j])))
-            for j in range(len(nv))]).to(p1.device)
+        draws = _host_draws(draw_fn, first_pair, n_valid)
     else:
         draws = draws_from_uniforms(uniforms, n_valid)
     hom, inl, n_inl = ransac_homography(p1, p2, good, draws, thresh)
-    ok = ((n_good >= N_MIN_MATCH)
-          & torch.isfinite(hom.reshape(-1, 9)).all(-1) & (n_inl >= 4))
-    m = p1.shape[1]
-    ar = torch.arange(m, device=p1.device).expand_as(best_idx)
-    idx = torch.stack([ar, best_idx], dim=-1)
-    return PairMatch(idx=idx, inlier=inl & good, hom=hom, n_inliers=n_inl,
-                     ok=ok)
+    return _pair_rows(best_idx, good, n_good, hom, inl, n_inl)
 
 
 def match_pairs_batch(kpts, desc, valid, pair_a, pair_b,
@@ -325,46 +372,150 @@ def match_pair(kpts1, desc1, valid1, kpts2, desc2, valid2,
                      res.n_inliers[0], res.ok[0])
 
 
+# The match graph as steps on one state (``graphs``): the inputs
+# ``kpts``, ``desc``, ``valid``, the pair indices ``pair_a``, ``pair_b``
+# and the uniforms ``u`` (P, K, 4); each chunk's intermediates under
+# "name.c"; the rows, ``PairMatch``'s fields, at the end. ``eigh`` checks
+# its result with a host sync, so it runs eagerly between two captured
+# steps, one call per chunk as in a chunk loop (cuSOLVER picks its
+# algorithm by the batch size).
+_CARRIED = ("best_idx", "good", "n_good", "p1", "p2", "best_hom",
+            "best_inl", "w", "t1", "t2", "bad")
+
+
+def _uniform_draws(first_pair: int, n_valid: torch.Tensor, state: dict):
+    return draws_from_uniforms(
+        state["u"][first_pair:first_pair + n_valid.shape[0]], n_valid)
+
+
+def _fn_draws(draw_fn: DrawFn, first_pair: int, n_valid: torch.Tensor,
+              state: dict):
+    return _host_draws(draw_fn, first_pair, n_valid)
+
+
+def _hypotheses_step(chunks, draws, state: dict):
+    """Each chunk up to the refit's decomposition: top-2 -> ratio ->
+    draws -> RANSAC's hypotheses -> the refit's system."""
+    for c, (lo, hi) in enumerate(chunks):
+        best_idx, good, p1, p2, n_good = _pair_inputs(
+            state["kpts"], state["desc"], state["valid"],
+            state["pair_a"][lo:hi], state["pair_b"][lo:hi], LOWE_RATIO)
+        best_hom, best_inl = _hypotheses(
+            p1, p2, good, draws(lo, torch.clamp(n_good, min=1), state),
+            RANSAC_THRESH)
+        w = best_inl.to(p1.dtype)
+        t1, t2, ata, bad = _refit_system(p1, p2, w)
+        for k, v in zip(_CARRIED + ("ata",),
+                        (best_idx, good, n_good, p1, p2, best_hom, best_inl,
+                         w, t1, t2, bad, ata)):
+            state[f"{k}.{c}"] = v
+
+
+def _eigh_step(chunks, state: dict):
+    """The refit's decomposition, one ``eigh`` per chunk."""
+    for c in range(len(chunks)):
+        state[f"evecs.{c}"].copy_(torch.linalg.eigh(state[f"ata.{c}"])[1])
+
+
+def _rows_step(chunks, state: dict):
+    """Each chunk from the decomposition on: the refit's polish -> the
+    final inliers -> the pairs' rows, all chunks' in ``state``."""
+    rows = []
+    for c in range(len(chunks)):
+        g = {k: state[f"{k}.{c}"] for k in _CARRIED}
+        hom = _refit_polish(g["p1"], g["p2"], g["w"], g["t1"], g["t2"],
+                            state[f"evecs.{c}"], g["bad"])
+        hom, inl, n_inl = _final_inliers(g["p1"], g["p2"], g["good"], hom,
+                                         g["best_hom"], g["best_inl"],
+                                         RANSAC_THRESH)
+        rows.append(_pair_rows(g["best_idx"], g["good"], g["n_good"], hom,
+                               inl, n_inl))
+    state.update(zip(PairMatch._fields, (torch.cat(ts) for ts in zip(*rows))))
+
+
+def _graph_state(kpts, desc, valid, pairs, chunks) -> dict:
+    """The state of the steps over ``chunks`` of ``pairs``."""
+    dev = kpts.device
+    ab = graphs.upload(np.asarray(pairs, np.int64).reshape(-1, 2).T, dev)
+    state = dict(kpts=kpts, desc=desc, valid=valid, pair_a=ab[0],
+                 pair_b=ab[1], u=torch.empty((len(pairs), RANSAC_ITERS, 4),
+                                             device=dev))
+    for c, (lo, hi) in enumerate(chunks):
+        state[f"evecs.{c}"] = torch.empty((hi - lo, 9, 9), device=dev)
+    return state
+
+
+def _graph_steps(chunks, draws):
+    return (partial(_hypotheses_step, chunks, draws),
+            partial(_eigh_step, chunks), partial(_rows_step, chunks))
+
+
+def _replayed_graph(kpts, desc, valid, pairs, chunks):
+    """-> (static state, steps): the first and last step replayed from
+    CUDA graphs in the process's pool, ``eigh`` between them eager."""
+    state = _graph_state(torch.empty_like(kpts), torch.empty_like(desc),
+                         torch.empty_like(valid), pairs, chunks)
+    hyp, eig, rows = _graph_steps(chunks, _uniform_draws)
+    pool = graphs.PROGRAMS.pool
+    return state, (graphs.Replayed(hyp, state, pool), partial(eig, state),
+                   graphs.Replayed(rows, state, pool))
+
+
 def match_all_pairs(kpts, desc, valid, pairs: List[Tuple[int, int]],
                     batch: int, generator: Optional[torch.Generator] = None,
-                    draw_fn: Optional[DrawFn] = None, mesh=None) -> PairMatch:
+                    draw_fn: Optional[DrawFn] = None, mesh=None,
+                    capture: bool = True) -> PairMatch:
     """Every pair of ``pairs`` in chunks of ``batch``: -> ``PairMatch``
-    of host (numpy) arrays, one row per pair.
+    of host (numpy) arrays, one row per pair, copied in one host read.
 
-    The generator draws each chunk's uniforms in chunk order. With a
-    ``mesh`` (``parallel.mesh.Mesh``) each rank runs a contiguous block
-    of whole chunks and replays every chunk's uniforms, so a pair gets
-    the same draws and the same result on any rank; the rows are
-    gathered in rank order (chunk order) onto every rank."""
-    starts = list(range(0, len(pairs), batch))
-    mine = set(starts if mesh is None else mesh.block(starts))
+    The generator draws each chunk's uniforms in chunk order. The chunks
+    run as three steps on one state: up to the refit's decomposition,
+    ``eigh``, and the rest. On a card, without a mesh or a ``draw_fn``,
+    the first and the last are captured as CUDA graphs once per process
+    and key (the shapes, ``batch`` and ``pairs``) and replayed: the
+    counterpart of the JAX package's one ``lax.map`` over all pairs.
+    ``capture=False`` runs the same steps eagerly (the CPU's, the
+    mesh's and ``draw_fn``'s path). With a ``mesh``
+    (``parallel.mesh.Mesh``) each rank runs a contiguous block of whole
+    chunks and draws every chunk's uniforms, so a pair gets the same
+    draws and the same result on any rank; the rows are gathered in rank
+    order (chunk order) onto every rank."""
     dev = kpts.device
-    out = []
-    for p0 in starts:
-        chunk = pairs[p0:p0 + batch]
-        u = None
+    chunks = [(lo, min(lo + batch, len(pairs)))
+              for lo in range(0, len(pairs), batch)]
+    mine = chunks if mesh is None else mesh.block(chunks)
+    if not mine:
+        m = kpts.shape[1]
+        rows = PairMatch(torch.zeros((0, m, 2), dtype=torch.int64, device=dev),
+                         torch.zeros((0, m), dtype=torch.bool, device=dev),
+                         torch.zeros((0, 3, 3), device=dev),
+                         torch.zeros((0,), dtype=torch.int64, device=dev),
+                         torch.zeros((0,), dtype=torch.bool, device=dev))
+    else:
+        if capture and dev.type == "cuda" and mesh is None \
+                and draw_fn is None:
+            key = ("match", kpts.shape, desc.shape, desc.dtype, batch,
+                   tuple(pairs), dev)
+            state, steps = graphs.PROGRAMS.get(key, partial(
+                _replayed_graph, kpts, desc, valid, pairs, chunks))
+            for k, t in (("kpts", kpts), ("desc", desc), ("valid", valid)):
+                state[k].copy_(t)
+        else:
+            state = _graph_state(kpts, desc, valid, pairs, mine)
+            draws = (_uniform_draws if draw_fn is None
+                     else partial(_fn_draws, draw_fn))
+            steps = [partial(f, state) for f in _graph_steps(mine, draws)]
         if draw_fn is None:
-            u = torch.rand((len(chunk), RANSAC_ITERS, 4), generator=generator,
-                           device=dev)
-        if p0 not in mine:
-            continue
-        res = match_pairs(kpts, desc, valid,
-                          torch.tensor([p[0] for p in chunk], device=dev),
-                          torch.tensor([p[1] for p in chunk], device=dev),
-                          first_pair=p0, draw_fn=draw_fn, uniforms=u)
-        out.append(res)
-    m = kpts.shape[1]
-    rows = PairMatch(*[torch.cat(ts) for ts in zip(*out)]) if out else \
-        PairMatch(torch.zeros((0, m, 2), dtype=torch.int64, device=dev),
-                  torch.zeros((0, m), dtype=torch.bool, device=dev),
-                  torch.zeros((0, 3, 3), device=dev),
-                  torch.zeros((0,), dtype=torch.int64, device=dev),
-                  torch.zeros((0,), dtype=torch.bool, device=dev))
+            for lo, hi in chunks:
+                state["u"][lo:hi].uniform_(generator=generator)
+        for step in steps:
+            step()
+        rows = PairMatch(*(state[f] for f in PairMatch._fields))
     if mesh is not None:        # only the last chunk, the last rows, is short
-        per = mesh.per(len(starts)) * batch
+        per = mesh.per(len(chunks)) * batch
         rows = PairMatch(*[mesh.gather_rows(t, len(pairs), per)
                            for t in rows])
-    return PairMatch(*[t.cpu().numpy() for t in rows])
+    return PairMatch(*graphs.to_host(*rows))
 
 
 __all__ = ["PairMatch", "knn2_matches", "hom_from_4pts", "refit_homography",

@@ -8,6 +8,7 @@ Usage, on a CUDA machine::
     python -m pano360_tpu_torch.measure [--against A.cu [B.cu ...]]
     python -m pano360_tpu_torch.measure --warps [--before DIR]
     python -m pano360_tpu_torch.measure --traverse [DIR ...]
+    python -m pano360_tpu_torch.measure --features [DIR ...]
 
 The first form builds ``csrc/gauss_octave.cu`` (and each ``--against``
 source: an octave-stack source with the same ``p360_octave_stack`` C
@@ -59,6 +60,21 @@ the device operations and busy milliseconds of one more run
 (``torch.cuda.set_sync_debug_mode("warn")``, by source line), the LM
 iterations, and the cameras' largest difference from this tree's (and
 whether they are identical).
+
+``--features`` times the two halves of "Matched features" apart, on the
+bench world and on its mixed-size variant (``bench_mixed_views``, phase
+8 B's): the extraction (``pipeline.upload_extract``) and the match graph
+(``pipeline.matching`` on those features: the host read of the
+keypoints, the compaction, ``match.match_all_pairs`` and the host's
+edges). Versions: this tree's replayed from CUDA graphs, the same steps
+eager (``capture=False``), and each ``DIR``, another checkout of the
+package imported whole. After one untimed run of each (the captures),
+``FEATURE_ROUNDS`` rounds of turns (versions in order, then reversed);
+per version and half: the seconds of each run (host clock ending in a
+device sync) and their median, the device operations and busy
+milliseconds of one more run (``torch.profiler``), the host syncs of one
+more (by source line), and whether its features and match graph are
+this tree's replayed ones bit for bit.
 """
 from __future__ import annotations
 
@@ -618,20 +634,40 @@ TRAVERSE_WORLDS = [
     ("scale50", 50, SCALE_SHAPE, SCALE_OVERLAP, SCALE_SEED)]
 
 
+def _sync_site(filename: str, lineno: int) -> str:
+    """"file:line" of a host sync: the line of the package that made it
+    (the innermost frame of ``pano360_tpu_torch`` but this module when the
+    warning names a line of torch)."""
+    here = Path(__file__).resolve()
+    if "pano360_tpu_torch" not in filename:
+        import traceback
+        for frame in reversed(traceback.extract_stack()):
+            path = Path(frame.filename)
+            if ("pano360_tpu_torch" in frame.filename
+                    and path.resolve() != here):
+                return f"{path.name}:{frame.lineno}"
+    return f"{Path(filename).name}:{lineno}"
+
+
 def host_syncs(fn):
     """(``fn()``, {"file:line": count}) of the host syncs it made: the
-    warnings of ``torch.cuda.set_sync_debug_mode("warn")``, each with
-    the line of the package that made it."""
-    with warnings.catch_warnings(record=True) as caught:
+    warnings of ``torch.cuda.set_sync_debug_mode("warn")``, each at the
+    line of the package that made it (``_sync_site``)."""
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # not the mode's own notice ("Synchronization debug mode is a
+        # prototype feature"), which a first use in a process prints
+        if "called a synchronizing CUDA operation" in str(message):
+            sites[_sync_site(filename, lineno)] += 1
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    sites = collections.Counter(
-        f"{Path(w.filename).name}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
     return out, dict(sites)
 
 
@@ -715,6 +751,94 @@ def traverse_main(args, smi: str, device="cuda"):
     print(json.dumps(dict(card=smi)), flush=True)
 
 
+# rounds of turns (versions in order, then reversed) per world in
+# ``--features``: six timed runs of each version
+FEATURE_ROUNDS = 3
+
+
+def _import_tree(tree: Path):
+    """Another checkout's ``pano360_tpu_torch.pipeline`` with the rest of
+    its package: this tree's modules are set aside while it imports and
+    put back after, and the other modules keep their own."""
+    import importlib
+
+    def ours():
+        return [k for k in sys.modules
+                if k.split(".")[0] == "pano360_tpu_torch"]
+    mine = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, str(tree))
+    try:
+        return importlib.import_module("pano360_tpu_torch.pipeline")
+    finally:
+        sys.path.remove(str(tree))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+
+
+def synced(fn):
+    """(seconds of ``fn()`` on the host clock, ending in a device sync,
+    its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def features_main(args, smi: str, device="cuda"):
+    """``--features``: the extraction and the match graph, each timed
+    alone, replayed, eager and in each other checkout, in turns."""
+    from pano360_tpu_torch import pipeline
+    from pano360_tpu_torch.parallel.dryrun import matches_equal
+    dev = torch.device(device)
+    versions = {"replayed": (pipeline.upload_extract, pipeline.matching),
+                "eager": (functools.partial(pipeline.upload_extract,
+                                            capture=False),
+                          functools.partial(pipeline.matching,
+                                            capture=False))}
+    for tree in args.features:
+        other = _import_tree(tree)
+        versions[str(tree)] = (other.upload_extract, other.matching)
+    worlds = [("bench", bench_views()[1]), ("mixed", bench_mixed_views()[0])]
+    for name, u8 in worlds:
+        def extract(v):
+            return versions[v][0](u8, dev)[1]
+
+        def graph(v, feats):
+            return versions[v][1](u8, dev, feats=feats)
+        for v in versions:                  # first runs: the captures and
+            graph(v, extract(v))            # the allocator's growth
+        rows = {v: dict(extract_s=[], match_s=[]) for v in versions}
+        outs = {}
+        order = (list(versions) + list(versions)[::-1]) * FEATURE_ROUNDS
+        for v in order:
+            t_ex, feats = synced(lambda: extract(v))
+            t_mg, res = synced(lambda: graph(v, feats))
+            rows[v]["extract_s"].append(t_ex)
+            rows[v]["match_s"].append(t_mg)
+            outs[v] = (feats, res)
+        ref_feats, (ref_kpts, ref_matches) = outs["replayed"]
+        for v, row in rows.items():
+            feats, (kpts, matches) = outs[v]
+            row["extract_median_s"] = float(np.median(row["extract_s"]))
+            row["match_median_s"] = float(np.median(row["match_s"]))
+            row["features_identical"] = all(
+                torch.equal(a, b) for a, b in zip(feats, ref_feats))
+            row["match_graph_identical"] = bool(
+                all(np.array_equal(a, b) for a, b in zip(kpts, ref_kpts))
+                and matches_equal(matches, ref_matches))
+            for half, fn in (("extract", lambda: extract(v)),
+                             ("match", lambda: graph(v, feats))):
+                row[f"{half}_ops"], row[f"{half}_busy_ms"] = _device_ops(fn)
+                _, sites = host_syncs(fn)
+                row[f"{half}_host_syncs"] = sum(sites.values())
+                row[f"{half}_sync_sites"] = sites
+        print(json.dumps(dict(world=name, views=len(u8), shapes=sorted(
+            {im.shape[:2] for im in u8}), versions=rows)), flush=True)
+    print(json.dumps(dict(card=smi)), flush=True)
+
+
 def _identical(outs, refs) -> bool:
     return all(torch.equal(a, b) for a, b in zip(outs, refs))
 
@@ -732,6 +856,9 @@ def main(argv=None):
     parser.add_argument("--traverse", type=Path, nargs="*", default=None,
                         help="time register.traverse instead, beside the "
                         "register.py of each other checkout given")
+    parser.add_argument("--features", type=Path, nargs="*", default=None,
+                        help="time the extraction and the match graph "
+                        "instead, beside each other checkout given")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("measure: needs a CUDA device")
@@ -747,6 +874,8 @@ def main(argv=None):
         return warps_main(args, smi)
     if args.traverse is not None:
         return traverse_main(args, smi)
+    if args.features is not None:
+        return features_main(args, smi)
     this = _kernels.lib().p360_octave_stack
     print("ptxas, this source:\n" + _kernels.build_log("gauss_octave"))
     others = []

@@ -3,13 +3,15 @@ from __future__ import annotations
 
 import torch
 
+from pano360_tpu_torch import graphs
+
 # cv2 BGR -> gray weights (Rec.601): Y = 0.299 R + 0.587 G + 0.114 B
 _BGR2GRAY = (0.114, 0.587, 0.299)
 
 
 def bgr2gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) BGR -> (..., H, W) luma, matching cv2.COLOR_BGR2GRAY."""
-    w = torch.tensor(_BGR2GRAY, dtype=img.dtype, device=img.device)
+    w = graphs.constant(_BGR2GRAY, img.dtype, img.device)
     return img[..., 0] * w[0] + img[..., 1] * w[1] + img[..., 2] * w[2]
 
 

@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pano360_tpu_torch import graphs
+
 
 def gaussian_kernel1d(sigma: float, ksize: int) -> np.ndarray:
     """cv2.getGaussianKernel taps: built in f64, normalized, cast f32."""
@@ -101,7 +103,8 @@ def sep_filter2d(img: torch.Tensor, kx, ky) -> torch.Tensor:
 
 def blur_bhw(img: torch.Tensor, sigma: float, ksize: int) -> torch.Tensor:
     """Gaussian blur of a (B, H, W) stack over its two trailing axes."""
-    k = torch.as_tensor(gaussian_kernel1d(sigma, ksize), device=img.device)
+    k = graphs.constant(tuple(gaussian_kernel1d(sigma, ksize).tolist()),
+                        torch.float32, img.device)
     return conv_axis(conv_axis(img, k, 1), k, 2)
 
 

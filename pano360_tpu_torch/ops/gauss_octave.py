@@ -19,7 +19,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pano360_tpu_torch import _kernels
+from pano360_tpu_torch import _kernels, graphs
 
 MAX_TAPS = 64          # per-layer tap capacity of the CUDA kernel
 launches = 0           # CUDA kernel launches (main-path evidence)
@@ -162,7 +162,7 @@ def _extrema_score(dog: torch.Tensor, thresh: float, edge_r: float,
                                      value=math.inf)
     mn = -torch.nn.functional.max_pool3d(-padded[:, None], 3, 1)[:, 0]
     center = dog[:, 1:-1]
-    thr = torch.tensor(thresh, dtype=dog.dtype, device=dog.device)
+    thr = graphs.constant(thresh, dog.dtype, dog.device)
     is_ext = (((center >= mx[:, 1:-1]) & (center > thr))
               | ((center <= mn[:, 1:-1]) & (center < -thr)))
     ys = torch.arange(h, device=dog.device)[None, None, :, None]
@@ -182,7 +182,7 @@ def _extrema_score(dog: torch.Tensor, thresh: float, edge_r: float,
     dxy = pad(dxy, (1, 1, 1, 1))
     tr = dxx + dyy
     det = dxx * dyy - dxy * dxy
-    r = torch.tensor(edge_r, dtype=dog.dtype, device=dog.device)
+    r = graphs.constant(edge_r, dog.dtype, dog.device)
     edge_ok = (det > 0) & (tr * tr * r < (r + 1) ** 2 * det)
     return torch.where(is_ext & edge_ok, torch.abs(center),
                        torch.zeros_like(center))
@@ -202,7 +202,7 @@ def octave_stack_ref(base: torch.Tensor, taps, score_cfg=None):
     dogs = []
     for t in taps:
         hh = len(t) // 2
-        k = torch.tensor(t, dtype=base.dtype, device=base.device)
+        k = graphs.constant(tuple(t), base.dtype, base.device)
         rows = cur.shape[1] - 2 * hh
         acc = None
         for i in range(len(t)):

@@ -9,19 +9,23 @@ Produces the JAX package's cache structure exactly:
 - ``idx_to_keypoints`` rehydrates to homogeneous coords + confidence.
 
 SIFT runs in batches of 4 images, each batch uploaded from pinned host
-memory with a non-blocking copy so the next upload overlaps the current
-extraction. Mixed image sizes run one shape bucket at a time (SIFT and
-MSOP alike) and the features come back in the input order.
+memory with a non-blocking copy and, on a card, replayed from the
+process's CUDA graph of its shape (``graphs``); the match graph needs one
+host read before it (the valid counts that size its buffers) and one
+after. Mixed image sizes run one shape bucket at a time (SIFT and MSOP
+alike) and the features come back in the input order.
 """
 from __future__ import annotations
 
 import logging
 import time
+from functools import partial
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from pano360_tpu_torch import graphs
 from pano360_tpu_torch import match as pm
 from pano360_tpu_torch.features import msop as M
 from pano360_tpu_torch.features import sift as S
@@ -31,17 +35,29 @@ LOG = logging.getLogger(__name__)
 BATCH = 4
 
 
-def _upload(batch: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(batch))
-    if device.type == "cuda":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
-
-
 def gray_extract(stack_u8: torch.Tensor, cfg: S.SiftConfig) -> S.SiftFeatures:
     """(B, H, W, 3) uint8 BGR stack -> SIFT features of its gray images."""
     gray = bgr2gray(stack_u8.to(torch.float32) / 255.0)
     return S.sift_extract(gray, cfg)
+
+
+def _extract_step(cfg: S.SiftConfig, state: dict):
+    """One batch's extraction as a step on static buffers: ``state['u8']``
+    (B, H, W, 3) uint8 -> ``state[f]`` for each ``SiftFeatures`` field."""
+    state.update(zip(S.SiftFeatures._fields, gray_extract(state["u8"], cfg)))
+
+
+def _extractor(shape: tuple, cfg: S.SiftConfig, device: torch.device,
+               replay: bool):
+    """-> (run, state) of a batch of ``shape`` (B, H, W, 3): replayed from
+    the process's graph of (shape, cfg), or eager on a state of its own."""
+    def make():
+        state = {"u8": torch.zeros(shape, dtype=torch.uint8, device=device)}
+        fn = partial(_extract_step, cfg)
+        return (graphs.Replayed(fn, state, graphs.PROGRAMS.pool) if replay
+                else partial(fn, state)), state
+    return (graphs.PROGRAMS.get(("sift", shape, cfg, device), make)
+            if replay else make())
 
 
 def _shape_buckets(imgs: List[np.ndarray]) -> Dict[tuple, List[int]]:
@@ -81,7 +97,8 @@ class BucketStacks:
 
 
 def upload_extract(imgs: List[np.ndarray], device: torch.device,
-                   cfg: Optional[S.SiftConfig] = None, mesh=None):
+                   cfg: Optional[S.SiftConfig] = None, mesh=None,
+                   capture: bool = True):
     """Upload the uint8 images in batches of 4 and extract each batch.
 
     Returns ``(stack (N, H, W, 3) uint8 on the device, SiftFeatures over
@@ -90,6 +107,13 @@ def upload_extract(imgs: List[np.ndarray], device: torch.device,
     the stack is then a ``BucketStacks`` and the features are in the
     input order (every bucket shares the ``max_kpts`` capacity).
     ``cfg``: by default ``SiftConfig()``, made at the call.
+
+    On a card each batch is copied from pinned memory into the static
+    input of the process's CUDA graph of its shape and ``cfg`` (captured
+    at the first batch of that key, the short last batch under a key of
+    its own) and replayed: the counterpart of the JAX package's jitted
+    extraction. ``capture=False`` runs the same step eagerly (the CPU's
+    and the mesh's path).
 
     ``mesh`` (``parallel.mesh.Mesh``): each rank uploads and extracts a
     contiguous block of whole batches (a rank short of a block repeats
@@ -103,7 +127,7 @@ def upload_extract(imgs: List[np.ndarray], device: torch.device,
         feat_parts, order, stacks = [], [], []
         for idxs in buckets.values():
             st, f = upload_extract([imgs[i] for i in idxs], device, cfg,
-                                   mesh)
+                                   mesh, capture)
             feat_parts.append(f)
             order.extend(idxs)
             stacks.append((idxs, st))
@@ -111,15 +135,21 @@ def upload_extract(imgs: List[np.ndarray], device: torch.device,
         feats = S.SiftFeatures(*[torch.cat(xs, dim=0)[inv]
                                  for xs in zip(*feat_parts)])
         return (None if mesh else BucketStacks(stacks)), feats
+    replay = capture and device.type == "cuda" and mesh is None
     starts = list(range(0, len(imgs), BATCH))
     if mesh is not None:
         mine = mesh.block(starts)
         starts = mine + [starts[-1]] * (mesh.per(len(starts)) - len(mine))
+    # a replay's buffers are the next replay's: keep copies
+    keep = (lambda t: t.clone()) if replay else (lambda t: t)
     chunks, parts = [], []
     for b0 in starts:
-        chunk = _upload(np.stack(imgs[b0:b0 + BATCH]), device)
-        chunks.append(chunk)
-        parts.append(gray_extract(chunk, cfg))
+        batch = np.stack(imgs[b0:b0 + BATCH])
+        run, state = _extractor(batch.shape, cfg, device, replay)
+        graphs.upload_into(state["u8"], batch)
+        run()
+        chunks.append(keep(state["u8"]))
+        parts.append([keep(state[f]) for f in S.SiftFeatures._fields])
     feats = S.SiftFeatures(*[torch.cat(xs, dim=0) for xs in zip(*parts)])
     if mesh is not None:        # only the last batch, the last rows, is short
         per = len(starts) * BATCH
@@ -143,7 +173,7 @@ def valid_first(kp_buf, ds_buf, va_buf, counts, ccap: int):
         kp_buf = torch.nn.functional.pad(kp_buf, (0, 0, 0, short))
         ds_buf = torch.nn.functional.pad(ds_buf, (0, 0, 0, short))
     va_buf = (torch.arange(ccap, device=dev)[None, :]
-              < torch.as_tensor(counts, device=dev)[:, None])
+              < graphs.upload(np.asarray(counts), dev)[:, None])
     return kp_buf, ds_buf, va_buf
 
 
@@ -174,7 +204,7 @@ def msop_extract(imgs: List[np.ndarray], device: torch.device,
         mine = idxs if mesh is None else mesh.block(idxs)
         st = {}
         if mine:
-            stack = _upload(np.stack([imgs[i] for i in mine]), device)
+            stack = graphs.upload(np.stack([imgs[i] for i in mine]), device)
             kp_host, kp, ds, va, counts = M.msop_extract_device(stack,
                                                                 stats=st)
         else:
@@ -233,10 +263,59 @@ def reverse_homography(hom: np.ndarray) -> np.ndarray:
         return np.linalg.pinv(hom)
 
 
+def sift_buffers(imgs: List[np.ndarray], feats: S.SiftFeatures):
+    """The match graph's inputs from SIFT features, with the one host
+    read they need (the keypoints and their valid masks): -> (per-image
+    host keypoint lists, centre-relative, and the keypoint, RootSIFT and
+    valid buffers compacted valid first to the largest valid count
+    rounded up to a power of two, at least 64; ``remap``: the match
+    indices of uncompacted buffers into the compact lists, else None)."""
+    device = feats.xy.device
+    cents = graphs.upload(np.array([[im.shape[1] / 2, im.shape[0] / 2]
+                                    for im in imgs], np.float32), device)
+    kp_buf = feats.xy - cents[:, None, :]
+    ds_buf = S.root_sift(feats.desc)
+    va_buf = feats.valid
+    cap0 = cap = int(kp_buf.shape[1])
+    kp_host, valid_np = graphs.to_host(kp_buf, va_buf)
+    counts = valid_np.sum(axis=1)
+    cmax = int(counts.max())
+    # compact to the max valid count (pair cost scales with cap^2)
+    ccap = max(64, 1 << max(cmax - 1, 0).bit_length())
+    if ccap < cap:
+        kp_buf, ds_buf, va_buf = valid_first(kp_buf, ds_buf, va_buf,
+                                              counts, ccap)
+        cap = ccap
+    kpts_host = [kp_host[i][valid_np[i]].astype(np.float32)
+                 for i in range(len(imgs))]
+    remap = np.cumsum(valid_np, axis=1) - 1 if cap == cap0 else None
+    return kpts_host, kp_buf, ds_buf, va_buf, remap
+
+
+def match_graph(kp_buf, ds_buf, va_buf, seed: int = 0,
+                draw_fn: Optional[pm.DrawFn] = None, mesh=None,
+                capture: bool = True) -> pm.PairMatch:
+    """Every pair a < b of the (N, C, ...) buffers through
+    ``match.match_all_pairs``: -> ``PairMatch`` of host arrays, one row
+    per pair. The RANSAC draws come from ``draw_fn`` or from a
+    ``torch.Generator`` on the buffers' device seeded with ``seed``; the
+    pairs per chunk are bounded by the distance-matrix memory."""
+    n, cap = kp_buf.shape[:2]
+    pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
+    generator = None
+    if draw_fn is None:
+        generator = torch.Generator(device=kp_buf.device)
+        generator.manual_seed(seed)
+    batch = max(1, min(16, (1 << 28) // max(cap * cap * 4, 1)))
+    return pm.match_all_pairs(kp_buf, ds_buf, va_buf, pairs, batch,
+                              generator=generator, draw_fn=draw_fn,
+                              mesh=mesh, capture=capture)
+
+
 def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
              seed: int = 0, feats=None,
              draw_fn: Optional[pm.DrawFn] = None, detector: str = "sift",
-             stats=None, mesh=None):
+             stats=None, mesh=None, capture: bool = True):
     """All-pairs feature matching -> ``(kpts, matches)`` object arrays.
 
     ``detector``: "sift" (RootSIFT, 128-d) or "msop" (64-d oriented
@@ -248,7 +327,11 @@ def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
     draws them. ``stats``: an optional dict for ``msop_extract``'s
     counts. ``mesh`` (``parallel.mesh.Mesh``): extraction sharded over
     images and the match graph over pairs; every rank returns the same
-    ``(kpts, matches)``, bit-identical to one process's.
+    ``(kpts, matches)``, bit-identical to one process's. ``capture``:
+    SIFT's extraction and the match graph replayed from CUDA graphs on a
+    card (``upload_extract``, ``match.match_all_pairs``); False runs the
+    same steps eagerly. MSOP's extraction runs eagerly (its SSC runs on
+    the host inside it).
     """
     if not imgs:
         raise ValueError("no images to process (empty directory?)")
@@ -261,46 +344,18 @@ def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
         if feats is None:
             feats = msop_extract(imgs, device, stats, mesh)
         kpts_host, kp_buf, ds_buf, va_buf = feats[:4]
-        cap = int(kp_buf.shape[1])
         remap = None                # compact already
     else:
         if feats is None:
             _, feats = upload_extract(imgs, device,
-                                      S.SiftConfig(max_kpts=max_kpts), mesh)
-        cents = torch.tensor([[im.shape[1] / 2, im.shape[0] / 2]
-                              for im in imgs], dtype=torch.float32,
-                             device=device)
-        kp_buf = feats.xy - cents[:, None, :]
-        ds_buf = S.root_sift(feats.desc)
-        va_buf = feats.valid
-        cap0 = cap = int(kp_buf.shape[1])
-        kp_host = kp_buf.cpu().numpy()
-        valid_np = va_buf.cpu().numpy()
-        counts = valid_np.sum(axis=1)
-        cmax = int(counts.max())
-        # compact to the max valid count (pair cost scales with cap^2)
-        ccap = max(64, 1 << max(cmax - 1, 0).bit_length())
-        if ccap < cap:
-            kp_buf, ds_buf, va_buf = valid_first(kp_buf, ds_buf, va_buf,
-                                                  counts, ccap)
-            cap = ccap
-        kpts_host = [kp_host[i][valid_np[i]].astype(np.float32)
-                     for i in range(n)]
-        # match indices of uncompacted buffers -> the compact lists
-        remap = np.cumsum(valid_np, axis=1) - 1 if cap == cap0 else None
+                                      S.SiftConfig(max_kpts=max_kpts), mesh,
+                                      capture)
+        kpts_host, kp_buf, ds_buf, va_buf, remap = sift_buffers(imgs, feats)
     LOG.info("Extracted keypoints, time: %s", time.time() - start)
 
-    pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
     start = time.time()
-    generator = None
-    if draw_fn is None:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(seed)
-    # pairs per chunk bounded by the distance-matrix memory
-    batch = max(1, min(16, (1 << 28) // max(cap * cap * 4, 1)))
-    res = pm.match_all_pairs(kp_buf, ds_buf, va_buf, pairs, batch,
-                             generator=generator, draw_fn=draw_fn, mesh=mesh)
-
+    res = match_graph(kp_buf, ds_buf, va_buf, seed, draw_fn, mesh, capture)
+    pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
     matches: Dict[int, Dict[int, tuple]] = {i: {} for i in range(n)}
     for k, (src, dst) in enumerate(pairs):
         if not bool(res.ok[k]):
@@ -336,4 +391,5 @@ def idx_to_keypoints(matches, kpts):
 
 
 __all__ = ["gray_extract", "upload_extract", "msop_extract", "BucketStacks",
+           "sift_buffers", "match_graph",
            "matching", "reverse_homography", "idx_to_keypoints"]

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from pano360_tpu_torch import geometry as geo
+from pano360_tpu_torch.graphs import Replayed, upload as _upload
 from pano360_tpu_torch import resolve_device
 
 LM_LAMBDA = 5.0
@@ -486,48 +487,6 @@ def _add_step(prob: Problem, sched: dict, state: dict):
     k.add_(1)
 
 
-def _capture(fn, state: dict) -> torch.cuda.CUDAGraph:
-    """``fn(state)``, a step on the static buffers of ``state``, captured
-    as a CUDA graph. A first run on copies of the buffers, outside the
-    capture, sets up the libraries' lazy handles and workspaces."""
-    graph = torch.cuda.CUDAGraph()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn({k: v.clone() for k, v in state.items()})
-        graph.capture_begin()
-        try:
-            fn(state)
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream().wait_stream(stream)
-    return graph
-
-
-class _Replayed:
-    """``fn(state)`` replayed from a CUDA graph captured at its first
-    call (once per traverse: the problem's shape is fixed for the whole
-    schedule; what changes lives in the state's buffers)."""
-
-    def __init__(self, fn, state: dict):
-        self.fn, self.state, self.graph = fn, state, None
-
-    def __call__(self):
-        with torch.cuda.device(self.state["best"].device):
-            if self.graph is None:
-                self.graph = _capture(self.fn, self.state)
-            self.graph.replay()
-
-
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``, from pinned memory without a host
-    sync on a card."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
              use_straighten: bool = True, polish: bool = True,
              device="cuda", stats=None, mesh=None,
@@ -630,7 +589,7 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     steps = [partial(_add_step, prob, sched), partial(lm_step, prob),
              partial(polish_step, prob)]
     if capture and device.type == "cuda" and mesh is None:
-        add, lm, pol = (_Replayed(f, state) for f in steps)
+        add, lm, pol = (Replayed(f, state) for f in steps)
     else:
         add, lm, pol = (partial(f, state) for f in steps)
 

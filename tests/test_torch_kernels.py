@@ -535,3 +535,46 @@ def test_traverse_replayed_equals_eager_on_card(badjust):
                                                     badjust=badjust))
     iters = sum(sg["lm_iterations"]) + sg["polish_iterations"]
     assert sum(sites.values()) <= 2 * 4 + iters + 8, sites
+
+
+@pytest.mark.gpu
+def test_features_replayed_equal_eager_on_card():
+    """SIFT's extraction and the match graph replayed from CUDA graphs
+    against the same steps run eagerly on the card (five views: a batch
+    of 4 and a short one; ten pairs in chunks of 4 and a short one):
+    features, stack and match rows bit for bit; the octave kernel's
+    launches of a replayed extraction those of an eager one; no host sync
+    in a replayed extraction, one per chunk (``eigh``) and one for the
+    rows in a replayed match graph."""
+    from pano360_tpu_torch import match as pm
+    from pano360_tpu_torch import pipeline
+    from pano360_tpu_torch.measure import host_syncs
+    dev = _cuda()
+    imgs, _, _ = synth.make_views(n_views=5, shape=(192, 256), overlap=0.45,
+                                  seed=3)
+    u8 = [(im * 255).astype(np.uint8) for im in imgs]
+    pairs = [(a, b) for a in range(5) for b in range(a + 1, 5)]
+    out, launches = {}, {}
+    for capture in (True, False, True):     # capture, eager, replay only
+        G.launches = 0
+        stack, feats = pipeline.upload_extract(u8, dev, capture=capture)
+        launches[capture] = G.launches
+        _, kp, ds, va, _ = pipeline.sift_buffers(u8, feats)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        res = pm.match_all_pairs(kp, ds, va, pairs, 4, generator=gen,
+                                 capture=capture)
+        out[capture] = (stack, feats, res)
+    (sr, fr, rr), (se, fe, re) = out[True], out[False]
+    assert torch.equal(sr, se)
+    assert all(torch.equal(a, b) for a, b in zip(fr, fe))
+    # the bits: a pair without a homography has NaNs
+    assert all(a.dtype == b.dtype and a.shape == b.shape
+               and a.tobytes() == b.tobytes() for a, b in zip(rr, re))
+    assert rr.ok.sum() >= 4
+    assert launches[True] == launches[False] > 0
+    _, sites = host_syncs(lambda: pipeline.upload_extract(u8, dev))
+    assert not sites, sites
+    _, sites = host_syncs(lambda: pm.match_all_pairs(kp, ds, va, pairs, 4,
+                                                     generator=gen))
+    assert sum(sites.values()) == 3 + 1, sites
