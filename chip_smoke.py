@@ -13,6 +13,14 @@ Phases (any failure exits non-zero):
    every octave of the bench images where the kernel runs (batch 4):
    bit for bit and no score flip at every octave; each octave's kernel
    time, its bound and the share of the bound;
+   B. SIFT's tail (``ops.sift_tail``: the Newton field, the refinement,
+   the orientation and the grid descriptor) vs the plain versions, bit for
+   bit, on the inputs of the bench world's first upload batch (its 9
+   octaves' DoG stacks and candidates, its keypoints), recorded from one
+   eager extraction: each kernel's launch, device time with the L2
+   flushed, bound, plain version, and the PyTorch call of the same
+   function where one exists (the histogram's one-hot ``torch.matmul``,
+   the descriptor binning's contraction); ptxas's report of each;
 4. kernel 2 (backward warp) vs its plain version at the bench's render
    layout, bit for bit with no mask flip: the launch with a prepared
    plan, the prepare step (host), the device time per launch, the bound
@@ -23,7 +31,8 @@ Phases (any failure exits non-zero):
    extraction's and the match graph's CUDA graphs) and a warm one
    (replays), per-stage seconds, peak device memory (allocated, and
    reserved by where the allocator keeps it), kernel launch
-   counts (the warm run's are the main path's), three more warm runs'
+   counts (the warm run's are the main path's: SIFT's tail 36, 36, 4 and
+   4 inside the replays), three more warm runs'
    stage seconds, registration accuracy against the synthetic ground
    truth, and a cached re-run; SIFT's extraction and the match graph
    replayed against the same steps run eagerly (features and match rows
@@ -35,9 +44,9 @@ Phases (any failure exits non-zero):
    CPU;
 6. profile: one more uncached run of the main path under
    ``torch.profiler``: device busy time, the device's idle share, the
-   device operations that take the most time, and the octave and warp
-   kernels' entries; the octave kernel's launches in the profile (inside
-   the replays) equal to its count;
+   device operations that take the most time, and the kernels' entries;
+   the launches of the octave kernel and of SIFT's tail in the profile
+   (inside the replays) equal to their counts;
 7. render options, each path with the kernel counts set to 0 just
    before it and read just after:
    B. ``-e -c --warp pallas`` on the bench views at known per-view
@@ -71,8 +80,9 @@ Phases (any failure exits non-zero):
       ordering timed beside ``torch.topk``;
    B. mixed image sizes: the same world with the odd-numbered views at
       768x1024, ``-e -c`` with SIFT (cold and warm): 15 of 15 placed,
-      phase 5's registration bounds, the octave kernel and the exact
-      warp launched, the crop rectangle inside its valid mask; the
+      phase 5's registration bounds, the octave kernel, SIFT's tail and
+      the exact warp launched, the crop rectangle inside its valid mask;
+      the
       replayed extraction and match graph against the eager ones, as in
       phase 5;
    C. kernel 2 with per-image true sizes vs its plain version at B's
@@ -87,9 +97,9 @@ Phases (any failure exits non-zero):
       GPU over gloo, on phase 5's views, held to phase 5's one-process
       run: features and match graph equal, 15 of 15 placed within phase
       5's bounds, the same LM iteration counts, the mosaic >= 70 dB, the
-      octave and exact warp kernels launched in each rank (counted per
-      rank); each rank's stage seconds, seconds in collectives and peak
-      memory. In the same launch ``distributed_lm_stats`` of 137 random
+      octave kernel, SIFT's tail and the exact warp launched in each rank
+      (counted per rank); each rank's stage seconds, seconds in
+      collectives and peak memory. In the same launch ``distributed_lm_stats`` of 137 random
       edges, bit for bit one process's; in this process the bundle
       adjuster's per-edge terms of every shard of those edges over 2, 3
       and 4 ranks, bit for bit the one-process rows. Then the pipeline
@@ -99,7 +109,8 @@ Phases (any failure exits non-zero):
    B. ``upload_extract`` with ``descr_mode='dense'`` on the bench views
       beside the grid descriptor's (time, peak memory): the same
       keypoints, descriptors of unit norm; the CLI with
-      ``PANO_SIFT_DESCR=dense`` registers within phase 5's bounds; one
+      ``PANO_SIFT_DESCR=dense`` registers within phase 5's bounds and
+      launches the orientation kernel but not the grid descriptor's; one
       ``upscale=False`` extraction (keypoints, time);
 10. the kernels line.
 
@@ -117,11 +128,19 @@ the prepare step on the host (once per render; see
 ``pano360_tpu_torch.measure``). ``bound_ms`` is the least time of the
 same work on an H100
 (bytes over 3.35 TB/s or operations over the f32 peak, counted from this
-run's inputs by the ops modules' ``*_cost`` helpers). ``library_ms``
+run's inputs by the ops modules' ``*_cost`` helpers; SIFT's tail counts
+the samples, texels and field words its inputs need). ``library_ms``
 times ``torch.nn.functional.grid_sample`` (bilinear, reflection,
 align_corners=False) on each warp's own sample grid, built outside the
 timed window: the gather alone, without the ray mapping, the mask or
-the seam; no PyTorch call computes the octave stack (null).
+the seam; no PyTorch call computes the octave stack, the Newton field
+or the refinement (null); for the orientation the one-hot
+``torch.matmul`` of the histogram and for the descriptor the binning's
+contraction (``torch.matmul``), the JAX package's forms, inputs built
+outside the timed window. The Newton field's and the refinement's
+``ms``, ``plain_ms`` and ``bound_ms`` are per upload batch (9 launches
+each), the other kernels' per launch; SIFT's tail's entries also carry
+``device_ms``.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -255,6 +274,154 @@ def phase_octave(torch, u8):
                 bound_ms=bound, bound_by=bound_by, library_ms=None)
 
 
+# SIFT's tail: (wrapper, kernel and count name, source, the JAX
+# computation replaced)
+SIFT_TAIL_LINE = (
+    ("newton_field", "newton_field", "newton_field.cu",
+     "pano360_tpu/features/sift.py:403 (XLA fusion)"),
+    ("refine", "sift_refine", "sift_refine.cu",
+     "pano360_tpu/features/sift.py:488 (XLA fusion)"),
+    ("orientation", "sift_orient", "sift_orient.cu",
+     "pano360_tpu/features/sift.py:594 and :635 (XLA fusion)"),
+    ("descriptors", "sift_descr", "sift_descr.cu",
+     "pano360_tpu/features/sift.py:658 and :741 (XLA fusion)"))
+SIFT_TAIL = tuple(row[0] for row in SIFT_TAIL_LINE)
+# device names of the kernels whose launches phase 6 holds to the profile
+PROFILED = {"octave_stack": "octave_stack_kernel",
+            "newton_field": "p360_newton_field_kernel",
+            "sift_refine": "p360_sift_refine_kernel",
+            "sift_orient": "p360_sift_orient_kernel",
+            "sift_descr": "p360_sift_descr_kernel"}
+
+
+def bits_equal(torch, a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def max_abs(torch, outs, refs) -> float:
+    return max(float((a.double() - b.double()).abs().max()) if a.numel()
+               else 0.0 for a, b in zip(outs, refs))
+
+
+def phase_sift_tail(torch, u8):
+    """3 B: the four kernels of SIFT's tail vs their plain versions on the
+    bench world's first upload batch (4 views): the DoG stacks of its 9
+    octaves (Newton field, refinement on its candidates) and its keypoints
+    (orientation, descriptor), recorded from one eager extraction; bit
+    for bit; per kernel the launch (CUDA events), the device time with
+    the L2 flushed (``torch.profiler``), the bound, the plain version and
+    a PyTorch call of the same function where one exists (the one-hot
+    ``torch.matmul`` of the histogram, the binning's contraction, as the
+    JAX package computes them). -> {wrapper: dict for the kernels line},
+    ms, bound and plain summed over the octaves of the batch for the
+    Newton field and the refinement."""
+    from pano360_tpu_torch import _kernels, pipeline
+    from pano360_tpu_torch.features import sift as S
+    from pano360_tpu_torch.measure import alternate, device_ms, recording
+    from pano360_tpu_torch.ops import sift_tail as T
+    cfg = S.SiftConfig()
+    dev = torch.device("cuda")
+    with recording(T, SIFT_TAIL) as calls:
+        pipeline.upload_extract(u8[:4], dev, capture=False)
+    torch.cuda.synchronize()
+    check([len(calls[k]) for k in SIFT_TAIL] == [9, 9, 1, 1],
+          f"3 B: recorded calls {[len(calls[k]) for k in SIFT_TAIL]}")
+    plain = dict(
+        newton_field=S._newton_step_field, refine=S._refine,
+        orientation=lambda *a, cfg: S._peak_angles(
+            S._orientation_hist(*a, cfg), cfg),
+        descriptors=S._descriptors)
+    device_name = {fn: PROFILED[kernel]
+                   for fn, kernel, _, _ in SIFT_TAIL_LINE}
+    out = {}
+    for name in SIFT_TAIL:
+        tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes_ms=0.0,
+                   flops_ms=0.0, library_ms=None, max_abs_err=0.0)
+        for args, kw in calls[name]:
+            def kern():
+                return getattr(T, name)(*args, **kw)
+
+            def ref():
+                return plain[name](*args, **kw)
+            got, want = kern(), ref()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            same = all(bits_equal(torch, a, b) for a, b in zip(got, want))
+            err = max_abs(torch, got, want)
+            tp, tk = alternate(ref, kern, REPS)
+            td = device_ms(kern, device_name[name], REPS, flush=True)
+            cost, lib, shape = _tail_cost(torch, T, S, cfg, name, args)
+            log(f"  {name} {shape}: bit for bit {same} (max|d| {err}); "
+                f"kernel {tk:.4f} ms, device {td:.4f} ms with the L2 "
+                f"flushed, bound {cost['bound_ms']:.4f} ms "
+                f"({cost['bound_by']}: {cost['bytes']} bytes, "
+                f"{cost['flops']} operations), plain {tp:.3f} ms"
+                + ("" if lib is None else f", library {lib:.4f} ms"))
+            check(same, f"3 B: {name} {shape} differs from its plain "
+                  f"version (max|d| {err})")
+            tot["ms"] += tk
+            tot["device_ms"] += td
+            tot["plain_ms"] += tp
+            tot["bytes_ms"] += cost["bytes_ms"]
+            tot["flops_ms"] += cost["flops_ms"]
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["library_ms"] = lib
+            del got, want
+        tot["bound_ms"] = max(tot["bytes_ms"], tot["flops_ms"])
+        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["flops_ms"]
+                           else "operations")
+        if len(calls[name]) > 1:
+            log(f"  {name}, the batch's {len(calls[name])} octaves: kernel "
+                f"{tot['ms']:.4f} ms, device {tot['device_ms']:.4f} ms, "
+                f"bound {tot['bound_ms']:.4f} ms, plain "
+                f"{tot['plain_ms']:.3f} ms")
+        out[name] = tot
+    log("  ptxas -v:" + "\n    ".join([""] + [
+        ln.strip() for _, stem, _, _ in SIFT_TAIL_LINE
+        for ln in _kernels.build_log(stem).splitlines()
+        if ": Used" in ln or "spill" in ln]))
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tail_cost(torch, T, S, cfg, name, args):
+    """(the bound of one recorded call, its library ms or None, its shape
+    for the log)."""
+    from pano360_tpu_torch.measure import timed
+
+    def timed_warm(fn):
+        fn()
+        return timed(fn, REPS)
+    if name == "newton_field":
+        n, nl, h, w = args[0].shape
+        return T.newton_field_cost(n, nl, h, w), None, f"{n}x{nl}x{h}x{w}"
+    if name == "refine":
+        dog, field, l0, y0, x0 = args[:5]
+        return (T.refine_cost(field, l0, y0, x0, cfg), None,
+                f"{tuple(l0.shape)} on {tuple(dog.shape)}")
+    gx = args[0]
+    m, psg = gx.shape[:2]
+    if name == "orientation":
+        gx, gy, y, x, pcy, pcx, sig, oh, ow = args
+        cost = T.orientation_cost(y, x, pcy, pcx, sig, oh, ow, psg)
+        val, bins = S._orientation_samples(*args, cfg)
+        onehot = (bins[:, :, None] == torch.arange(
+            cfg.ori_bins, device=gx.device)).float()
+        lhs = val[:, None, :]
+        lib = timed_warm(lambda: torch.matmul(lhs, onehot))
+        del onehot, lhs, val, bins
+        return cost, lib, f"{m} keypoints, {psg}x{psg} patches"
+    gx, gy, yf, xf, pcy, pcx, sig, angle, oh, ow = args
+    cost = T.descriptors_cost(yf, xf, pcy, pcx, sig, angle, oh, ow, psg, cfg)
+    val, oh_o, wrc = S._descriptor_samples(*args, cfg)
+    rhs, lhs = val[..., None] * oh_o, wrc.T.contiguous()
+    lib = timed_warm(lambda: torch.matmul(lhs, rhs))
+    del rhs, val, oh_o
+    return cost, lib, f"{m} keypoints x {angle.shape[1]} orientations"
+
+
 def hold_warp(name, row):
     """Gates of a warp kernel against its plain version (``measure``'s
     row): bit for bit, no mask flip, the mask a bool tensor. Logs the
@@ -325,11 +492,27 @@ def registration_errors(regs, rots, focal):
         rel_rot_errors_deg(regs, rots)
 
 
-def phase_slice(torch, u8, rots, focal):
-    from pano360_tpu_torch import cli
+def counters():
+    """{kernel: what counts its launches}."""
     from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops import sift_tail as T
     from pano360_tpu_torch.ops import warp_kernel as W
     from pano360_tpu_torch.ops import warp_mip as M
+    return {"octave_stack": G, "backward_warp": W, "backward_warp_mip": M,
+            **{c.name: c for c in T.COUNTS}}
+
+
+def reset_counts():
+    for c in counters().values():
+        c.launches = 0
+
+
+def counts() -> dict:
+    return {k: c.launches for k, c in counters().items()}
+
+
+def phase_slice(torch, u8, rots, focal):
+    from pano360_tpu_torch import cli
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     runs = {}
     walls = {}
@@ -341,14 +524,15 @@ def phase_slice(torch, u8, rots, focal):
              "--cache-dir", cache])
         timer = cli.StageTimer()
         torch.cuda.reset_peak_memory_stats()
-        G.launches = W.launches = M.launches = 0
+        reset_counts()
         t0 = time.time()
         mosaic = cli.run_images(u8, args, "bench_s1.0", timer)
         torch.cuda.synchronize()
         total = time.time() - t0
         walls[label] = total
-        launches = {"octave_stack": G.launches, "backward_warp": W.launches}
-        check(M.launches == 0, "the default path took the mip warp")
+        launches = counts()
+        check(launches.pop("backward_warp_mip") == 0,
+              "the default path took the mip warp")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         reserved = torch.cuda.max_memory_reserved() / 2 ** 30
         stages = {k: round(v, 4) for k, v in timer.stages.items()}
@@ -363,6 +547,9 @@ def phase_slice(torch, u8, rots, focal):
     # (the cold run's also count the eager first runs of the captures)
     check(all(v > 0 for v in launches.values()),
           f"main path did not launch every kernel: {launches}")
+    want = dict(newton_field=36, sift_refine=36, sift_orient=4, sift_descr=4)
+    check(all(launches[k] == v for k, v in want.items()),
+          f"SIFT's tail on the main path: {launches}, not {want}")
     for rep in range(3):
         cache = os.path.join(work, f"again{rep}")
         os.makedirs(cache)
@@ -563,19 +750,15 @@ def run_cli(torch, imgs, flags, cache, label, timer=None):
     """One ``cli.run_images`` with every kernel count set to 0 just
     before it: -> (mosaic, {kernel: launches}, seconds)."""
     from pano360_tpu_torch import cli
-    from pano360_tpu_torch.ops import gauss_octave as G
-    from pano360_tpu_torch.ops import warp_kernel as W
-    from pano360_tpu_torch.ops import warp_mip as M
     args = cli.build_parser().parse_args([cache, *flags, "--cache-dir",
                                           cache])
     timer = timer or cli.StageTimer()
-    G.launches = W.launches = M.launches = 0
+    reset_counts()
     t0 = time.time()
     mosaic = cli.run_images(imgs, args, "bench_s1.0", timer)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"octave_stack": G.launches, "backward_warp": W.launches,
-                "backward_warp_mip": M.launches}
+    launches = counts()
     stages = {k: round(v, 4) for k, v in timer.stages.items()}
     log(f"  {label}: {' '.join(flags)}: {wall:.3f} s; stages {stages}; "
         f"launches {launches}; mosaic {mosaic.shape}")
@@ -760,14 +943,12 @@ def msop_run(torch, label, u8, rots, focal, seed):
     (non-finite cameras end in the SVD of the next add or in the
     render)."""
     from pano360_tpu_torch import cli
-    from pano360_tpu_torch.ops import gauss_octave as G
-    from pano360_tpu_torch.ops import warp_kernel as W
     cache = tempfile.mkdtemp(prefix="chip_smoke_msop_")
     flags = BASE_FLAGS + ["--detector", "msop", "--seed", str(seed)]
     args = cli.build_parser().parse_args([cache, *flags, "--cache-dir",
                                           cache])
     timer = cli.StageTimer()
-    G.launches = W.launches = 0
+    reset_counts()
     mosaic = error = None
     t0 = time.time()
     try:
@@ -776,7 +957,10 @@ def msop_run(torch, label, u8, rots, focal, seed):
         error = exc
     torch.cuda.synchronize()
     wall = time.time() - t0
-    check(G.launches == 0, f"A, {label}: MSOP ran SIFT's octave kernel")
+    launches = counts()
+    sift = {k: v for k, v in launches.items() if "warp" not in k}
+    check(not any(sift.values()), f"A, {label}: MSOP ran SIFT's kernels: "
+          f"{sift}")
     check(os.path.exists(os.path.join(cache, "matches_bench_s1.0.npz")),
           f"A, {label}, seed {seed}: no match graph: {error!r}")
     ba = os.path.join(cache, "ba_bench_s1.0.pkl")
@@ -800,7 +984,8 @@ def msop_run(torch, label, u8, rots, focal, seed):
         f"{ex.get('polish_iterations')}"
         + ("" if error is None else f"; ended in {error!r}"[:200]))
     if registered:
-        check(W.launches > 0, f"A, {label}: no exact warp launched")
+        check(launches["backward_warp"] > 0,
+              f"A, {label}: no exact warp launched")
         check(mosaic.dtype == np.uint8 and mosaic.ndim == 3
               and max(mosaic.shape[:2]) <= 1400 and mosaic.any(),
               f"A, {label}: mosaic {mosaic.shape} {mosaic.dtype}")
@@ -895,7 +1080,8 @@ def phase_mixed(torch, rots, focal):
     flags = BASE_FLAGS + ["-e", "-c"]
     mosaic, launches, _, cache, _ = cold_warm(
         torch, u8, flags, "chip_smoke_mixed_", "B",
-        ["octave_stack", "backward_warp"])
+        ["octave_stack", "backward_warp", "newton_field", "sift_refine",
+         "sift_orient", "sift_descr"])
     check(launches["backward_warp_mip"] == 0, f"B: launches {launches}")
     regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
     check(len(regs) == BENCH_VIEWS, f"B: {len(regs)} of {BENCH_VIEWS} placed")
@@ -1131,9 +1317,13 @@ def phase_dense(torch, u8, rots, focal):
     os.environ["PANO_SIFT_DESCR"] = "dense"
     try:
         timer = cli.StageTimer()
-        run_cli(torch, u8, BASE_FLAGS, cache, "PANO_SIFT_DESCR=dense", timer)
+        _, launches, _ = run_cli(torch, u8, BASE_FLAGS, cache,
+                                 "PANO_SIFT_DESCR=dense", timer)
     finally:
         del os.environ["PANO_SIFT_DESCR"]
+    check(launches["sift_orient"] >= 1 and launches["sift_descr"] == 0,
+          f"9 B: under dense the orientation kernel runs and the grid "
+          f"descriptor's does not: {launches}")
     regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
     f_err, r_err = registration_errors(regs, rots, focal)
     log(f"  {len(regs)} of {BENCH_VIEWS} placed; focal max rel err "
@@ -1167,28 +1357,28 @@ def busy_us(intervals) -> float:
 
 def phase_profile(torch, u8, warm_s: float):
     """One more uncached run of ``cli.run_images`` (the main path) under
-    torch.profiler."""
+    torch.profiler: each SIFT kernel's launches in the profile (all
+    inside the replays) equal to its count."""
     from pano360_tpu_torch import cli
     cache = tempfile.mkdtemp(prefix="chip_smoke_prof_")
     args = cli.build_parser().parse_args(
         [cache, *BASE_FLAGS, "--cache-dir", cache])
-    from pano360_tpu_torch.ops import gauss_octave as G
-    G.launches = 0
+    reset_counts()
     by_name = profile_device(
         torch, lambda: cli.run_images(u8, args, "bench_s1.0"), warm_s)
+    launches = counts()
     if by_name is None:
-        log(f"  octave launches counted {G.launches}; in the profile: not "
-            "measured")
+        log(f"  launches counted {launches}; in the profile: not measured")
         return
-    seen = [v for k, v in by_name.items() if "octave_stack_kernel" in k]
-    n_seen = sum(c for _, c in seen)
-    t_seen = sum(t for t, _ in seen)
-    per = t_seen / 1e3 / max(n_seen, 1)
-    log(f"  octave kernel inside the replays: {G.launches} launches "
-        f"counted, {n_seen} in the profile, {per:.4f} ms per launch on the "
-        "device")
-    check(n_seen == G.launches, f"the octave kernel's count {G.launches} is "
-          f"not the profile's {n_seen}")
+    for kernel, key in PROFILED.items():
+        seen = [v for k, v in by_name.items() if key in k]
+        n_seen = sum(c for _, c in seen)
+        per = sum(t for t, _ in seen) / 1e3 / max(n_seen, 1)
+        log(f"  {kernel} inside the replays: {launches[kernel]} launches "
+            f"counted, {n_seen} in the profile, {per:.4f} ms per launch on "
+            "the device")
+        check(n_seen == launches[kernel], f"{kernel}'s count "
+              f"{launches[kernel]} is not the profile's {n_seen}")
 
 
 def profile_device(torch, fn, warm_s=None):
@@ -1222,7 +1412,7 @@ def profile_device(torch, fn, warm_s=None):
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"    {t / 1e3:8.2f} ms {c:6d}x  {name[:90]}")
-    for label, key in (("octave kernel", "octave_stack_kernel"),
+    for label, key in (*PROFILED.items(),
                        ("exact warp kernel", "backward_warp_kernel"),
                        ("mip warp kernel", "backward_warp_mip_kernel")):
         for name, (t, c) in by_name.items():
@@ -1262,6 +1452,8 @@ def main():
     imgs_f, u8, rots, focal = bench_views()
     log("phase 3: octave_stack kernel vs plain")
     k1 = phase_octave(torch, u8)
+    log("phase 3 B: SIFT's tail, four kernels vs plain")
+    tail = phase_sift_tail(torch, u8)
     log("phase 4: backward_warp kernel vs plain")
     k2 = phase_warp(u8, rots, focal)
     log("phase 5: CLI main path on the bench dataset")
@@ -1302,7 +1494,13 @@ def main():
              replaces="pano360_tpu/ops/pallas_warp.py:398 (n_levels > 1)",
              launches=k3["launches"], max_abs_err=k3["max_abs_err"],
              **warp_times(k3)),
-    ]
+    ] + [dict(name=kernel, route="cuda",
+              source=f"pano360_tpu_torch/csrc/{src}", replaces=replaces,
+              launches=launches[kernel],
+              **{k: tail[fn][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "device_ms")})
+         for fn, kernel, src, replaces in SIFT_TAIL_LINE]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,26 @@ _SIGNATURES = {
         "p360_backward_warp": [ctypes.POINTER(WarpView), _P, _I, _I, _P, _P,
                                _P, _P],
     },
+    "newton_field": {
+        # dog, field, n, n_layers + 2, h, w, stream
+        "p360_newton_field": [_P, _P, _I, _I, _I, _I, _P],
+    },
+    "sift_refine": {
+        # dog, field, l0, y0, x0, l, y, x, offs, contrast, ok, n, c,
+        # n_layers, h, w, border, iters, contrast_thresh, edge_r,
+        # (edge_r + 1)^2, stream
+        "p360_sift_refine": [_P] * 11 + [_I] * 7 + [_F] * 3 + [_P],
+    },
+    "sift_orient": {
+        # gx, gy, y, x, pcy, pcx, oh, ow, sig, angles, valid, m, psg,
+        # bins / 2 pi, 2 pi / bins, stream
+        "p360_sift_orient": [_P] * 11 + [_I, _I, _F, _F, _P],
+    },
+    "sift_descr": {
+        # gx, gy, yf, xf, sig, pcy, pcx, oh, ow, angle, desc, m, n_ori,
+        # psg, 2 pi, ori_bins / 2 pi, mag_thresh, stream
+        "p360_sift_descr": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _P],
+    },
     "backward_warp_mip": {
         # launch scalars (host), level_ptrs (host), origins, params,
         # patches, invalid, stream

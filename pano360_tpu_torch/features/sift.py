@@ -9,8 +9,15 @@ the refined-contrast compaction (``sel_shift``), 36-bin orientation with
 up to two peaks, the descriptor (``descr_mode``: the rotated 16x16
 ``grid``, or ``dense``, cv2's integer window) and a global
 top-``max_kpts``. Keypoint buffers have a fixed capacity with a validity
-mask; the keypoint stage runs in chunks (2048 candidates for ``grid``,
-256 for ``dense``, which bins 25x the samples) to bound its transients.
+mask. The Newton field, the refinement, the orientation and the grid
+descriptor run through ``ops.sift_tail``: a CUDA kernel each on a card,
+the plain versions here on the CPU. On the CPU the keypoint stage runs
+in chunks (2048 keypoints for ``grid``, 256 for ``dense``, which bins
+25x the samples) to bound its transients; on a card the two kernels take
+a batch's keypoints at once (the dense descriptor keeps its chunks).
+The orientation's and the grid descriptor's sums run in one fixed order
+(``geometry.tree_sum``), so a keypoint's result does not depend on its
+chunk and the kernels repeat it bit for bit.
 
 The fused octave op and the per-layer chain (the JAX package's CPU
 path, kept here for the octaves too small to reflect-pad) compute the
@@ -22,12 +29,13 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+from functools import partial
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from pano360_tpu_torch.geometry import det3x3, inv3x3
-from pano360_tpu_torch.ops import gauss_octave
+from pano360_tpu_torch.geometry import det3x3, inv3x3, tree_sum
+from pano360_tpu_torch.ops import gauss_octave, sift_tail
 from pano360_tpu_torch.ops.filters import blur_bhw, cv2_sift_ksize
 from pano360_tpu_torch.ops.resize import upsample2x_bilinear
 
@@ -275,10 +283,12 @@ def _extract_patches(gauss, l, y, x, ps_y: int, ps_x: int):
     return patches, cy, cx
 
 
-def _orientation_hist(gx, gy, y, x, cy, cx, sig, oh, ow, cfg: SiftConfig):
-    """Smoothed 36-bin orientation histograms of (K, psg, psg) patch
-    gradients: window radius round(4.5 sigma), Gaussian weights of
-    sigma 1.5 sigma, bins by rounded angle, cv2's circular smoothing."""
+def _orientation_samples(gx, gy, y, x, cy, cx, sig, oh, ow,
+                         cfg: SiftConfig):
+    """The orientation histogram's samples of (K, psg, psg) patch
+    gradients: (K, psg^2) weighted magnitudes (zero outside the window
+    of radius round(4.5 sigma) and the image; Gaussian weights of sigma
+    1.5 sigma) and their bins by rounded angle."""
     k, psg, _ = gx.shape
     ar = torch.arange(psg, device=gx.device)
     ay = cy[:, None, None] + 1 + ar[None, :, None]
@@ -293,13 +303,26 @@ def _orientation_hist(gx, gy, y, x, cy, cx, sig, oh, ow, cfg: SiftConfig):
     ori = torch.atan2(gy, gx)
     rr = dyc * dyc + dxc * dxc
     s15 = (1.5 * sig)[:, None, None]
-    wgt = torch.exp(rr / (-2.0 * s15 ** 2)) * inside
+    wgt = torch.exp(rr / (-2.0 * (s15 * s15))) * inside
     nb = cfg.ori_bins
     bins = torch.round(ori * (nb / (2 * math.pi))).to(torch.int64) % nb
-    val = (mag * wgt).reshape(k, -1)
-    bins = bins.reshape(k, -1)
-    hist = torch.stack([torch.where(bins == i, val, 0.0).sum(dim=1)
-                        for i in range(nb)], dim=1)
+    return (mag * wgt).reshape(k, -1), bins.reshape(k, -1)
+
+
+def _orientation_hist(gx, gy, y, x, cy, cx, sig, oh, ow, cfg: SiftConfig):
+    """Smoothed 36-bin orientation histograms of (K, psg, psg) patch
+    gradients (``_orientation_samples``), cv2's circular smoothing. The
+    plain version of ``ops.sift_tail.orientation``'s kernel."""
+    val, bins = _orientation_samples(gx, gy, y, x, cy, cx, sig, oh, ow, cfg)
+    # each bin sums its samples in one fixed order, the halving tree over
+    # the psg^2 samples zero-padded to a power of two, which the kernel
+    # repeats (a reduction on the card splits by the shape it is given)
+    n = val.shape[1]
+    pad = (0, (1 << (n - 1).bit_length()) - n)
+    val = torch.nn.functional.pad(val, pad)
+    bins = torch.nn.functional.pad(bins, pad, value=-1)
+    hist = torch.stack([tree_sum(torch.where(bins == i, val, 0.0), 1)
+                        for i in range(cfg.ori_bins)], dim=1)
     hm2, hm1 = torch.roll(hist, 2, -1), torch.roll(hist, 1, -1)
     hp1, hp2 = torch.roll(hist, -1, -1), torch.roll(hist, -2, -1)
     return (hm2 + hp2) * (1 / 16) + (hm1 + hp1) * (4 / 16) + hist * (6 / 16)
@@ -307,13 +330,16 @@ def _orientation_hist(gx, gy, y, x, cy, cx, sig, oh, ow, cfg: SiftConfig):
 
 def _peak_angles(hist: torch.Tensor, cfg: SiftConfig):
     """Up to ``n_orientations`` interpolated peak angles per histogram:
-    (angles (K, n_ori), valid (K, n_ori))."""
+    (angles (K, n_ori), valid (K, n_ori)). Peaks are taken by value, a
+    tie by the lower bin first (a stable sort), so that the kernel
+    repeats the choice, also among the non-peaks of an invalid slot."""
     nb = cfg.ori_bins
     hm1, hp1 = torch.roll(hist, 1, -1), torch.roll(hist, -1, -1)
     mx = hist.max(dim=-1, keepdim=True).values
     is_peak = (hist > hm1) & (hist > hp1) & (hist >= 0.8 * mx) & (mx > 0)
     peak_val = torch.where(is_peak, hist, -math.inf)
-    vals, idx = torch.topk(peak_val, cfg.n_orientations, dim=-1)
+    vals, idx = torch.sort(peak_val, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :cfg.n_orientations], idx[:, :cfg.n_orientations]
     hm1i, hi, hp1i = (torch.gather(a, 1, idx) for a in (hm1, hist, hp1))
     denom = hm1i - 2 * hi + hp1i
     safe = torch.where(torch.abs(denom) > 1e-12, denom, 1.0)
@@ -323,13 +349,15 @@ def _peak_angles(hist: torch.Tensor, cfg: SiftConfig):
     return bin_pos * (2 * math.pi / nb), torch.isfinite(vals)
 
 
-def _descriptors(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
-                 cfg: SiftConfig):
-    """Grid descriptors: rotated 16x16 bilinear samples of the patch
-    gradients, trilinear 4x4x8 binning, cv2 normalization.
+def _descriptor_samples(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
+                        cfg: SiftConfig):
+    """The grid descriptor's samples: rotated 16x16 bilinear samples of
+    the patch gradients, weighted. -> (val (K, n_ori, S) weighted
+    magnitudes, oh_o (K, n_ori, S, nob) orientation-bin weights, wrc (S,
+    d^2) the constant row-times-column weights of the inner spatial
+    bins).
 
-    gx/gy: (K, psg, psg) anchored at (cy+1, cx+1); angle: (K, n_ori).
-    Returns (K, n_ori, 128)."""
+    gx/gy: (K, psg, psg) anchored at (cy+1, cx+1); angle: (K, n_ori)."""
     k, psg, _ = gx.shape
     no = angle.shape[1]
     d, p, nob = cfg.descr_width, cfg.descr_samples, cfg.descr_ori_bins
@@ -371,8 +399,9 @@ def _descriptors(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
     val = mag * wgt                                     # (K, no, S)
 
     # trilinear binning: the row/col weights depend only on the fixed
-    # grid, so they fold into one constant (S, (d+2)^2) matrix; the
-    # orientation axis (2-entry wrap one-hot) varies per sample
+    # grid, so they fold into one constant (S, d^2) matrix of the inner
+    # bins (cv2's (d+2)^2 frame cropped); the orientation axis (2-entry
+    # wrap one-hot) varies per sample
     def axis_w(binc, nbins):
         i0 = torch.floor(binc)
         frac = binc - i0
@@ -384,7 +413,8 @@ def _descriptors(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
 
     oh_r = axis_w(gv + d / 2 - 0.5, d + 2)             # (S, d+2)
     oh_c = axis_w(gu + d / 2 - 0.5, d + 2)
-    wrc = (oh_r[:, :, None] * oh_c[:, None, :]).reshape(p * p, -1)
+    wrc = (oh_r[:, :, None] * oh_c[:, None, :])[:, 1:-1, 1:-1]
+    wrc = wrc.reshape(p * p, d * d)                    # (S, d^2)
     obin = ori * (nob / (2 * math.pi))
     o0f = torch.floor(obin)
     fo = obin - o0f
@@ -392,13 +422,29 @@ def _descriptors(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
     io = torch.arange(nob, device=dev)
     oh_o = ((io == o0[..., None]) * (1 - fo[..., None])
             + (io == (o0[..., None] + 1) % nob) * fo[..., None])
-    acc = torch.matmul(wrc.T, val[..., None] * oh_o)   # (K, no, 36, nob)
-    acc = acc.reshape(k, no, d + 2, d + 2, nob)[:, :, 1:-1, 1:-1]
-    acc = acc.reshape(k, no, -1)
-    nrm = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True))
+    return val, oh_o, wrc
+
+
+def _descriptors(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
+                 cfg: SiftConfig):
+    """Grid descriptors: ``_descriptor_samples`` binned trilinearly into
+    4x4x8, cv2 normalization. The plain version of
+    ``ops.sift_tail.descriptors``' kernel: each bin and both norms sum in
+    the halving tree's fixed order, which it repeats.
+
+    gx/gy: (K, psg, psg) anchored at (cy+1, cx+1); angle: (K, n_ori).
+    Returns (K, n_ori, 128)."""
+    val, oh_o, wrc = _descriptor_samples(gx, gy, yf, xf, cy, cx, sig, angle,
+                                         oh, ow, cfg)
+    # sample s adds wrc[s, rc] * (val[s] * oh_o[s, o]) to bin (rc, o);
+    # one spatial bin at a time bounds the (K, no, S, nob) terms
+    vo = val[..., None] * oh_o
+    acc = torch.stack([tree_sum(wrc[:, rc, None] * vo, -2)
+                       for rc in range(wrc.shape[1])], -2).flatten(-2)
+    nrm = torch.sqrt(tree_sum(acc * acc, -1))[..., None]
     acc = torch.minimum(acc, cfg.descr_mag_thresh
                         * torch.clamp(nrm, min=1e-12))
-    nrm2 = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True))
+    nrm2 = torch.sqrt(tree_sum(acc * acc, -1))[..., None]
     return acc / torch.clamp(nrm2, min=1e-12)
 
 
@@ -483,6 +529,19 @@ def _octave_caps(cfg: SiftConfig, n_oct: int,
     return caps
 
 
+def _chunked(fn, chunk: int, *args):
+    """``fn`` over the rows of ``args`` in chunks of ``chunk`` (one call
+    when it covers them all): the results concatenated."""
+    m = args[0].shape[0]
+    outs = [fn(*(a[c0:c0 + chunk] for a in args))
+            for c0 in range(0, m, chunk)]
+    if len(outs) == 1:
+        return outs[0]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
 def sift_extract(gray: torch.Tensor, cfg: Optional[SiftConfig] = None
                  ) -> SiftFeatures:
     """SIFT keypoints + descriptors of (N, H, W) f32 gray images in
@@ -509,8 +568,9 @@ def sift_extract(gray: torch.Tensor, cfg: Optional[SiftConfig] = None
         oh, ow = gauss.shape[2], gauss.shape[3]
         cap = min(caps[o], s * oh * ow)
         l0, y0, x0, cand_ok = _octave_candidates(dog, cfg, cap, cscore)
-        field = _newton_step_field(dog)
-        l, y, x, offs, contrast, ok = _refine(dog, field, l0, y0, x0, cfg)
+        field = sift_tail.newton_field(dog)
+        l, y, x, offs, contrast, ok = sift_tail.refine(dog, field, l0, y0,
+                                                       x0, cfg)
         ok = ok & cand_ok
         sel_cap = cap if cap < 1024 else max(cap >> cfg.sel_shift, 512)
         if sel_cap < cap:
@@ -552,22 +612,21 @@ def sift_extract(gray: torch.Tensor, cfg: Optional[SiftConfig] = None
     m = n * total
     flat = {key: v.reshape((m,) + v.shape[2:]) for key, v in cat.items()}
     no = cfg.n_orientations
-    angles = torch.empty((m, no), device=gray.device)
-    avalid = torch.empty((m, no), dtype=torch.bool, device=gray.device)
-    descs = torch.empty((m, no, cfg.dim), device=gray.device)
-    describe = _descriptors if cfg.descr_mode == "grid" else _descriptors_dense
+    # a kernel has no transients to bound: on a card the orientation and
+    # the grid descriptor take every keypoint of the batch in one launch
+    # (each keypoint's result is the same in any chunk)
     chunk = KP_CHUNK[cfg.descr_mode]
-    for c0 in range(0, m, chunk):
-        c = {key: v[c0:c0 + chunk] for key, v in flat.items()}
-        hist = _orientation_hist(c["gxp"], c["gyp"], c["y"], c["x"],
-                                 c["pcy"], c["pcx"], c["sig"], c["oh"],
-                                 c["ow"], cfg)
-        ang, av = _peak_angles(hist, cfg)
-        angles[c0:c0 + chunk] = ang
-        avalid[c0:c0 + chunk] = av
-        descs[c0:c0 + chunk] = describe(
-            c["gxp"], c["gyp"], c["yf"], c["xf"], c["pcy"], c["pcx"],
-            c["sig"], ang, c["oh"], c["ow"], cfg)
+    on_card = gray.device.type == "cuda"
+    grid = cfg.descr_mode == "grid"
+    angles, avalid = _chunked(
+        partial(sift_tail.orientation, cfg=cfg), m if on_card else chunk,
+        *(flat[key] for key in ("gxp", "gyp", "y", "x", "pcy", "pcx", "sig",
+                                "oh", "ow")))
+    descs = _chunked(
+        partial(sift_tail.descriptors if grid else _descriptors_dense,
+                cfg=cfg), m if on_card and grid else chunk,
+        *(flat[key] for key in ("gxp", "gyp", "yf", "xf", "pcy", "pcx",
+                                "sig")), angles, flat["oh"], flat["ow"])
 
     angles = angles.reshape(n, total, no)
     avalid = avalid.reshape(n, total, no)

@@ -16,6 +16,17 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` (a power-of-two length) by pairwise halving adds
+    (x[:n/2] + x[n/2:], until one is left): elementwise, so every sum
+    has one order whatever the shape around it, and a kernel can repeat
+    it (on the card a reduction's split follows the shape it is given)."""
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
 def det3x3(m: torch.Tensor) -> torch.Tensor:
     """Closed-form batched 3x3 determinant."""
     return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2]
@@ -238,5 +249,5 @@ __all__ = [
     "Camera", "cam_hom", "cam_proj", "hom_to_from", "intrinsics",
     "cross_mat", "exp_so3", "log_so3", "nearest_rotation", "SphProj",
     "CylProj", "PROJECTIONS", "focal_from_hom", "params_to_camera",
-    "camera_to_params", "straighten", "det3x3", "inv3x3",
+    "camera_to_params", "straighten", "det3x3", "inv3x3", "tree_sum",
 ]

@@ -29,9 +29,11 @@ import torch
 
 
 def _kernel_counters():
-    """The modules whose ``launches`` count the port's kernels."""
-    from pano360_tpu_torch.ops import gauss_octave, warp_kernel, warp_mip
-    return gauss_octave, warp_kernel, warp_mip
+    """What counts the port's kernels' launches, each in ``launches``:
+    the modules of one kernel each, and SIFT's tail's counts."""
+    from pano360_tpu_torch.ops import (gauss_octave, sift_tail, warp_kernel,
+                                       warp_mip)
+    return (gauss_octave, warp_kernel, warp_mip) + sift_tail.COUNTS
 
 
 class Launches:

@@ -74,12 +74,21 @@ per version and half: the seconds of each run (host clock ending in a
 device sync) and their median, the device operations and busy
 milliseconds of one more run (``torch.profiler``), the host syncs of one
 more (by source line), and whether its features and match graph are
-this tree's replayed ones bit for bit.
+this tree's replayed ones bit for bit; each version but the replayed one
+also against it as features that may differ (``features_against``). On
+the bench world each tree's eager steps are also split by stage
+(``stage_split``), in turns (this tree, the others, then reversed): the
+device time and operations of the gray image and upload, the base, the
+scale space, the candidates, the Newton field, the refinement, the
+compaction and patches, the orientation, the descriptor, and the final
+top-k with the keypoint stage's copies.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -786,6 +795,162 @@ def synced(fn):
     return time.perf_counter() - t0, out
 
 
+# the extraction's stages and the functions that run them: names in the
+# SIFT module, or "sift_tail.<name>" in the kernels of its tail
+SIFT_STAGES = (
+    ("base", ("_base_image",)),
+    ("scale space", ("_gauss_and_dog",)),
+    ("candidates", ("_octave_candidates",)),
+    ("Newton field", ("_newton_step_field", "sift_tail.newton_field")),
+    ("refine", ("_refine", "sift_tail.refine")),
+    ("compaction and patches", ("_extract_patches",)),
+    ("orientation", ("_orientation_hist", "_peak_angles",
+                     "sift_tail.orientation")),
+    ("descriptor", ("_descriptors", "_descriptors_dense",
+                    "sift_tail.descriptors")),
+)
+_STAGE = "sift stage: "
+
+
+@contextlib.contextmanager
+def stage_ranges(sift):
+    """Inside, each function of ``SIFT_STAGES`` found in the SIFT module
+    ``sift`` (this tree's or another checkout's) runs in a
+    ``record_function`` range named for its stage."""
+    saved = []
+    for stage, names in SIFT_STAGES:
+        for name in names:
+            owner, attr = sift, name
+            if "." in name:
+                mod, attr = name.split(".")
+                owner = getattr(sift, mod, None)
+            fn = getattr(owner, attr, None)
+            if fn is None:
+                continue
+
+            def ranged(*a, _fn=fn, _label=_STAGE + stage, **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **kw)
+            saved.append((owner, attr, fn))
+            setattr(owner, attr, ranged)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+@contextlib.contextmanager
+def recording(module, names):
+    """Inside, each function ``names`` of ``module`` keeps its arguments
+    before it runs: yields {name: [(args, kwargs), ...]}."""
+    calls = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def spy(name):
+        def fn(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return saved[name](*args, **kwargs)
+        return fn
+    for name in names:
+        setattr(module, name, spy(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def _stage_of(t: float, ranges, starts) -> str:
+    """The stage of host time ``t``: the innermost range around it, else
+    by the range before it (none: the gray image and the upload; the
+    keypoint stage: the final top-k and the keypoint stage's copies; any
+    other: the compaction and the patches)."""
+    i = bisect.bisect_right(starts, t) - 1
+    for j in range(i, max(i - 4, -1), -1):
+        if ranges[j][1] >= t:
+            return ranges[j][2]
+    if i < 0:
+        return "gray and upload"
+    if ranges[i][2] in ("orientation", "descriptor"):
+        return "final top-k and copies"
+    return "compaction and patches"
+
+
+def stage_split(fn, sift) -> dict:
+    """The device time and operations of one eager ``fn()`` by stage of
+    the SIFT extraction (``SIFT_STAGES``), from ``torch.profiler``: each
+    device operation belongs to the CUDA runtime call that launched it
+    (the same correlation id; PyTorch's kernels and those launched
+    through ``ctypes`` alike), and that one to its stage by host time.
+    -> {stage: {"ms", "ops"}} with "total" (every device operation of
+    the run) and "unattributed" (no launching call found)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with stage_ranges(sift), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end,
+                     e.name[len(_STAGE):]) for e in events
+                    if e.device_type == DeviceType.CPU
+                    and e.name.startswith(_STAGE))
+    starts = [r[0] for r in ranges]
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith(("cuda", "cu"))}
+    out = collections.defaultdict(lambda: dict(ms=0.0, ops=0))
+    total = dict(ms=0.0, ops=0)
+    for e in events:
+        if (e.device_type != DeviceType.CUDA
+                or e.name.startswith(_STAGE)):   # the ranges' own spans
+            continue
+        t = launched.get(e.id)
+        for row in (total, out["unattributed"] if t is None else
+                    out[_stage_of(t, ranges, starts)]):
+            row["ms"] += e.time_range.elapsed_us() / 1e3
+            row["ops"] += 1
+    out["total"] = total
+    return dict(out)
+
+
+def features_against(feats, res, ref_feats, ref_res) -> dict:
+    """Features and match graph of one version against another's: the
+    share of the valid keypoints whose position is among the other's
+    valid ones (per image, as multisets), the largest angle (on the
+    circle) and descriptor differences between keypoints at the same
+    position (each the nearest in angle), and whether the two match
+    graphs have the same edges."""
+    a, b = ([t.cpu().numpy() for t in (f.xy, f.angle, f.desc, f.valid)]
+            for f in (feats, ref_feats))
+    same = total = 0
+    dang = ddesc = 0.0
+    for i in range(a[0].shape[0]):
+        va, vb = a[3][i], b[3][i]
+        theirs = collections.defaultdict(list)
+        for xy, ang, desc in zip(b[0][i][vb], b[1][i][vb], b[2][i][vb]):
+            theirs[xy.tobytes()].append((ang, desc))
+        total += max(int(va.sum()), int(vb.sum()))
+        for xy, ang, desc in zip(a[0][i][va], a[1][i][va], a[2][i][va]):
+            cands = theirs.get(xy.tobytes())
+            if not cands:
+                continue
+            k = min(range(len(cands)), key=lambda j: abs(np.angle(
+                np.exp(1j * (float(cands[j][0]) - float(ang))))))
+            other_ang, other_desc = cands.pop(k)
+            same += 1
+            dang = max(dang, abs(float(np.angle(np.exp(
+                1j * (float(other_ang) - float(ang)))))))
+            ddesc = max(ddesc, float(np.abs(other_desc - desc).max()))
+    mine, other = ({(int(i), int(j)) for i in m for j in m[i]}
+                   for m in (res[1].item(), ref_res[1].item()))
+    return dict(keypoints_same_share=same / max(total, 1),
+                angle_max_diff=dang, desc_max_diff=ddesc,
+                match_edges_equal=mine == other)
+
+
 def features_main(args, smi: str, device="cuda"):
     """``--features``: the extraction and the match graph, each timed
     alone, replayed, eager and in each other checkout, in turns."""
@@ -797,9 +962,12 @@ def features_main(args, smi: str, device="cuda"):
                                             capture=False),
                           functools.partial(pipeline.matching,
                                             capture=False))}
+    # each tree's eager steps and SIFT module, for the stage split
+    splits = {"eager": (pipeline.upload_extract, pipeline.S)}
     for tree in args.features:
         other = _import_tree(tree)
         versions[str(tree)] = (other.upload_extract, other.matching)
+        splits[str(tree)] = (other.upload_extract, other.S)
     worlds = [("bench", bench_views()[1]), ("mixed", bench_mixed_views()[0])]
     for name, u8 in worlds:
         def extract(v):
@@ -828,12 +996,21 @@ def features_main(args, smi: str, device="cuda"):
             row["match_graph_identical"] = bool(
                 all(np.array_equal(a, b) for a, b in zip(kpts, ref_kpts))
                 and matches_equal(matches, ref_matches))
+            if v != "replayed":
+                row["against_replayed"] = features_against(
+                    feats, (kpts, matches), ref_feats,
+                    (ref_kpts, ref_matches))
             for half, fn in (("extract", lambda: extract(v)),
                              ("match", lambda: graph(v, feats))):
                 row[f"{half}_ops"], row[f"{half}_busy_ms"] = _device_ops(fn)
                 _, sites = host_syncs(fn)
                 row[f"{half}_host_syncs"] = sum(sites.values())
                 row[f"{half}_sync_sites"] = sites
+        if name == "bench":             # the stage split, in turns
+            for v in list(splits) + list(splits)[::-1]:
+                upload, sift = splits[v]
+                rows[v].setdefault("stages", []).append(stage_split(
+                    lambda: upload(u8, dev, capture=False), sift))
         print(json.dumps(dict(world=name, views=len(u8), shapes=sorted(
             {im.shape[:2] for im in u8}), versions=rows)), flush=True)
     print(json.dumps(dict(card=smi)), flush=True)

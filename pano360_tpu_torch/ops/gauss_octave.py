@@ -138,11 +138,17 @@ def octave_stack_cost(n: int, h: int, w: int, taps, score: bool = True):
     nl = len(taps)
     px = n * h * w
     planes = 1 + (nl + 1) + nl + (nl - 2 if score else 0)
-    nbytes = 4 * px * planes
     ops = sum(4 * len(t) for t in taps) + nl
     if score:
         ops += SCORE_OPS * (nl - 2)
-    flops = px * ops
+    return bound(4 * px * planes, px * ops)
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time of work that moves ``nbytes`` and does ``flops``
+    f32 operations on an H100: the larger of bytes over its memory rate
+    and operations over its f32 peak. -> dict(bytes, flops, bytes_ms,
+    flops_ms, bound_ms, bound_by)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / F32_FLOPS_PER_S * 1e3
     return dict(bytes=nbytes, flops=flops, bytes_ms=bytes_ms,
@@ -296,5 +302,5 @@ def launch(entry, base: torch.Tensor, taps, score_cfg=None):
 
 
 __all__ = ["chain_taps", "chain_halo", "reflect_legal", "octave_stack",
-           "octave_stack_ref", "octave_stack_cost", "kernel_tile",
+           "octave_stack_ref", "octave_stack_cost", "bound", "kernel_tile",
            "kernel_taps_per_px"]

@@ -90,15 +90,6 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` (a power-of-two length) by pairwise halving adds:
-    elementwise, as ``_mm``."""
-    while x.shape[dim] > 1:
-        h = x.shape[dim] // 2
-        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
-    return x.squeeze(dim)
-
-
 def _dk(dtype, device) -> torch.Tensor:
     """dK / d(f, cx, cy): three constant basis matrices, (3, 3, 3)."""
     dk = torch.zeros((3, 3, 3), dtype=dtype, device=device)
@@ -198,7 +189,7 @@ class Problem:
     residual sums, the 6x6 blocks and 6-vectors of the normal equations),
     then one reduction over the E edges. The per-edge terms come from
     per-camera factors (``_camera_terms``, over all C cameras) by
-    elementwise operations only (``_mm``, ``_tree_sum`` over the points,
+    elementwise operations only (``_mm``, ``geo.tree_sum`` over the points,
     padded to a power of two with masked points): an edge's terms have
     the same bits whichever edges are computed beside it. With a ``mesh``
     (``parallel.mesh.Mesh``) each rank holds a contiguous shard of ceil(E
@@ -259,8 +250,8 @@ class Problem:
         _, res, _, _ = self._residuals(_rows(terms, self.cam1),
                                        _rows(terms, self.cam2), mask)
         sq = res[..., 0] * res[..., 0] + res[..., 1] * res[..., 1]
-        sums = self._gather(torch.stack([_tree_sum(sq, 1),
-                                         _tree_sum(mask, 1)], dim=1))
+        sums = self._gather(torch.stack([geo.tree_sum(sq, 1),
+                                         geo.tree_sum(mask, 1)], dim=1))
         return sums[:, 0], sums[:, 1]
 
     def loss(self, params, mask) -> torch.Tensor:
@@ -291,7 +282,7 @@ class Problem:
 
         def outer(x, y):
             return (x[..., :, None] * y[..., None, :]).flatten(-2)
-        sums = _tree_sum(torch.cat([
+        sums = geo.tree_sum(torch.cat([
             outer(a, a), outer(a, c0), outer(a, c1),
             outer(c0, c0) + outer(c1, c1),
             a * r0, a * r1, c0 * r0 + c1 * r1], dim=-1), 1)    # (S, 45)

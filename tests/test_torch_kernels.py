@@ -24,6 +24,7 @@ from pano360_tpu_torch import render
 from pano360_tpu_torch import synth
 from pano360_tpu_torch.features import sift as S
 from pano360_tpu_torch.ops import gauss_octave as G
+from pano360_tpu_torch.ops import sift_tail as T
 from pano360_tpu_torch.ops import warp_kernel as W
 from pano360_tpu_torch.ops import warp_mip as M
 from pano360_tpu_torch.ops.color import bgr2gray
@@ -543,7 +544,8 @@ def test_features_replayed_equal_eager_on_card():
     against the same steps run eagerly on the card (five views: a batch
     of 4 and a short one; ten pairs in chunks of 4 and a short one):
     features, stack and match rows bit for bit; the octave kernel's
-    launches of a replayed extraction those of an eager one; no host sync
+    launches and SIFT's tail's of a replayed extraction those of an eager
+    one; no host sync
     in a replayed extraction, one per chunk (``eigh``) and one for the
     rows in a replayed match graph."""
     from pano360_tpu_torch import match as pm
@@ -556,9 +558,10 @@ def test_features_replayed_equal_eager_on_card():
     pairs = [(a, b) for a in range(5) for b in range(a + 1, 5)]
     out, launches = {}, {}
     for capture in (True, False, True):     # capture, eager, replay only
-        G.launches = 0
+        for c in (G,) + T.COUNTS:
+            c.launches = 0
         stack, feats = pipeline.upload_extract(u8, dev, capture=capture)
-        launches[capture] = G.launches
+        launches[capture] = [c.launches for c in (G,) + T.COUNTS]
         _, kp, ds, va, _ = pipeline.sift_buffers(u8, feats)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -572,9 +575,89 @@ def test_features_replayed_equal_eager_on_card():
     assert all(a.dtype == b.dtype and a.shape == b.shape
                and a.tobytes() == b.tobytes() for a, b in zip(rr, re))
     assert rr.ok.sum() >= 4
-    assert launches[True] == launches[False] > 0
+    # two batches of 7 octaves: the octave kernel on the 4 legal ones,
+    # the Newton field and the refinement on all, the keypoint stage once
+    assert launches[True] == launches[False] == [8, 14, 14, 2, 2]
     _, sites = host_syncs(lambda: pipeline.upload_extract(u8, dev))
     assert not sites, sites
     _, sites = host_syncs(lambda: pm.match_all_pairs(kp, ds, va, pairs, 4,
                                                      generator=gen))
     assert sum(sites.values()) == 3 + 1, sites
+
+
+# ---------------------------------------------------------------------------
+# SIFT's tail on the card
+# ---------------------------------------------------------------------------
+
+TAIL = ("newton_field", "refine", "orientation", "descriptors")
+
+
+def _tail_plain(name):
+    return dict(newton_field=S._newton_step_field, refine=S._refine,
+                orientation=lambda *a, cfg: S._peak_angles(
+                    S._orientation_hist(*a, cfg), cfg),
+                descriptors=S._descriptors)[name]
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _bits(a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def _tail_calls(shape, n, dev, descr_mode="grid"):
+    """The four wrappers' arguments in one extraction on the card of n
+    synthetic views of ``shape``."""
+    from pano360_tpu_torch.measure import recording
+    imgs, _, _ = synth.make_views(n_views=n, shape=shape, seed=4)
+    gray = bgr2gray(torch.as_tensor(np.stack(imgs), device=dev))
+    with recording(T, TAIL) as calls:
+        S.sift_extract(gray, S.SiftConfig(descr_mode=descr_mode))
+    return calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n,mode", [((864, 1152), 4, "grid"),
+                                          ((54, 72), 1, "grid"),
+                                          ((54, 72), 3, "grid"),
+                                          ((54, 72), 2, "dense")])
+def test_sift_tail_kernels_match_plain_on_card(shape, n, mode):
+    """Every call of the four kernels in an extraction against its plain
+    version bit for bit, and a second launch the same bits: the bench's
+    views (octave 0 of 4 x 1728x2304), ragged small octaves (27x36 and
+    below) with 1 and 3 views, and the dense mode's 80x80 patches (the
+    orientation kernel only)."""
+    dev = _cuda()
+    calls = _tail_calls(shape, n, dev, mode)
+    assert [len(calls[k]) > 0 for k in TAIL] == [True] * 3 + [mode == "grid"]
+    for name in TAIL:
+        for args, kw in calls[name]:
+            got = _tuple(getattr(T, name)(*args, **kw))
+            again = _tuple(getattr(T, name)(*args, **kw))
+            want = _tuple(_tail_plain(name)(*args, **kw))
+            torch.cuda.synchronize()
+            assert all(_bits(a, b) and _bits(a, c)
+                       for a, b, c in zip(got, want, again)), name
+
+
+@pytest.mark.gpu
+def test_sift_tail_kernels_reject_bad_input():
+    dev = _cuda()
+    calls = _tail_calls((54, 72), 1, dev)
+    (dog,), _ = calls["newton_field"][0]
+    with pytest.raises(ValueError, match="dog must be"):
+        T.newton_field(dog.double())
+    dog, field, l0, y0, x0, cfg = calls["refine"][0][0]
+    with pytest.raises(ValueError, match="l0 must be"):
+        T.refine(dog, field, l0.int(), y0, x0, cfg)
+    args, kw = calls["orientation"][0]
+    with pytest.raises(ValueError, match="36 bins"):
+        T.orientation(*args, cfg=S.SiftConfig(ori_bins=24))
+    with pytest.raises(ValueError, match="gx must be"):
+        T.orientation(args[0][:, :, :-1], *args[1:], **kw)
+    args, kw = calls["descriptors"][0]
+    with pytest.raises(ValueError, match="4x4 bins"):
+        T.descriptors(*args, cfg=S.SiftConfig(descr_width=3))

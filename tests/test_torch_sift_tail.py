@@ -1,0 +1,249 @@
+"""SIFT's tail (``pano360_tpu_torch.ops.sift_tail``): the plain versions
+of its four kernels held against the JAX package on the CPU, and the
+wrappers' dispatch.
+
+Inputs come from the port's own extraction of two numpy-seeded 48x64
+views (upscaled octaves of 96x128 down to 6x8), recorded at the four
+wrappers, plus numpy-seeded DoG stacks and gradient patches. The JAX
+side runs as its own tests run it on the CPU; the Newton field op by op
+(``jax.disable_jit()``: eager operations contract no a*b+c).
+
+Tolerances (measured on these inputs in brackets): the Newton field
+equal on every pixel; the refinement's positions and ``ok`` equal,
+offsets and contrast within 1e-6 (JAX solves with a matrix product;
+9.5e-7 and 0); the orientation histograms within 1e-5 of each
+histogram's largest bin (JAX sums each bin by a one-hot dot, the port in
+the halving tree's order; 2.2e-7), the valid flags equal on >= 99 %
+(all) and the angles within 1e-5 rad where both are valid (9.6e-7), on
+grid (64x64) and dense (80x80) patches; descriptors within 1e-5 on >=
+99 % of them (all within 2e-7), the bar of ``test_sift_matches_jax``
+being 1e-4.
+With the fixed summation order the keypoint stage gives every keypoint
+the same bits in any chunk (2048 or 256 keypoints).
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from pano360_tpu import synth
+from pano360_tpu.features import sift as jsift
+
+from pano360_tpu_torch import pipeline as tpipe
+from pano360_tpu_torch.features import sift as tsift
+from pano360_tpu_torch.measure import recording
+from pano360_tpu_torch.ops import sift_tail as T
+
+torch.set_num_threads(1)
+
+WRAPPERS = ("newton_field", "refine", "orientation", "descriptors")
+CFG = tsift.SiftConfig(max_kpts=1024, descr_mode="grid")
+JCFG = jsift.SiftConfig(max_kpts=1024)
+
+
+@pytest.fixture(scope="module")
+def calls():
+    """The four wrappers' arguments in one CPU extraction of two views."""
+    imgs, _, _ = synth.make_views(n_views=2, shape=(48, 64), seed=3)
+    u8 = np.stack([(im * 255).astype(np.uint8) for im in imgs])
+    with recording(T, WRAPPERS) as rec:
+        tpipe.gray_extract(torch.as_tensor(u8), CFG)
+    return rec
+
+
+def _flat(calls, name, n):
+    """The first ``n`` keypoints of the keypoint stage's recorded
+    chunks, every argument concatenated."""
+    parts = [args for args, _ in calls[name]]
+    return tuple(torch.cat(xs)[:n] for xs in zip(*parts))
+
+
+def _np(*ts):
+    return [jnp.asarray(t.numpy()) for t in ts]
+
+
+def _patches(seed, k, psg):
+    """Numpy-seeded gradient patches and keypoints in and near them (some
+    at the image's border): gx, gy, y, x, pcy, pcx, sig, oh, ow."""
+    rng = np.random.default_rng(seed)
+    gx = (rng.standard_normal((k, psg, psg)) * 0.05).astype(np.float32)
+    gy = (rng.standard_normal((k, psg, psg)) * 0.05).astype(np.float32)
+    y = rng.integers(5, 120, k)
+    x = rng.integers(5, 140, k)
+    pcy = np.clip(y - psg // 2 - 1 + rng.integers(-3, 4, k), 0, None)
+    pcx = np.clip(x - psg // 2 - 1 + rng.integers(-3, 4, k), 0, None)
+    sig = rng.uniform(1.6, 3.6, k).astype(np.float32)
+    oh = rng.choice([125, 160], k)
+    ow = rng.choice([145, 170], k)
+    ints = [torch.from_numpy(a.astype(np.int64)) for a in (y, x, pcy, pcx)]
+    return (torch.from_numpy(gx), torch.from_numpy(gy), *ints,
+            torch.from_numpy(sig), torch.from_numpy(oh.astype(np.int64)),
+            torch.from_numpy(ow.astype(np.int64)))
+
+
+def test_recorded_extraction_reaches_every_wrapper(calls):
+    """Five octaves, the keypoint stage in chunks of 2048 on the CPU."""
+    assert [len(calls[k]) for k in WRAPPERS] == [5, 5, 2, 2]
+    assert calls["orientation"][0][0][0].shape[1:] == (64, 64)
+
+
+@pytest.mark.parametrize("which", ["octave 0", "octave 2", "random 33x41"])
+def test_newton_field_plain_matches_jax(calls, which):
+    if which.startswith("octave"):
+        dog = calls["newton_field"][int(which[-1])][0][0]
+    else:
+        rng = np.random.default_rng(7)
+        dog = torch.from_numpy(
+            (rng.standard_normal((2, 5, 33, 41)) * 0.02).astype(np.float32))
+    ours = tsift._newton_step_field(dog).numpy()
+    with jax.disable_jit():
+        theirs = np.asarray(jsift._newton_step_field(*_np(dog)))
+    assert ours.dtype == theirs.dtype == np.int32
+    np.testing.assert_array_equal(ours, theirs)
+    # both tails of the step distribution and convergence occur
+    assert (ours & 1).any() and (((ours >> 1) & 3) == 0).any()
+
+
+@pytest.mark.parametrize("octave", [0, 2])
+def test_refine_plain_matches_jax(calls, octave):
+    dog, field, l0, y0, x0, cfg = calls["refine"][octave][0]
+    l, y, x, offs, contrast, ok = tsift._refine(dog, field, l0, y0, x0, cfg)
+    for i in range(dog.shape[0]):
+        d, f = _np(dog[i], field[i])
+        one = jax.vmap(lambda a, b, c: jsift._refine_one(d, f, a, b, c, JCFG))
+        jl, jy, jx, joffs, jcon, jok = (np.asarray(t) for t in one(
+            *_np(l0[i], y0[i], x0[i])))
+        for a, b in ((l, jl), (y, jy), (x, jx), (ok, jok)):
+            np.testing.assert_array_equal(a[i].numpy(), b)
+        np.testing.assert_allclose(offs[i].numpy(), joffs, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(contrast[i].numpy(), jcon, rtol=0,
+                                   atol=1e-6)
+    assert ok.sum() > 10
+
+
+def _jax_orientation(args, cfg):
+    gx, gy, y, x, pcy, pcx, sig, oh, ow = _np(*args)
+    hist = jax.vmap(lambda *a: jsift._orientation_from_patch(*a, cfg))(
+        gx, gy, y, x, pcy, pcx, sig, oh, ow)
+    ang, valid = jax.vmap(lambda h: jsift._peak_angles(h, cfg))(hist)
+    return np.asarray(hist), np.asarray(ang), np.asarray(valid)
+
+
+@pytest.mark.parametrize("case", ["recorded", "grid 64", "dense 80"])
+def test_orientation_plain_matches_jax(calls, case):
+    if case == "recorded":
+        args = _flat(calls, "orientation", 256)
+    else:
+        args = _patches(11, 64, int(case.split()[1]))
+    hist = tsift._orientation_hist(*args, CFG)
+    ang, valid = (t.numpy() for t in tsift._peak_angles(hist, CFG))
+    hist = hist.numpy()
+    jhist, jang, jvalid = _jax_orientation(args, JCFG)
+    scale = np.abs(jhist).max(axis=1, keepdims=True)
+    assert (np.abs(hist - jhist) <= 1e-5 * scale).all()
+    assert (valid == jvalid).mean() >= 0.99
+    both = valid & jvalid
+    assert both[:, 0].mean() > 0.9
+    dang = np.abs(np.angle(np.exp(1j * (ang[both] - jang[both]))))
+    assert dang.max() <= 1e-5
+
+
+def _jax_descriptors(args, cfg):
+    one = jax.vmap(lambda *a: jsift._descriptor_from_patch(*a, cfg),
+                   in_axes=(None,) * 7 + (0, None, None))
+    return np.asarray(jax.vmap(one)(*_np(*args)))
+
+
+def test_descriptors_plain_matches_jax(calls):
+    args = _flat(calls, "descriptors", 256)
+    ours = tsift._descriptors(*args, CFG).numpy()
+    theirs = _jax_descriptors(args, JCFG)
+    err = np.abs(ours - theirs).max(axis=-1)
+    assert (err <= 1e-5).mean() >= 0.99, np.quantile(err, 0.99)
+    assert err.max() <= 1e-4
+    norms = np.linalg.norm(ours, axis=-1)
+    assert np.abs(norms[norms > 0] - 1).max() <= 1e-5
+
+
+@pytest.mark.parametrize("chunk", [2048, 256])
+@pytest.mark.parametrize("name", ["orientation", "descriptors"])
+def test_keypoint_stage_chunks_change_no_bit(calls, name, chunk):
+    """2304 keypoints in one call and in chunks, bit for bit."""
+    args = _flat(calls, name, 2304)
+    fn = getattr(T, name)
+    whole = fn(*args, cfg=CFG)
+    parts = tsift._chunked(lambda *a: fn(*a, cfg=CFG), chunk, *args)
+    whole = whole if isinstance(whole, tuple) else (whole,)
+    parts = parts if isinstance(parts, tuple) else (parts,)
+    assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(whole, parts))
+
+
+def test_peak_angles_ties_take_the_lower_bin():
+    """Equal peaks: the lower bin first; one peak: the second slot the
+    lowest other bin, invalid."""
+    hist = torch.zeros((2, 36))
+    hist[0, [4, 20]] = 1.0
+    hist[1, 7] = 1.0
+    ang, valid = tsift._peak_angles(hist, CFG)
+    step = 2 * math.pi / 36
+    np.testing.assert_allclose(ang[0].numpy(), [4 * step, 20 * step],
+                               rtol=1e-6)
+    assert valid[0].tolist() == [True, True]
+    np.testing.assert_allclose(ang[1, 0].item(), 7 * step, rtol=1e-6)
+    assert valid[1].tolist() == [True, False]
+    assert ang[1, 1].item() == 0.0
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrapper_cpu_takes_plain_version(calls, name):
+    args, kw = calls[name][0]
+    before = [c.launches for c in T.COUNTS]
+    out = getattr(T, name)(*args, **kw)
+    plain = dict(newton_field=tsift._newton_step_field, refine=tsift._refine,
+                 orientation=lambda *a, cfg: tsift._peak_angles(
+                     tsift._orientation_hist(*a, cfg), cfg),
+                 descriptors=tsift._descriptors)[name](*args, **kw)
+    assert [c.launches for c in T.COUNTS] == before
+    out = out if isinstance(out, tuple) else (out,)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrapper_rejects_unknown_device(calls, name):
+    args, kw = calls[name][0]
+    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    with pytest.raises(ValueError, match="unsupported device"):
+        getattr(T, name)(*meta, **kw)
+
+
+def test_orientation_cost_counts_the_window(calls):
+    """The samples ``orientation_cost`` counts are those whose weight
+    the window and the image leave on: counted here one by one."""
+    gx, gy, y, x, pcy, pcx, sig, oh, ow = _flat(calls, "orientation", 512)
+    psg = gx.shape[1]
+    ar = torch.arange(psg)
+    ay = pcy[:, None, None] + 1 + ar[None, :, None]
+    ax = pcx[:, None, None] + 1 + ar[None, None, :]
+    r = torch.round(4.5 * sig)[:, None, None]
+    inside = (((ay - y[:, None, None]).abs() <= r)
+              & ((ax - x[:, None, None]).abs() <= r)
+              & (ay >= 1) & (ay <= oh[:, None, None] - 2)
+              & (ax >= 1) & (ax <= ow[:, None, None] - 2))
+    cost = T.orientation_cost(y, x, pcy, pcx, sig, oh, ow, psg)
+    m = y.numel()
+    assert cost["bytes"] == 8 * int(inside.sum()) + m * 52 + m * 10
+    assert cost["bound_by"] == "bytes"
+
+
+def test_refine_cost_counts_distinct_words(calls):
+    dog, field, l0, y0, x0, cfg = calls["refine"][0][0]
+    cost = T.refine_cost(field, l0, y0, x0, cfg)
+    cands = l0.numel()
+    words = (cost["bytes"] - cands * 141) // 4
+    assert cands <= words <= cands * cfg.refine_iters
