@@ -13,8 +13,9 @@ Phases (any failure exits non-zero):
    every octave of the bench images where the kernel runs (batch 4):
    bit for bit and no score flip at every octave; each octave's kernel
    time, its bound and the share of the bound;
-   B. SIFT's tail (``ops.sift_tail``: the Newton field, the refinement,
-   the orientation and the grid descriptor) vs the plain versions, bit for
+   B. SIFT's tail (``ops.sift_tail``: the refinement with its Newton
+   steps, the orientation and the grid descriptor) vs the plain versions
+   (the refinement's: the steps on the dense Newton field), bit for
    bit, on the inputs of the bench world's first upload batch (its 9
    octaves' DoG stacks and candidates, its keypoints), recorded from one
    eager extraction: each kernel's launch, device time with the L2
@@ -31,8 +32,8 @@ Phases (any failure exits non-zero):
    extraction's and the match graph's CUDA graphs) and a warm one
    (replays), per-stage seconds, peak device memory (allocated, and
    reserved by where the allocator keeps it), kernel launch
-   counts (the warm run's are the main path's: SIFT's tail 36, 36, 4 and
-   4 inside the replays), three more warm runs'
+   counts (the warm run's are the main path's: SIFT's tail 36, 4 and 4
+   inside the replays), three more warm runs'
    stage seconds, registration accuracy against the synthetic ground
    truth, and a cached re-run; SIFT's extraction and the match graph
    replayed against the same steps run eagerly (features and match rows
@@ -46,7 +47,7 @@ Phases (any failure exits non-zero):
    ``torch.profiler``: device busy time, the device's idle share, the
    device operations that take the most time, and the kernels' entries;
    the launches of the octave kernel and of SIFT's tail in the profile
-   (inside the replays) equal to their counts;
+   (inside the replays) equal to their counts, SIFT's tail's 36, 4 and 4;
 7. render options, each path with the kernel counts set to 0 just
    before it and read just after:
    B. ``-e -c --warp pallas`` on the bench views at known per-view
@@ -133,13 +134,13 @@ the samples, texels and field words its inputs need). ``library_ms``
 times ``torch.nn.functional.grid_sample`` (bilinear, reflection,
 align_corners=False) on each warp's own sample grid, built outside the
 timed window: the gather alone, without the ray mapping, the mask or
-the seam; no PyTorch call computes the octave stack, the Newton field
-or the refinement (null); for the orientation the one-hot
+the seam; no PyTorch call computes the octave stack or the refinement
+(null); for the orientation the one-hot
 ``torch.matmul`` of the histogram and for the descriptor the binning's
 contraction (``torch.matmul``), the JAX package's forms, inputs built
-outside the timed window. The Newton field's and the refinement's
-``ms``, ``plain_ms`` and ``bound_ms`` are per upload batch (9 launches
-each), the other kernels' per launch; SIFT's tail's entries also carry
+outside the timed window. The refinement's ``ms``, ``plain_ms`` and
+``bound_ms`` are per upload batch (9 launches), the other kernels' per
+launch; SIFT's tail's entries also carry
 ``device_ms``.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
@@ -277,18 +278,19 @@ def phase_octave(torch, u8):
 # SIFT's tail: (wrapper, kernel and count name, source, the JAX
 # computation replaced)
 SIFT_TAIL_LINE = (
-    ("newton_field", "newton_field", "newton_field.cu",
-     "pano360_tpu/features/sift.py:403 (XLA fusion)"),
     ("refine", "sift_refine", "sift_refine.cu",
-     "pano360_tpu/features/sift.py:488 (XLA fusion)"),
+     "pano360_tpu/features/sift.py:403 and :488 (XLA fusion)"),
     ("orientation", "sift_orient", "sift_orient.cu",
      "pano360_tpu/features/sift.py:594 and :635 (XLA fusion)"),
     ("descriptors", "sift_descr", "sift_descr.cu",
      "pano360_tpu/features/sift.py:658 and :741 (XLA fusion)"))
 SIFT_TAIL = tuple(row[0] for row in SIFT_TAIL_LINE)
+# SIFT's tail's launches per warm panorama on the main path (inside the
+# replays): the refinement at each of the 9 octaves of 4 upload batches,
+# the orientation and the descriptor once a batch
+TAIL_LAUNCHES = dict(sift_refine=36, sift_orient=4, sift_descr=4)
 # device names of the kernels whose launches phase 6 holds to the profile
 PROFILED = {"octave_stack": "octave_stack_kernel",
-            "newton_field": "p360_newton_field_kernel",
             "sift_refine": "p360_sift_refine_kernel",
             "sift_orient": "p360_sift_orient_kernel",
             "sift_descr": "p360_sift_descr_kernel"}
@@ -305,17 +307,18 @@ def max_abs(torch, outs, refs) -> float:
 
 
 def phase_sift_tail(torch, u8):
-    """3 B: the four kernels of SIFT's tail vs their plain versions on the
+    """3 B: the three kernels of SIFT's tail vs their plain versions on the
     bench world's first upload batch (4 views): the DoG stacks of its 9
-    octaves (Newton field, refinement on its candidates) and its keypoints
-    (orientation, descriptor), recorded from one eager extraction; bit
-    for bit; per kernel the launch (CUDA events), the device time with
-    the L2 flushed (``torch.profiler``), the bound, the plain version and
-    a PyTorch call of the same function where one exists (the one-hot
-    ``torch.matmul`` of the histogram, the binning's contraction, as the
-    JAX package computes them). -> {wrapper: dict for the kernels line},
+    octaves (the refinement on its candidates, against the plain steps on
+    the dense Newton field) and its keypoints (orientation, descriptor),
+    recorded from one eager extraction; bit for bit; per kernel the
+    launch (CUDA events), the device time with the L2 flushed
+    (``torch.profiler``), the bound, the plain version and a PyTorch call
+    of the same function where one exists (the one-hot ``torch.matmul``
+    of the histogram, the binning's contraction, as the JAX package
+    computes them). -> {wrapper: dict for the kernels line},
     ms, bound and plain summed over the octaves of the batch for the
-    Newton field and the refinement."""
+    refinement."""
     from pano360_tpu_torch import _kernels, pipeline
     from pano360_tpu_torch.features import sift as S
     from pano360_tpu_torch.measure import alternate, device_ms, recording
@@ -325,10 +328,11 @@ def phase_sift_tail(torch, u8):
     with recording(T, SIFT_TAIL) as calls:
         pipeline.upload_extract(u8[:4], dev, capture=False)
     torch.cuda.synchronize()
-    check([len(calls[k]) for k in SIFT_TAIL] == [9, 9, 1, 1],
+    check([len(calls[k]) for k in SIFT_TAIL] == [9, 1, 1],
           f"3 B: recorded calls {[len(calls[k]) for k in SIFT_TAIL]}")
     plain = dict(
-        newton_field=S._newton_step_field, refine=S._refine,
+        refine=lambda dog, l0, y0, x0, cfg: S._refine(
+            dog, S._newton_step_field(dog), l0, y0, x0, cfg),
         orientation=lambda *a, cfg: S._peak_angles(
             S._orientation_hist(*a, cfg), cfg),
         descriptors=S._descriptors)
@@ -394,12 +398,9 @@ def _tail_cost(torch, T, S, cfg, name, args):
     def timed_warm(fn):
         fn()
         return timed(fn, REPS)
-    if name == "newton_field":
-        n, nl, h, w = args[0].shape
-        return T.newton_field_cost(n, nl, h, w), None, f"{n}x{nl}x{h}x{w}"
     if name == "refine":
-        dog, field, l0, y0, x0 = args[:5]
-        return (T.refine_cost(field, l0, y0, x0, cfg), None,
+        dog, l0, y0, x0 = args[:4]
+        return (T.refine_cost(dog, l0, y0, x0, cfg), None,
                 f"{tuple(l0.shape)} on {tuple(dog.shape)}")
     gx = args[0]
     m, psg = gx.shape[:2]
@@ -547,9 +548,8 @@ def phase_slice(torch, u8, rots, focal):
     # (the cold run's also count the eager first runs of the captures)
     check(all(v > 0 for v in launches.values()),
           f"main path did not launch every kernel: {launches}")
-    want = dict(newton_field=36, sift_refine=36, sift_orient=4, sift_descr=4)
-    check(all(launches[k] == v for k, v in want.items()),
-          f"SIFT's tail on the main path: {launches}, not {want}")
+    check(all(launches[k] == v for k, v in TAIL_LAUNCHES.items()),
+          f"SIFT's tail on the main path: {launches}, not {TAIL_LAUNCHES}")
     for rep in range(3):
         cache = os.path.join(work, f"again{rep}")
         os.makedirs(cache)
@@ -1080,8 +1080,8 @@ def phase_mixed(torch, rots, focal):
     flags = BASE_FLAGS + ["-e", "-c"]
     mosaic, launches, _, cache, _ = cold_warm(
         torch, u8, flags, "chip_smoke_mixed_", "B",
-        ["octave_stack", "backward_warp", "newton_field", "sift_refine",
-         "sift_orient", "sift_descr"])
+        ["octave_stack", "backward_warp", "sift_refine", "sift_orient",
+         "sift_descr"])
     check(launches["backward_warp_mip"] == 0, f"B: launches {launches}")
     regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
     check(len(regs) == BENCH_VIEWS, f"B: {len(regs)} of {BENCH_VIEWS} placed")
@@ -1379,6 +1379,9 @@ def phase_profile(torch, u8, warm_s: float):
             "the device")
         check(n_seen == launches[kernel], f"{kernel}'s count "
               f"{launches[kernel]} is not the profile's {n_seen}")
+    check(all(launches[k] == v for k, v in TAIL_LAUNCHES.items()),
+          f"SIFT's tail in the profiled run: {launches}, not "
+          f"{TAIL_LAUNCHES}")
 
 
 def profile_device(torch, fn, warm_s=None):
@@ -1452,7 +1455,7 @@ def main():
     imgs_f, u8, rots, focal = bench_views()
     log("phase 3: octave_stack kernel vs plain")
     k1 = phase_octave(torch, u8)
-    log("phase 3 B: SIFT's tail, four kernels vs plain")
+    log("phase 3 B: SIFT's tail, three kernels vs plain")
     tail = phase_sift_tail(torch, u8)
     log("phase 4: backward_warp kernel vs plain")
     k2 = phase_warp(u8, rots, focal)

@@ -4,11 +4,22 @@ A port of ``pano360_tpu`` (JAX/XLA/Pallas) to PyTorch, for one NVIDIA
 H100. Module names mirror the JAX package so each counterpart is easy to
 find; public functions keep the JAX layouts ((N, H, W[, C]) images,
 (N, 3, 3) cameras) so the two packages can be held against each other
-on the same inputs. The JAX package's Pallas kernels are CUDA kernels
-here (``csrc/``): the SIFT octave stack, and the backward warp as an
-exact kernel and a mip-sampled one (``--warp pallas``), each with a
-plain PyTorch version beside it (``ops/gauss_octave.py``,
-``ops/warp_kernel.py``, ``ops/warp_mip.py``).
+on the same inputs. Six CUDA kernels, written by hand and built from
+``csrc/`` at first use, each with a plain PyTorch version beside it that
+the CPU runs and the card is held to bit for bit:
+
+- the JAX package's two Pallas kernels: the SIFT octave stack
+  (``gauss_octave.cu``; plain ``ops/gauss_octave.octave_stack_ref``) and
+  the backward warp, exact (``backward_warp.cu``;
+  ``ops/warp_kernel.backward_warp_ref``) and mip-sampled for ``--warp
+  pallas`` (``backward_warp_mip.cu``;
+  ``ops/warp_mip.backward_warp_mip_ref``);
+- XLA's fusions of SIFT's tail (``ops/sift_tail.py``): the refinement
+  with each Newton step computed where a candidate visits it
+  (``sift_refine.cu``, ``newton_step.cuh``; plain
+  ``features/sift._newton_step_field`` and ``_refine``), the orientation
+  (``sift_orient.cu``; ``_orientation_hist`` and ``_peak_angles``) and
+  the grid descriptor (``sift_descr.cu``; ``_descriptors``).
 
 Precision policy: float32 on the device, with TF32 off for matrix
 products and convolutions (the JAX code pins HIGHEST precision in its

@@ -74,15 +74,11 @@ _SIGNATURES = {
         "p360_backward_warp": [ctypes.POINTER(WarpView), _P, _I, _I, _P, _P,
                                _P, _P],
     },
-    "newton_field": {
-        # dog, field, n, n_layers + 2, h, w, stream
-        "p360_newton_field": [_P, _P, _I, _I, _I, _I, _P],
-    },
     "sift_refine": {
-        # dog, field, l0, y0, x0, l, y, x, offs, contrast, ok, n, c,
-        # n_layers, h, w, border, iters, contrast_thresh, edge_r,
-        # (edge_r + 1)^2, stream
-        "p360_sift_refine": [_P] * 11 + [_I] * 7 + [_F] * 3 + [_P],
+        # dog, l0, y0, x0, l, y, x, offs, contrast, ok, n, c, n_layers,
+        # h, w, border, iters, contrast_thresh, edge_r, (edge_r + 1)^2,
+        # stream
+        "p360_sift_refine": [_P] * 10 + [_I] * 7 + [_F] * 3 + [_P],
     },
     "sift_orient": {
         # gx, gy, y, x, pcy, pcx, oh, ow, sig, angles, valid, m, psg,

@@ -21,19 +21,32 @@
 // What bounds it on an H100: bytes, the gradient texels that the taps of
 // the in-bounds samples read (a rotated square of ~(12 sigma + 2)^2 of a
 // patch's 4 096), at ~70 operations a sample. The plain version is ~80
-// small operations over a chunk of (K, 2, 16, 256, 8) terms. The design:
-// one block of 128 threads per keypoint and orientation. Each thread
-// samples two grid points into shared memory (the sample's two nonzero
-// orientation terms and its lower orientation bin); then each thread
-// owns one of the 128 bins and sums the 256 samples in the halving
-// tree's order: per column of the grid the tree over its 16 rows in
-// registers, then the 16 column sums as a pairwise tree in bit-reversed
-// order, computing each term from the shared samples and its bin's
-// constant row and column weights. A warp's 32 bins share their spatial
-// column, so a grid column whose weight is 0 there (half of them) adds
-// +0 and is skipped by the whole warp: 2.1x less time on the card than
-// computing every term. The norms are two more trees in shared memory
-// and warp shuffles.
+// small operations over a chunk of (K, 2, 16, 256, 8) terms.
+//
+// Which terms can be nonzero. Every term (wr * wc) * x is >= +0 (weights,
+// magnitudes and orientation fractions are, and no term is -0), so a node
+// of the halving tree whose one side holds only +0 leaves equals its
+// other side: the tree of the nonzero leaves alone, in their places,
+// gives the same bits. The row weight of inner bin r is nonzero only on
+// the grid rows 4r - 6 .. 4r + 1 (8 rows, 6 at the edge bins), the
+// column weight likewise, and a sample's orientation term only at its
+// bins o0 and o0 + 1. The tree's first level pairs row i with i + 8,
+// of which a window of 8 rows holds exactly one: so each bin's row sum is
+// the pairwise tree of 8 leaves by i mod 8 in bit-reversed order (0, 4,
+// 2, 6, 1, 5, 3, 7), and its column sum the same tree over the window's
+// columns; 64 leaves of the 256.
+//
+// The design: one warp per keypoint and orientation, several to a block,
+// no block barrier. The warp samples its 256 grid points (8 a lane) into
+// shared memory: each sample's two nonzero orientation terms and its
+// lower orientation bin. Lane l = 8 (c - 1) + o owns the bins (r, c, o)
+// of r = 1..4: per column of its window it reads the 16 samples (the 8
+// lanes of a column read the same words), takes its orientation's term
+// and adds it, weighted, to the row trees of the two bins whose windows
+// hold the row; the column trees are a stack over the window's columns.
+// Every lane runs the same loop. The norms' halving trees over the 128
+// bins (q = 32 (r - 1) + l) are the in-lane sum (b[r=1] + b[r=3]) +
+// (b[r=2] + b[r=4]) (strides 64 and 32), then warp shuffles (16 .. 1).
 #include <math.h>
 #include <stdint.h>
 
@@ -41,10 +54,11 @@
 
 namespace {
 
-constexpr int THREADS = 128;   // output bins of one (keypoint, orientation)
+constexpr int WARPS = 4;       // descriptors (keypoint, orientation) a block
 constexpr int S = 256;         // grid samples
 constexpr int P = 16;          // samples per side
 constexpr int NOB = 8;         // orientation bins
+constexpr int DIM = 128;       // 4 x 4 x 8 bins
 
 __device__ __forceinline__ float grid_coord(int i) {
   // (arange(16) + 0.5) / 16 * 4 - 2
@@ -79,33 +93,34 @@ __device__ __forceinline__ float axis_weight(int i, int bin) {
          (bin == b ? 1.0f : 0.0f) * frac;
 }
 
-// the columns j of the grid in bit-reversed order: the halving tree's
-// top four levels (strides 8 .. 1 over the 16 column subtrees) are the
-// pairwise tree in this order
-__constant__ int kColumnOrder[P] = {0, 8, 4, 12, 2, 10, 6, 14,
-                                    1, 9, 5, 13, 3, 11, 7, 15};
-
-__device__ __forceinline__ float norm128(float v, int q, float* red,
-                                         float* out) {
-  // sqrtf of the halving tree over the 128 bins' v (bin q's from each
-  // thread): strides 64, 32 in shared memory, 16 .. 1 by shuffles
-  const int t = threadIdx.x;
-  red[q] = v;
-  __syncthreads();
-  if (t < 64) red[t] = red[t] + red[t + 64];
-  __syncthreads();
-  if (t < 32) {
-    float r = red[t] + red[t + 32];
-#pragma unroll
-    for (int off = 16; off >= 1; off /= 2)
-      r = r + __shfl_down_sync(0xffffffffu, r, off);
-    if (t == 0) *out = sqrtf(r);
-  }
-  __syncthreads();
-  return *out;
+__host__ __device__ constexpr int bit_reversed3(int k) {
+  // the residue (mod 8) at position k of the pairwise tree over a
+  // window's 8 leaves: 0, 4, 2, 6, 1, 5, 3, 7
+  return ((k & 1) << 2) | (k & 2) | ((k & 4) >> 2);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ int window_index(int bin, int res) {
+  // the grid index of residue res (mod 8) in inner bin bin's window of
+  // grid indices 4 bin - 6 .. 4 bin + 1 (outside 0..15 at the edge bins)
+  const int lo = 4 * bin - 6;
+  return lo + ((res - lo) & 7);
+}
+
+__device__ __forceinline__ float tree8(const float* v) {
+  // the pairwise tree of leaves v[residue] in bit-reversed order
+  return ((v[0] + v[4]) + (v[2] + v[6])) + ((v[1] + v[5]) + (v[3] + v[7]));
+}
+
+__device__ __forceinline__ float warp_norm(float v) {
+  // sqrtf of the halving tree over the 32 lanes' v (strides 16 .. 1), to
+  // every lane
+#pragma unroll
+  for (int off = 16; off >= 1; off /= 2)
+    v = v + __shfl_down_sync(0xffffffffu, v, off);
+  return sqrtf(__shfl_sync(0xffffffffu, v, 0));
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
 p360_sift_descr_kernel(const float* __restrict__ gx,
                        const float* __restrict__ gy,
                        const float* __restrict__ yfs,
@@ -116,14 +131,17 @@ p360_sift_descr_kernel(const float* __restrict__ gx,
                        const int64_t* __restrict__ ohs,
                        const int64_t* __restrict__ ows,
                        const float* __restrict__ angles,
-                       float* __restrict__ desc, int no, int psg,
+                       float* __restrict__ desc, int total, int no, int psg,
                        float two_pi, float obin_scale, float mag_thresh) {
-  __shared__ float sa[S];     // val * (1 - fo): the term of bin o0
-  __shared__ float sb[S];     // val * fo: the term of bin o0 + 1
-  __shared__ int so0[S];
-  __shared__ float red[THREADS];
-  __shared__ float nrm[2];
-  const int kj = blockIdx.x, k = kj / no, t = threadIdx.x;
+  __shared__ float2 sab_all[WARPS][S];   // (val (1 - fo), val fo): the
+                                         // terms of bins o0 and o0 + 1
+  __shared__ uint8_t so0_all[WARPS][S];  // o0
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kj = blockIdx.x * WARPS + wid;
+  if (kj >= total) return;               // the whole warp
+  float2* sab = sab_all[wid];
+  uint8_t* so0 = so0_all[wid];
+  const int k = kj / no;
   const size_t n2 = (size_t)psg * psg;
   const float* gxk = gx + (size_t)k * n2;
   const float* gyk = gy + (size_t)k * n2;
@@ -134,7 +152,8 @@ p360_sift_descr_kernel(const float* __restrict__ gx,
   const float cosa = cosf(angle), sina = sinf(angle);
   const float pmax = (float)(psg - 2);
 
-  for (int s = t; s < S; s += THREADS) {
+  // sampling
+  for (int s = lane; s < S; s += 32) {
     const float gu = grid_coord(s % P), gv = grid_coord(s / P);
     const float sx = xf + (gu * cosa - gv * sina) * hw;
     const float sy = yf + (gu * sina + gv * cosa) * hw;
@@ -166,54 +185,69 @@ p360_sift_descr_kernel(const float* __restrict__ gx,
     // val * oh_o[o]: oh_o is (1 - fo) + 0 at o0, 0 + fo at o0 + 1 and
     // 0 elsewhere, each exact; so the term is one of these or +0
     const float val = mag * wgt, fo = obin - o0f;
-    sa[s] = val * (1.0f - fo);
-    sb[s] = val * fo;
-    so0[s] = (int)o0;
+    sab[s] = make_float2(val * (1.0f - fo), val * fo);
+    so0[s] = (uint8_t)o0;
   }
-  __syncthreads();
+  __syncwarp();
 
-  // bin q of thread t: inner spatial bin (r, c) in 1..4 (c the warp's),
-  // orientation o. Its sum over the samples s = 16 i + j in the halving
-  // tree's order: the tree over the rows i of each column j (strides
-  // 128 .. 16), then over the columns (strides 8 .. 1), as a pairwise
-  // tree in kColumnOrder with a stack of partial sums
-  const int c = t / 32 + 1, r = t % 32 / NOB + 1, o = t % NOB;
-  const int q = ((r - 1) * 4 + (c - 1)) * NOB + o;
-  float wr[P];
+  // binning: lane (c, o) and its bins r = 1..4 (r - 1 below)
+  const int c = lane / NOB + 1, o = lane % NOB;
+  float wr[4][8];   // the row weight of bin r at its window's row res
 #pragma unroll
-  for (int i = 0; i < P; ++i) wr[i] = axis_weight(i, r);
-  float stack[4];
-  int top = 0;
-#pragma unroll 1
-  for (int col = 0; col < P; ++col) {
-    const int j = kColumnOrder[col];
-    const float wc = axis_weight(j, c);
-    float node = 0.0f;   // wc = 0: every term is (wr * 0) * x = +0
-    if (wc != 0.0f) {
-      float v[P];
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int res = 0; res < 8; ++res) {
+      const int i = window_index(r + 1, res);
+      wr[r][res] = i >= 0 && i < P ? axis_weight(i, r + 1) : 0.0f;
+    }
+  // the column tree's pending left nodes at levels 0-2, per bin
+  float left[3][4], acc[4];
+#pragma unroll
+  for (int pos = 0; pos < 8; ++pos) {
+    const int j = window_index(c, bit_reversed3(pos));
+    float node[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // a column outside: +0
+    if (j >= 0 && j < P) {
+      const float wc = axis_weight(j, c);
+      // the leaves by row residue; rows outside 0..15 (edge bins) +0
+      float v[4][8];
+      v[0][6] = v[0][7] = v[3][0] = v[3][1] = 0.0f;
 #pragma unroll
       for (int i = 0; i < P; ++i) {
-        const int s = i * P + j, a0 = so0[s];
-        const float x =
-            o == a0 ? sa[s] : (o == (a0 + 1) % NOB ? sb[s] : 0.0f);
-        v[i] = (wr[i] * wc) * x;
+        const float2 ab = sab[i * P + j];
+        const int a0 = so0[i * P + j];
+        const float x = o == a0 ? ab.x : (o == ((a0 + 1) & 7) ? ab.y : 0.0f);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (i >= 4 * r - 2 && i <= 4 * r + 5)   // in bin r + 1's window
+            v[r][i & 7] = (wr[r][i & 7] * wc) * x;
       }
 #pragma unroll
-      for (int m = P / 2; m >= 1; m /= 2)
-#pragma unroll
-        for (int i = 0; i < m; ++i) v[i] = v[i] + v[i + m];
-      node = v[0];
+      for (int r = 0; r < 4; ++r) node[r] = tree8(v[r]);
     }
-    for (int n = col + 1; (n & 1) == 0; n >>= 1) node = stack[--top] + node;
-    stack[top++] = node;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {   // pos is a constant: the tests fold
+      float t = node[r];
+      if (!(pos & 1)) { left[0][r] = t; continue; }
+      t = left[0][r] + t;
+      if (!(pos & 2)) { left[1][r] = t; continue; }
+      t = left[1][r] + t;
+      if (!(pos & 4)) { left[2][r] = t; continue; }
+      acc[r] = left[2][r] + t;
+    }
   }
-  const float acc = stack[0];
 
-  const float n1 = norm128(acc * acc, q, red, &nrm[0]);
-  const float clipped =
-      fminf(acc, mag_thresh * fmaxf(n1, 1e-12f));  // no NaN: finite sums
-  const float n2s = norm128(clipped * clipped, q, red, &nrm[1]);
-  desc[(size_t)kj * THREADS + q] = clipped / fmaxf(n2s, 1e-12f);
+  const float n1 = warp_norm((acc[0] * acc[0] + acc[2] * acc[2]) +
+                             (acc[1] * acc[1] + acc[3] * acc[3]));
+  const float lim = mag_thresh * fmaxf(n1, 1e-12f);
+  float cl[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) cl[r] = fminf(acc[r], lim);  // finite sums
+  const float n2s = warp_norm((cl[0] * cl[0] + cl[2] * cl[2]) +
+                              (cl[1] * cl[1] + cl[3] * cl[3]));
+  const float den = fmaxf(n2s, 1e-12f);
+  float* out = desc + (size_t)kj * DIM + lane;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) out[32 * r] = cl[r] / den;
 }
 
 }  // namespace
@@ -228,8 +262,10 @@ extern "C" int p360_sift_descr(const float* gx, const float* gy,
                                float mag_thresh, void* stream) {
   if (m <= 0 || no <= 0 || psg < 2 || (long long)m * no > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  p360_sift_descr_kernel<<<m * no, THREADS, 0, (cudaStream_t)stream>>>(
-      gx, gy, yf, xf, sig, pcy, pcx, oh, ow, angle, desc, no, psg, two_pi,
-      obin_scale, mag_thresh);
+  const int total = m * no;
+  p360_sift_descr_kernel<<<(total + WARPS - 1) / WARPS, WARPS * 32, 0,
+                           (cudaStream_t)stream>>>(
+      gx, gy, yf, xf, sig, pcy, pcx, oh, ow, angle, desc, total, no, psg,
+      two_pi, obin_scale, mag_thresh);
   return (int)cudaGetLastError();
 }

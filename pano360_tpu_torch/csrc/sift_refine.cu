@@ -1,27 +1,40 @@
-// Newton refinement of SIFT's DoG candidates along the packed step field.
+// Newton refinement of SIFT's DoG candidates, each Newton step computed
+// where a candidate's steps visit it.
 //
-// Replaces: pano360_tpu/features/sift.py, _refine_one (:488), vmapped
-// over the candidates; XLA fuses it (no Pallas kernel lies behind it).
-// The plain version is features/sift.py _refine: per candidate,
-// refine_iters steps, each reading the field word at (l, y, x) and, when
-// it is not converged, moving by its step clamped inside the border (the
-// layer to [1, S]); then the 3x3x3 DoG cube at the final position (flat
-// indices clamped into the image's planes, as the plain gather clamps
-// them), its gradient and Hessian, geometry.det3x3, the adjugate inverse
-// of geometry.inv3x3 on hess + 1e-12 I, the offsets (zero unless
+// Replaces: pano360_tpu/features/sift.py, _newton_step_field (:403) and
+// _refine_one (:488), vmapped over the candidates; XLA fuses them (no
+// Pallas kernel lies behind them). The plain version is features/sift.py
+// _refine on the dense field of _newton_step_field: per candidate,
+// refine_iters steps, each taking the packed Newton step at (l, y, x)
+// and, when it is not converged, moving by it clamped inside the border
+// (the layer to [1, S]); then the 3x3x3 DoG cube at the final position
+// (flat indices clamped into the image's planes, as the plain gather
+// clamps them), its gradient and Hessian, geometry.det3x3, the adjugate
+// inverse of geometry.inv3x3 on hess + 1e-12 I, the offsets (zero unless
 // converged with |det| > 1e-20), the contrast and the edge and contrast
 // tests. Every operation is the plain version's, in its order, rounded
 // on its own (-fmad=false, IEEE division), so the two agree bit for bit.
 //
+// The step at a position is newton_step.cuh's newton_word, computed from
+// the position's 19 stencil values in the DoG stack (with torch.roll's
+// wrap at the image's edges, which only a candidate's first position can
+// reach): the dense field of every pixel of layers 1..S, of which a
+// candidate reads at most refine_iters words, is never made. A converged
+// step does not move, and a step clamped to where it stands moves no
+// more: either way every later step repeats it, so the loop ends there.
+//
 // What bounds it on an H100: neither bytes nor operations at its size
-// (<= 2048 candidates an image and octave, ~150 bytes and ~180
-// operations each, well under a microsecond of either): one launch's
-// latency. The plain version is ~80 small operations per octave; this is
-// one. The design: one thread per candidate, its few words and 19 DoG
-// values read straight from device memory.
+// (<= 2048 candidates an image and octave, each ~19 DoG values per
+// position it visits and ~130 operations per step): the latency of a
+// candidate's chain of dependent steps and of one launch. The plain
+// version is ~150 full-size passes for the field and ~80 small operations
+// for the steps per octave; this is one launch. The design: one thread
+// per candidate, its stencils read straight from device memory.
 #include <stdint.h>
 
 #include <cuda_runtime.h>
+
+#include "newton_step.cuh"
 
 namespace {
 
@@ -35,9 +48,9 @@ __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo,
 }
 
 __global__ void p360_sift_refine_kernel(
-    const float* __restrict__ dog, const int32_t* __restrict__ field,
-    const int64_t* __restrict__ l0, const int64_t* __restrict__ y0,
-    const int64_t* __restrict__ x0, int64_t* __restrict__ lo,
+    const float* __restrict__ dog, const int64_t* __restrict__ l0,
+    const int64_t* __restrict__ y0, const int64_t* __restrict__ x0,
+    int64_t* __restrict__ lo,
     int64_t* __restrict__ yo, int64_t* __restrict__ xo,
     float* __restrict__ offs, float* __restrict__ contrast,
     uint8_t* __restrict__ ok, int n, int c, int s, int h, int w, int border,
@@ -46,23 +59,23 @@ __global__ void p360_sift_refine_kernel(
   if (q >= n * c) return;
   const int img = q / c;
   const int64_t hw = (int64_t)h * w;
-  const int32_t* fl = field + (size_t)img * s * hw;
   const float* dg = dog + (size_t)img * (s + 2) * hw;
   int64_t l = l0[q], y = y0[q], x = x0[q];
   bool conv = false;
   for (int it = 0; it < iters; ++it) {
-    const int32_t word = fl[(l - 1) * hw + y * w + x];
+    const int32_t word = p360::newton_word(dog, img, s, (int)l, (int)y,
+                                           (int)x, h, w);
     conv = (word & 1) > 0;
-    if (!conv) {
-      const int64_t nx = clamp64(x + ((word >> 1) & 3) - 1, border,
-                                 w - 1 - border);
-      const int64_t ny = clamp64(y + ((word >> 3) & 3) - 1, border,
-                                 h - 1 - border);
-      const int64_t nl = clamp64(l + ((word >> 5) & 3) - 1, 1, s);
-      l = nl;
-      y = ny;
-      x = nx;
-    }
+    if (conv) break;
+    const int64_t nx = clamp64(x + ((word >> 1) & 3) - 1, border,
+                               w - 1 - border);
+    const int64_t ny = clamp64(y + ((word >> 3) & 3) - 1, border,
+                               h - 1 - border);
+    const int64_t nl = clamp64(l + ((word >> 5) & 3) - 1, 1, s);
+    if (nl == l && ny == y && nx == x) break;
+    l = nl;
+    y = ny;
+    x = nx;
   }
 
   // the cube c[layer][row][col], the plain gather's clamped flat indices
@@ -133,10 +146,10 @@ __global__ void p360_sift_refine_kernel(
 
 }  // namespace
 
-extern "C" int p360_sift_refine(const float* dog, const int32_t* field,
-                                const int64_t* l0, const int64_t* y0,
-                                const int64_t* x0, int64_t* l, int64_t* y,
-                                int64_t* x, float* offs, float* contrast,
+extern "C" int p360_sift_refine(const float* dog, const int64_t* l0,
+                                const int64_t* y0, const int64_t* x0,
+                                int64_t* l, int64_t* y, int64_t* x,
+                                float* offs, float* contrast,
                                 uint8_t* ok, int n, int c, int s, int h,
                                 int w, int border, int iters,
                                 float contrast_thresh, float edge_r,
@@ -145,7 +158,7 @@ extern "C" int p360_sift_refine(const float* dog, const int32_t* field,
     return (int)cudaErrorInvalidValue;
   const int blocks = (int)(((long long)n * c + THREADS - 1) / THREADS);
   p360_sift_refine_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      dog, field, l0, y0, x0, l, y, x, offs, contrast, ok, n, c, s, h, w,
+      dog, l0, y0, x0, l, y, x, offs, contrast, ok, n, c, s, h, w,
       border, iters, contrast_thresh, edge_r, edge_k);
   return (int)cudaGetLastError();
 }

@@ -9,12 +9,14 @@ the refined-contrast compaction (``sel_shift``), 36-bin orientation with
 up to two peaks, the descriptor (``descr_mode``: the rotated 16x16
 ``grid``, or ``dense``, cv2's integer window) and a global
 top-``max_kpts``. Keypoint buffers have a fixed capacity with a validity
-mask. The Newton field, the refinement, the orientation and the grid
-descriptor run through ``ops.sift_tail``: a CUDA kernel each on a card,
-the plain versions here on the CPU. On the CPU the keypoint stage runs
-in chunks (2048 keypoints for ``grid``, 256 for ``dense``, which bins
-25x the samples) to bound its transients; on a card the two kernels take
-a batch's keypoints at once (the dense descriptor keeps its chunks).
+mask. The refinement, the orientation and the grid descriptor run
+through ``ops.sift_tail``: a CUDA kernel each on a card (the refinement's
+computes each Newton step where a candidate visits it, so the dense
+field is made only on the CPU), the plain versions here on the CPU. On
+the CPU the keypoint stage runs in chunks (2048 keypoints for ``grid``,
+256 for ``dense``, which bins 25x the samples) to bound its transients;
+on a card the two kernels take a batch's keypoints at once (the dense
+descriptor keeps its chunks).
 The orientation's and the grid descriptor's sums run in one fixed order
 (``geometry.tree_sum``), so a keypoint's result does not depend on its
 chunk and the kernels repeat it bit for bit.
@@ -568,9 +570,7 @@ def sift_extract(gray: torch.Tensor, cfg: Optional[SiftConfig] = None
         oh, ow = gauss.shape[2], gauss.shape[3]
         cap = min(caps[o], s * oh * ow)
         l0, y0, x0, cand_ok = _octave_candidates(dog, cfg, cap, cscore)
-        field = sift_tail.newton_field(dog)
-        l, y, x, offs, contrast, ok = sift_tail.refine(dog, field, l0, y0,
-                                                       x0, cfg)
+        l, y, x, offs, contrast, ok = sift_tail.refine(dog, l0, y0, x0, cfg)
         ok = ok & cand_ok
         sel_cap = cap if cap < 1024 else max(cap >> cfg.sel_shift, 512)
         if sel_cap < cap:
@@ -604,7 +604,7 @@ def sift_extract(gray: torch.Tensor, cfg: Optional[SiftConfig] = None
             ow=torch.full((n, k), ow, device=gray.device)))
         if o + 1 < n_oct:
             octv = gauss[:, s, ::2, ::2].contiguous()
-        del gauss, dog, cscore, field, patches
+        del gauss, dog, cscore, patches
 
     cat = {key: torch.cat([d[key] for d in outs], dim=1) for key in outs[0]}
     del outs

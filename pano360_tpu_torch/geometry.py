@@ -213,6 +213,9 @@ def focal_from_hom(hom: torch.Tensor) -> torch.Tensor:
     return torch.where(f_fwd > 0, f_fwd, f_inv)
 
 
+PARAMS_PER_CAMERA = 6  # (focal, ppx, ppy, rx, ry, rz)
+
+
 def params_to_camera(params: torch.Tensor) -> Camera:
     """(focal, ppx, ppy, rx, ry, rz) vector(s) -> Camera; batched."""
     intr = intrinsics(params[..., 0], (params[..., 1], params[..., 2]))
@@ -249,5 +252,6 @@ __all__ = [
     "Camera", "cam_hom", "cam_proj", "hom_to_from", "intrinsics",
     "cross_mat", "exp_so3", "log_so3", "nearest_rotation", "SphProj",
     "CylProj", "PROJECTIONS", "focal_from_hom", "params_to_camera",
-    "camera_to_params", "straighten", "det3x3", "inv3x3", "tree_sum",
+    "camera_to_params", "PARAMS_PER_CAMERA", "straighten", "det3x3",
+    "inv3x3", "tree_sum",
 ]

@@ -9,6 +9,7 @@ Usage, on a CUDA machine::
     python -m pano360_tpu_torch.measure --warps [--before DIR]
     python -m pano360_tpu_torch.measure --traverse [DIR ...]
     python -m pano360_tpu_torch.measure --features [DIR ...]
+    python -m pano360_tpu_torch.measure --tail [DIR] [--descr A.cu ...]
 
 The first form builds ``csrc/gauss_octave.cu`` (and each ``--against``
 source: an octave-stack source with the same ``p360_octave_stack`` C
@@ -75,13 +76,29 @@ device sync) and their median, the device operations and busy
 milliseconds of one more run (``torch.profiler``), the host syncs of one
 more (by source line), and whether its features and match graph are
 this tree's replayed ones bit for bit; each version but the replayed one
-also against it as features that may differ (``features_against``). On
+also against it as features that may differ (``features_against``);
+then each version's registration on its own match graph (its tree's
+``register.traverse``): its LM iterations and whether its cameras are
+the replayed version's bit for bit. On
 the bench world each tree's eager steps are also split by stage
 (``stage_split``), in turns (this tree, the others, then reversed): the
 device time and operations of the gray image and upload, the base, the
-scale space, the candidates, the Newton field, the refinement, the
-compaction and patches, the orientation, the descriptor, and the final
-top-k with the keypoint stage's copies.
+scale space, the candidates, the Newton field (where a tree makes it),
+the refinement, the compaction and patches, the orientation, the
+descriptor, and the final top-k with the keypoint stage's copies.
+
+``--tail`` takes SIFT's refinement and grid descriptor on the bench's
+first upload batch (4 views, 9 octaves, one descriptor launch over the
+batch's keypoints), recorded from one eager extraction, and holds each
+of this tree's kernels bit for bit to its plain version. ``DIR``: another
+checkout of the package, whose refinement (with its dense Newton field,
+where it has one) and descriptor are held to the same plain versions
+and timed in turns with this tree's (CUDA events); each ``--descr``
+source (a ``sift_descr.cu`` with this tree's C interface) likewise,
+through this tree's wrapper. Per kernel also the device time with the
+L2 flushed, the bound, the descriptor's sampling phase alone (this
+tree's and the other's source cut after it) and ptxas's registers,
+shared memory and theoretical occupancy.
 """
 from __future__ import annotations
 
@@ -765,10 +782,11 @@ def traverse_main(args, smi: str, device="cuda"):
 FEATURE_ROUNDS = 3
 
 
-def _import_tree(tree: Path):
-    """Another checkout's ``pano360_tpu_torch.pipeline`` with the rest of
-    its package: this tree's modules are set aside while it imports and
-    put back after, and the other modules keep their own."""
+def _import_tree(tree: Path, names=("pipeline",)):
+    """Another checkout's ``pano360_tpu_torch.<name>`` modules (a tuple,
+    one for each of ``names``) with the rest of its package: this tree's
+    modules are set aside while they import and put back after, and the
+    other modules keep their own."""
     import importlib
 
     def ours():
@@ -777,7 +795,8 @@ def _import_tree(tree: Path):
     mine = {k: sys.modules.pop(k) for k in ours()}
     sys.path.insert(0, str(tree))
     try:
-        return importlib.import_module("pano360_tpu_torch.pipeline")
+        return tuple(importlib.import_module(f"pano360_tpu_torch.{name}")
+                     for name in names)
     finally:
         sys.path.remove(str(tree))
         for k in ours():
@@ -953,8 +972,10 @@ def features_against(feats, res, ref_feats, ref_res) -> dict:
 
 def features_main(args, smi: str, device="cuda"):
     """``--features``: the extraction and the match graph, each timed
-    alone, replayed, eager and in each other checkout, in turns."""
-    from pano360_tpu_torch import pipeline
+    alone, replayed, eager and in each other checkout, in turns; then
+    each version's registration (its tree's ``register.traverse``) on
+    its match graph, its cameras held to the replayed version's."""
+    from pano360_tpu_torch import pipeline, register
     from pano360_tpu_torch.parallel.dryrun import matches_equal
     dev = torch.device(device)
     versions = {"replayed": (pipeline.upload_extract, pipeline.matching),
@@ -964,8 +985,10 @@ def features_main(args, smi: str, device="cuda"):
                                             capture=False))}
     # each tree's eager steps and SIFT module, for the stage split
     splits = {"eager": (pipeline.upload_extract, pipeline.S)}
+    registers = dict(replayed=register, eager=register)
     for tree in args.features:
-        other = _import_tree(tree)
+        other, registers[str(tree)] = _import_tree(tree,
+                                                   ("pipeline", "register"))
         versions[str(tree)] = (other.upload_extract, other.matching)
         splits[str(tree)] = (other.upload_extract, other.S)
     worlds = [("bench", bench_views()[1]), ("mixed", bench_mixed_views()[0])]
@@ -987,6 +1010,18 @@ def features_main(args, smi: str, device="cuda"):
             rows[v]["match_s"].append(t_mg)
             outs[v] = (feats, res)
         ref_feats, (ref_kpts, ref_matches) = outs["replayed"]
+        cams = {}
+        for v, row in rows.items():
+            stats = {}
+            kpts, matches = outs[v][1]
+            cams[v] = registers[v].traverse(u8, pipeline.idx_to_keypoints(
+                matches, kpts), stats=stats)
+            row["lm_iterations"] = [stats["lm_iterations"],
+                                    stats["polish_iterations"]]
+            row["cameras_identical"] = len(cams[v]) == len(
+                cams["replayed"]) and all(
+                np.array_equal(a.rot, b.rot) and np.array_equal(a.intr, b.intr)
+                for a, b in zip(cams[v], cams["replayed"]))
         for v, row in rows.items():
             feats, (kpts, matches) = outs[v]
             row["extract_median_s"] = float(np.median(row["extract_s"]))
@@ -1016,6 +1051,219 @@ def features_main(args, smi: str, device="cuda"):
     print(json.dumps(dict(card=smi)), flush=True)
 
 
+# SIFT's tail in ``--tail``: the threads per block of each kernel (for the
+# occupancy that ptxas's registers and shared memory allow), and where
+# the grid descriptor's sampling phase ends in each version of its
+# source, with a tail that stores what the samples hold instead of
+# binning them (so that the compiler keeps the sampling)
+TAIL_THREADS = {"p360_newton_field_kernel": 256,
+                "p360_sift_refine_kernel": 128,
+                "p360_sift_descr_kernel": 128}
+_DESCR_SAMPLING_ONLY = (
+    ("  // bin q of thread t",          # one block of 128 threads each
+     "  desc[(size_t)kj * THREADS + t] = (sa[t] + sa[t + 128]) + (sb[t] + "
+     "sb[t + 128]) + (float)(so0[t] + so0[t + 128]);\n}\n"),
+    ("  // binning: lane (c, o)",       # one warp each
+     "  float* out = desc + (size_t)kj * DIM + lane;\n"
+     "  for (int q = 0; q < 4; ++q)\n"
+     "    out[32 * q] = (sab[64 * q + lane].x + sab[64 * q + 32 + lane].y) "
+     "+ (float)(so0[64 * q + lane] + so0[64 * q + 32 + lane]);\n}\n"),
+)
+VARIANT_DIR = Path(__file__).resolve().parent.parent / "build" / "variants"
+# H100 (compute capability 9.0): per SM
+SM_WARPS, SM_BLOCKS, SM_REGS, SM_SMEM = 64, 32, 65536, 233472
+
+
+def occupancy(regs: int, smem: int, threads: int) -> float:
+    """The theoretical share of an SM's 64 warps that blocks of
+    ``threads`` threads of ``regs`` registers each and ``smem`` bytes of
+    shared memory keep resident on an H100 (registers allocated in units
+    of 256 a warp, 1 KB of shared memory reserved a block)."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(SM_BLOCKS, SM_WARPS // warps,
+                 SM_REGS // (per_warp * warps), SM_SMEM // (smem + 1024))
+    return blocks * warps / SM_WARPS
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{kernel name: dict(regs, smem, spill, occupancy)} from ptxas's
+    ``-v`` report (a kernel's mangled name holds its plain one)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in TAIL_THREADS if k in mangled), mangled)
+        elif "spill stores" in line and name:
+            out.setdefault(name, {})["spill"] = line.strip()
+        elif ": Used" in line and name:
+            words = line.split(":", 1)[1].replace(",", " ").split()
+            regs = int(words[words.index("registers") - 1])
+            smem = int(words[words.index("smem") - 2]) \
+                if "smem" in words else 0
+            row = out.setdefault(name, {})
+            row.update(regs=regs, smem=smem, occupancy=occupancy(
+                regs, smem, TAIL_THREADS.get(name, 128)))
+    return out
+
+
+def sampling_only(src: Path) -> Path:
+    """A copy of a grid descriptor source (this tree's or an earlier
+    one's) whose kernel stops after its sampling phase, written beside
+    the builds."""
+    text = src.read_text()
+    for marker, tail in _DESCR_SAMPLING_ONLY:
+        if marker in text:
+            head, rest = text.split(marker, 1)
+            end = rest.index("\n}\n\n}  // namespace")
+            digest = hashlib.sha256(text.encode()).hexdigest()[:12]
+            out = VARIANT_DIR / f"sampling_only_{digest}.cu"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(head + tail + rest[end + 3:])
+            return out
+    raise ValueError(f"{src}: no sampling phase marker")
+
+
+@contextlib.contextmanager
+def entry_swapped(kernels, name: str, fn):
+    """Inside, the kernel entry point ``name`` of a package's loaded
+    libraries (``kernels``: its ``_kernels`` module) is ``fn``."""
+    lib = kernels.lib()
+    saved = getattr(lib, name)
+    setattr(lib, name, fn)
+    try:
+        yield
+    finally:
+        setattr(lib, name, saved)
+
+
+def _bits_equal(outs, refs) -> bool:
+    return all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        for a, b in zip(outs, refs))
+
+
+def tail_main(args, smi: str, device="cuda"):
+    """``--tail``: SIFT's refinement and grid descriptor on the bench's
+    first upload batch (this tree's calls, recorded from one eager
+    extraction), this tree's kernels against another checkout's in turns.
+    Per octave: the refinement here against the other tree's (its dense
+    Newton field and its refinement, where it has the field); the
+    descriptor likewise, and each ``--descr`` source through this tree's
+    wrapper. Each: the outputs bit for bit this tree's plain version's,
+    the times of each version in turns (CUDA events), the device time of
+    each of its kernels with the L2 flushed, and the bound. The
+    descriptor's sampling phase alone (each source cut after it,
+    ``sampling_only``) and ptxas's registers, shared memory and
+    theoretical occupancy of every kernel."""
+    from pano360_tpu_torch import _kernels, pipeline
+    from pano360_tpu_torch.features import sift as S
+    from pano360_tpu_torch.ops import sift_tail as T
+    dev = torch.device(device)
+    cfg = S.SiftConfig()
+    _, u8, _, _ = bench_views()
+    with recording(T, ("refine", "descriptors")) as calls:
+        pipeline.upload_extract(u8[:4], dev, capture=False)
+    torch.cuda.synchronize()
+    other = _import_tree(args.tail)[0].S.sift_tail if args.tail else None
+    fused = other is not None and not hasattr(other, "newton_field")
+    out = dict(card=smi, other=str(args.tail), ptxas={
+        "this": {k: v for stem in ("sift_refine", "sift_descr")
+                 for k, v in ptxas_kernels(_kernels.build_log(stem)).items()}})
+    if other is not None:
+        other._kernels.lib()
+        out["ptxas"]["other"] = {
+            k: v for stem in ("newton_field", "sift_refine", "sift_descr")
+            for k, v in ptxas_kernels(other._kernels.build_log(stem)).items()}
+
+    # the refinement, per octave
+    rows = []
+    for (dog, l0, y0, x0, c), _ in calls["refine"]:
+        def this():
+            return T.refine(dog, l0, y0, x0, c)
+
+        def theirs():
+            if fused:
+                return other.refine(dog, l0, y0, x0, c)
+            return other.refine(dog, other.newton_field(dog), l0, y0, x0, c)
+        want = S._refine(dog, S._newton_step_field(dog), l0, y0, x0, c)
+        row = dict(shape=list(dog.shape), candidates=l0.numel(),
+                   identical=_bits_equal(this(), want),
+                   bound_ms=T.refine_cost(dog, l0, y0, x0, c)["bound_ms"],
+                   device_ms=device_ms(this, "p360_sift_refine_kernel", REPS,
+                                       flush=True))
+        if other is not None:
+            row["other_identical"] = _bits_equal(theirs(), want)
+            row["ms"], row["other_ms"] = alternate(this, theirs, REPS)
+            names = ["p360_sift_refine_kernel"] + \
+                ([] if fused else ["p360_newton_field_kernel"])
+            row["other_device_ms"] = {n: device_ms(theirs, n, REPS,
+                                                   flush=True)
+                                      for n in names}
+        else:
+            row["ms"] = timed(this, REPS)
+        print(json.dumps(dict(refine=row)), flush=True)
+        rows.append(row)
+    out["refine"] = {k: sum(r[k] for r in rows)
+                     for k in ("ms", "device_ms", "bound_ms")}
+    out["refine"]["identical"] = all(r["identical"] for r in rows)
+    if other is not None:
+        out["refine"]["other_ms"] = sum(r["other_ms"] for r in rows)
+        out["refine"]["other_device_ms"] = {
+            n: sum(r["other_device_ms"][n] for r in rows)
+            for n in rows[0]["other_device_ms"]}
+        out["refine"]["other_identical"] = all(r["other_identical"]
+                                               for r in rows)
+
+    # the descriptor, one launch over the batch's keypoints
+    (dargs, dkw), = calls["descriptors"]
+    want = S._descriptors(*dargs, **dkw)
+
+    def this_descr():
+        return T.descriptors(*dargs, **dkw)
+    gx, gy, yf, xf, pcy, pcx, sig, angle, oh, ow = dargs
+    row = dict(keypoints=gx.shape[0], orientations=angle.shape[1],
+               identical=_bits_equal((this_descr(),), (want,)),
+               bound_ms=T.descriptors_cost(yf, xf, pcy, pcx, sig, angle, oh,
+                                           ow, gx.shape[1], cfg)["bound_ms"])
+    srcs = {"this": _kernels.CSRC / "sift_descr.cu"}
+    if other is not None:
+        srcs["other"] = other._kernels.CSRC / "sift_descr.cu"
+    srcs.update({str(p): p for p in args.descr})
+    variants = {name: sampling_only(srcs[name]) for name in srcs
+                if name in ("this", "other")}
+    built = build_others([p for p in srcs.values() if p != srcs["this"]]
+                         + list(variants.values()))
+    sig_ = _kernels._SIGNATURES["sift_descr"]["p360_sift_descr"]
+
+    def through(handle):
+        fn = entry(handle, "p360_sift_descr", sig_)
+
+        def run():
+            with entry_swapped(_kernels, "p360_sift_descr", fn):
+                return T.descriptors(*dargs, **dkw)
+        return run
+    for name, src in srcs.items():
+        run = this_descr if name == "this" else through(built[src][0])
+        part = dict(identical=_bits_equal((run(),), (want,)),
+                    device_ms=device_ms(run, "p360_sift_descr_kernel", REPS,
+                                        flush=True))
+        if name in variants:
+            part["sampling_device_ms"] = device_ms(
+                through(built[variants[name]][0]), "p360_sift_descr_kernel",
+                REPS, flush=True)
+        if name == "this":
+            part["ms"] = timed(run, REPS)
+        else:
+            part["this_ms"], part["ms"] = alternate(this_descr, run, REPS)
+            part["ptxas"] = ptxas_kernels(built[src][1])
+        row[name] = part
+    out["descriptors"] = row
+    print(json.dumps(out), flush=True)
+    if not (out["refine"]["identical"] and row["this"]["identical"]):
+        sys.exit("measure: a kernel differs from its plain version")
+
+
 def _identical(outs, refs) -> bool:
     return all(torch.equal(a, b) for a, b in zip(outs, refs))
 
@@ -1036,6 +1284,13 @@ def main(argv=None):
     parser.add_argument("--features", type=Path, nargs="*", default=None,
                         help="time the extraction and the match graph "
                         "instead, beside each other checkout given")
+    parser.add_argument("--tail", type=Path, nargs="?", const=False,
+                        default=None,
+                        help="time SIFT's refinement and grid descriptor "
+                        "instead, beside another checkout's if given")
+    parser.add_argument("--descr", type=Path, nargs="*", default=[],
+                        help="with --tail: other sift_descr.cu sources to "
+                        "time beside this one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("measure: needs a CUDA device")
@@ -1053,6 +1308,8 @@ def main(argv=None):
         return traverse_main(args, smi)
     if args.features is not None:
         return features_main(args, smi)
+    if args.tail is not None:
+        return tail_main(args, smi)
     this = _kernels.lib().p360_octave_stack
     print("ptxas, this source:\n" + _kernels.build_log("gauss_octave"))
     others = []

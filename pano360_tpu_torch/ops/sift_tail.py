@@ -1,15 +1,16 @@
-"""SIFT's tail after the octave kernel: four CUDA kernels.
+"""SIFT's tail after the octave kernel: three CUDA kernels.
 
 The JAX package runs ``sift_extract`` as one jitted program, and XLA
 fuses its tail into a few loops (no Pallas kernel lies behind them).
 Here each is a kernel written for the card, beside its plain PyTorch
 version in ``features/sift.py``:
 
-- ``newton_field`` (``csrc/newton_field.cu``): the packed Newton step of
-  every DoG pixel of layers 1..S (plain: ``_newton_step_field``);
-- ``refine`` (``csrc/sift_refine.cu``): each candidate's steps along
-  that field, then its cube's offsets, contrast and edge tests
-  (``_refine``);
+- ``refine`` (``csrc/sift_refine.cu``, ``csrc/newton_step.cuh``): each
+  candidate's Newton steps, each computed from the DoG stack where the
+  candidate stands, then its cube's offsets, contrast and edge tests
+  (plain: ``_refine`` on the dense field of ``_newton_step_field``, the
+  packed step of every DoG pixel of layers 1..S, which the card never
+  makes);
 - ``orientation`` (``csrc/sift_orient.cu``): each keypoint's smoothed
   36-bin histogram and its two interpolated peaks (``_orientation_hist``
   and ``_peak_angles``);
@@ -36,9 +37,9 @@ from pano360_tpu_torch import _kernels
 from pano360_tpu_torch.ops.gauss_octave import bound
 
 # f32 operations counted per unit of work, from the plain versions'
-# arithmetic (a math library call counts one): per field pixel (the 27
+# arithmetic (a math library call counts one): per Newton step (the 27
 # derivative terms, the determinant, cofactors and three solves, the
-# tests and the packing); per refined candidate (its steps, the cube's
+# tests and the packing); per refined candidate (its moves, the cube's
 # derivatives, solve and tests); per orientation sample inside the window
 # (gradient magnitude and angle, weight, bin, and one add into its bin);
 # per descriptor sample (rotation, two bilinear samples, magnitude,
@@ -56,11 +57,10 @@ class Count:
         self.name, self.launches = name, 0
 
 
-NEWTON_FIELD = Count("newton_field")
 REFINE = Count("sift_refine")
 ORIENT = Count("sift_orient")
 DESCR = Count("sift_descr")
-COUNTS = (NEWTON_FIELD, REFINE, ORIENT, DESCR)
+COUNTS = (REFINE, ORIENT, DESCR)
 
 
 def _plain():
@@ -99,34 +99,20 @@ def _launch(count: Count, entry: str, *args):
     count.launches += 1
 
 
-def newton_field(dog: torch.Tensor) -> torch.Tensor:
-    """(N, S+2, H, W) f32 DoG -> (N, S, H, W) int32: per pixel of layers
-    1..S, bit 0 converged, bits 1-2 / 3-4 / 5-6 = step_x/y/l + 1."""
-    if not _on_card(dog, "newton_field"):
-        return _plain()._newton_step_field(dog)
-    n, nl, h, w = dog.shape if dog.ndim == 4 else (0,) * 4
-    _check("newton_field", dog.device,
-           dog=(dog, torch.float32, (None, None, None, None)))
-    if nl < 3:
-        raise ValueError(f"newton_field: {nl} DoG layers, need >= 3")
-    field = torch.empty((n, nl - 2, h, w), dtype=torch.int32,
-                        device=dog.device)
-    _launch(NEWTON_FIELD, "p360_newton_field", dog.data_ptr(),
-            field.data_ptr(), n, nl, h, w, _kernels.stream_ptr(dog.device))
-    return field
-
-
-def refine(dog, field, l0, y0, x0, cfg):
-    """Newton refinement of (N, C) candidates (layer, y, x) along the
-    packed step field: -> (l, y, x int64 (N, C), offs (N, C, 3) f32,
-    contrast (N, C) f32, ok (N, C) bool)."""
+def refine(dog, l0, y0, x0, cfg):
+    """Newton refinement of (N, C) candidates (layer, y, x) in the (N,
+    S+2, H, W) DoG stack: -> (l, y, x int64 (N, C), offs (N, C, 3) f32,
+    contrast (N, C) f32, ok (N, C) bool). On the CPU the plain version
+    steps along the dense field of Newton steps; the kernel computes
+    each step where a candidate visits it."""
     if not _on_card(dog, "refine"):
-        return _plain()._refine(dog, field, l0, y0, x0, cfg)
+        sift = _plain()
+        return sift._refine(dog, sift._newton_step_field(dog), l0, y0, x0,
+                            cfg)
     n, nl, h, w = dog.shape if dog.ndim == 4 else (0,) * 4
     c = l0.shape[1] if l0.ndim == 2 else 0
     s = cfg.n_layers
     _check("refine", dog.device, dog=(dog, torch.float32, (n, s + 2, h, w)),
-           field=(field, torch.int32, (n, s, h, w)),
            l0=(l0, torch.int64, (n, c)), y0=(y0, torch.int64, (n, c)),
            x0=(x0, torch.int64, (n, c)))
     dev = dog.device
@@ -136,10 +122,10 @@ def refine(dog, field, l0, y0, x0, cfg):
     contrast = torch.empty((n, c), dtype=torch.float32, device=dev)
     ok = torch.empty((n, c), dtype=torch.bool, device=dev)
     r = cfg.edge_thresh
-    _launch(REFINE, "p360_sift_refine", dog.data_ptr(), field.data_ptr(),
-            l0.data_ptr(), y0.data_ptr(), x0.data_ptr(), l.data_ptr(),
-            y.data_ptr(), x.data_ptr(), offs.data_ptr(), contrast.data_ptr(),
-            ok.data_ptr(), n, c, s, h, w, cfg.img_border, cfg.refine_iters,
+    _launch(REFINE, "p360_sift_refine", dog.data_ptr(), l0.data_ptr(),
+            y0.data_ptr(), x0.data_ptr(), l.data_ptr(), y.data_ptr(),
+            x.data_ptr(), offs.data_ptr(), contrast.data_ptr(), ok.data_ptr(),
+            n, c, s, h, w, cfg.img_border, cfg.refine_iters,
             cfg.contrast_thresh, r, (r + 1) ** 2, _kernels.stream_ptr(dev))
     return l, y, x, offs, contrast, ok
 
@@ -214,19 +200,14 @@ def descriptors(gx, gy, yf, xf, pcy, pcx, sig, angle, oh, ow, cfg):
 # written once; the operations above), and the bound on an H100
 # ---------------------------------------------------------------------------
 
-def newton_field_cost(n: int, nl: int, h: int, w: int) -> dict:
-    """Every DoG pixel read, every field word written."""
-    px = n * h * w
-    return bound(4 * px * nl + 4 * px * (nl - 2), NEWTON_OPS * px * (nl - 2))
-
-
-def refine_cost(field, l0, y0, x0, cfg) -> dict:
-    """Per candidate: its position (3 int64) read, the field words it
-    visits (the distinct positions of its steps, replayed here), the 19
-    DoG values its derivatives use, and its six outputs written."""
-    n, s, h, w = field.shape
-    flat = field.reshape(n, -1)
-    b = cfg.img_border
+def refine_cost(dog, l0, y0, x0, cfg) -> dict:
+    """Per candidate: its position (3 int64) read, the 19 DoG values of
+    each distinct position its steps visit (the final cube's included;
+    the steps replayed here on the plain field), a Newton step per
+    distinct position it steps from, and its six outputs written."""
+    n, nl, h, w = dog.shape
+    s, b = cfg.n_layers, cfg.img_border
+    flat = _plain()._newton_step_field(dog).reshape(n, -1)
     l, y, x = l0, y0, x0
     seen = []
     for _ in range(cfg.refine_iters):
@@ -239,12 +220,15 @@ def refine_cost(field, l0, y0, x0, cfg) -> dict:
                                              h - 1 - b))
         x = torch.where(conv, x, torch.clamp(x + ((word >> 1) & 3) - 1, b,
                                              w - 1 - b))
-    visited = torch.sort(torch.stack(seen, -1), -1).values
-    words = int(visited.numel() - (visited[..., 1:] == visited[..., :-1])
-                .sum())
+
+    def distinct(idx):
+        idx = torch.sort(torch.stack(idx, -1), -1).values
+        return int(idx.numel() - (idx[..., 1:] == idx[..., :-1]).sum())
+    steps = distinct(seen) if seen else 0
+    positions = distinct(seen + [(l - 1) * (h * w) + y * w + x])
     cands = l0.numel()
-    return bound(cands * (3 * 8 + 19 * 4 + 3 * 8 + 4 * 4 + 1) + 4 * words,
-                 REFINE_OPS * cands)
+    return bound(cands * (3 * 8 + 3 * 8 + 4 * 4 + 1) + 19 * 4 * positions,
+                 REFINE_OPS * cands + NEWTON_OPS * steps)
 
 
 def _span(lo, hi, a, b):
@@ -299,6 +283,5 @@ def descriptors_cost(yf, xf, pcy, pcx, sig, angle, oh, ow, psg: int,
                  DESCR_OPS * m * no * p * p)
 
 
-__all__ = ["newton_field", "refine", "orientation", "descriptors", "COUNTS",
-           "newton_field_cost", "refine_cost", "orientation_cost",
-           "descriptors_cost"]
+__all__ = ["refine", "orientation", "descriptors", "COUNTS", "refine_cost",
+           "orientation_cost", "descriptors_cost"]

@@ -37,6 +37,7 @@ from pano360_tpu_torch import geometry as geo
 from pano360_tpu_torch.graphs import Replayed, upload as _upload
 from pano360_tpu_torch import resolve_device
 
+PARAMS_PER_CAMERA = geo.PARAMS_PER_CAMERA
 LM_LAMBDA = 5.0
 LM_MAX_ITER = 100
 LM_MIN_IMPROVE = 1e-3
@@ -811,4 +812,5 @@ def jacobian_numeric(params: np.ndarray, cam1_idx, cam2_idx, pts, mask,
 
 __all__ = ["PanoImage", "BundleAdjuster", "traverse", "Problem", "lm_core",
            "lm_polish", "lm_step", "polish_step", "drive",
-           "jacobian_numeric", "LM_LAMBDA", "LM_MAX_ITER", "MIN_MATCH_ERROR"]
+           "jacobian_numeric", "PARAMS_PER_CAMERA", "LM_LAMBDA",
+           "LM_MAX_ITER", "MIN_MATCH_ERROR"]

@@ -576,8 +576,8 @@ def test_features_replayed_equal_eager_on_card():
                and a.tobytes() == b.tobytes() for a, b in zip(rr, re))
     assert rr.ok.sum() >= 4
     # two batches of 7 octaves: the octave kernel on the 4 legal ones,
-    # the Newton field and the refinement on all, the keypoint stage once
-    assert launches[True] == launches[False] == [8, 14, 14, 2, 2]
+    # the refinement on all, the keypoint stage once
+    assert launches[True] == launches[False] == [8, 14, 2, 2]
     _, sites = host_syncs(lambda: pipeline.upload_extract(u8, dev))
     assert not sites, sites
     _, sites = host_syncs(lambda: pm.match_all_pairs(kp, ds, va, pairs, 4,
@@ -589,11 +589,15 @@ def test_features_replayed_equal_eager_on_card():
 # SIFT's tail on the card
 # ---------------------------------------------------------------------------
 
-TAIL = ("newton_field", "refine", "orientation", "descriptors")
+TAIL = ("refine", "orientation", "descriptors")
+
+
+def _plain_refine(dog, l0, y0, x0, cfg):
+    return S._refine(dog, S._newton_step_field(dog), l0, y0, x0, cfg)
 
 
 def _tail_plain(name):
-    return dict(newton_field=S._newton_step_field, refine=S._refine,
+    return dict(refine=_plain_refine,
                 orientation=lambda *a, cfg: S._peak_angles(
                     S._orientation_hist(*a, cfg), cfg),
                 descriptors=S._descriptors)[name]
@@ -609,7 +613,7 @@ def _bits(a, b) -> bool:
 
 
 def _tail_calls(shape, n, dev, descr_mode="grid"):
-    """The four wrappers' arguments in one extraction on the card of n
+    """The three wrappers' arguments in one extraction on the card of n
     synthetic views of ``shape``."""
     from pano360_tpu_torch.measure import recording
     imgs, _, _ = synth.make_views(n_views=n, shape=shape, seed=4)
@@ -619,40 +623,117 @@ def _tail_calls(shape, n, dev, descr_mode="grid"):
     return calls
 
 
+def _hold_to_plain(name, args, kw):
+    """A kernel's call, then the same call again, against its plain
+    version, bit for bit."""
+    got = _tuple(getattr(T, name)(*args, **kw))
+    again = _tuple(getattr(T, name)(*args, **kw))
+    want = _tuple(_tail_plain(name)(*args, **kw))
+    torch.cuda.synchronize()
+    assert all(_bits(a, b) and _bits(a, c)
+               for a, b, c in zip(got, want, again)), name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,n,mode", [((864, 1152), 4, "grid"),
                                           ((54, 72), 1, "grid"),
                                           ((54, 72), 3, "grid"),
                                           ((54, 72), 2, "dense")])
 def test_sift_tail_kernels_match_plain_on_card(shape, n, mode):
-    """Every call of the four kernels in an extraction against its plain
-    version bit for bit, and a second launch the same bits: the bench's
+    """Every call of the three kernels in an extraction against its plain
+    version bit for bit (the refinement against the plain steps on the
+    dense Newton field), and a second launch the same bits: the bench's
     views (octave 0 of 4 x 1728x2304), ragged small octaves (27x36 and
     below) with 1 and 3 views, and the dense mode's 80x80 patches (the
     orientation kernel only)."""
     dev = _cuda()
     calls = _tail_calls(shape, n, dev, mode)
-    assert [len(calls[k]) > 0 for k in TAIL] == [True] * 3 + [mode == "grid"]
+    assert [len(calls[k]) > 0 for k in TAIL] == [True] * 2 + [mode == "grid"]
     for name in TAIL:
         for args, kw in calls[name]:
-            got = _tuple(getattr(T, name)(*args, **kw))
-            again = _tuple(getattr(T, name)(*args, **kw))
-            want = _tuple(_tail_plain(name)(*args, **kw))
-            torch.cuda.synchronize()
-            assert all(_bits(a, b) and _bits(a, c)
-                       for a, b, c in zip(got, want, again)), name
+            _hold_to_plain(name, args, kw)
+
+
+def _border_candidates(n, s, h, w, seed):
+    """(N, C) candidates on every image edge (x = 0, x = w - 1, y = 0,
+    y = h - 1, the four corners) at layers 1 and S, then random ones."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for lay in (1, s):
+        for x in (0, w - 1):
+            pts += [(lay, y, x) for y in rng.integers(0, h, 4)] + \
+                [(lay, 0, x), (lay, h - 1, x)]
+        for y in (0, h - 1):
+            pts += [(lay, y, x) for x in rng.integers(0, w, 4)]
+    pts = np.array(pts)
+    extra = np.stack([rng.integers(1, s + 1, 64), rng.integers(0, h, 64),
+                      rng.integers(0, w, 64)], -1)
+    pts = np.concatenate([pts, extra])
+    cand = np.stack([np.roll(pts, 7 * i, 0) for i in range(n)])
+    return (torch.from_numpy(cand[..., k].copy()) for k in range(3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [S.SiftConfig(), S.SiftConfig(img_border=0),
+                                 S.SiftConfig(refine_iters=1),
+                                 S.SiftConfig(n_layers=4, refine_iters=9)])
+@pytest.mark.parametrize("n,shape", [(1, (27, 36)), (3, (54, 72))])
+def test_sift_refine_kernel_on_the_wrap_border(cfg, n, shape):
+    """The fused refinement's first step (and, at ``img_border=0``, every
+    step) can stand on an image edge, where the Newton step's stencil
+    wraps as ``torch.roll`` wraps: candidates on x = 0, x = w - 1, y = 0,
+    y = h - 1 and the corners at layers 1 and S of a numpy-seeded DoG
+    stack, bit for bit the plain steps on the dense field."""
+    dev = _cuda()
+    s = cfg.n_layers
+    rng = np.random.default_rng(11)
+    dog = torch.from_numpy((rng.standard_normal((n, s + 2) + shape) * 0.02)
+                           .astype(np.float32)).to(dev)
+    l0, y0, x0 = (t.to(dev) for t in _border_candidates(n, s, *shape, 3))
+    _hold_to_plain("refine", (dog, l0, y0, x0, cfg), {})
+    ok = _plain_refine(dog, l0, y0, x0, cfg)[5]
+    assert 0 < int(ok.sum()) < ok.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 257])
+def test_sift_descr_kernel_windows_leave_the_patch(k):
+    """Keypoints whose rotated windows leave the gradient patch and the
+    image (numpy-seeded patches and positions near both edges, sigmas up
+    to 8), at one and at two orientations: the grid descriptor kernel
+    bit for bit its plain version, twice in a row."""
+    dev = _cuda()
+    rng = np.random.default_rng(k)
+    psg = 64
+    gx, gy = (torch.from_numpy((rng.standard_normal((k, psg, psg)) * 0.05)
+                               .astype(np.float32)) for _ in range(2))
+    oh = torch.from_numpy(rng.choice([70, 125, 160], k))
+    ow = torch.from_numpy(rng.choice([72, 145, 170], k))
+    yf = torch.from_numpy(rng.uniform(0.0, oh.numpy() - 1.0)
+                          .astype(np.float32))
+    xf = torch.from_numpy(rng.uniform(0.0, ow.numpy() - 1.0)
+                          .astype(np.float32))
+    pcy = torch.clamp(yf.long() - psg // 2 - 1 + torch.from_numpy(
+        rng.integers(-6, 7, k)), min=0)
+    pcx = torch.clamp(xf.long() - psg // 2 - 1 + torch.from_numpy(
+        rng.integers(-6, 7, k)), min=0)
+    sig = torch.from_numpy(rng.uniform(1.6, 8.0, k).astype(np.float32))
+    for no in (1, 2):
+        angle = torch.from_numpy(rng.uniform(0, 2 * math.pi, (k, no))
+                                 .astype(np.float32))
+        args = _on(dev, (gx, gy, yf, xf, pcy, pcx, sig, angle, oh, ow))
+        _hold_to_plain("descriptors", args, dict(cfg=S.SiftConfig()))
 
 
 @pytest.mark.gpu
 def test_sift_tail_kernels_reject_bad_input():
     dev = _cuda()
     calls = _tail_calls((54, 72), 1, dev)
-    (dog,), _ = calls["newton_field"][0]
+    dog, l0, y0, x0, cfg = calls["refine"][0][0]
     with pytest.raises(ValueError, match="dog must be"):
-        T.newton_field(dog.double())
-    dog, field, l0, y0, x0, cfg = calls["refine"][0][0]
+        T.refine(dog.double(), l0, y0, x0, cfg)
     with pytest.raises(ValueError, match="l0 must be"):
-        T.refine(dog, field, l0.int(), y0, x0, cfg)
+        T.refine(dog, l0.int(), y0, x0, cfg)
     args, kw = calls["orientation"][0]
     with pytest.raises(ValueError, match="36 bins"):
         T.orientation(*args, cfg=S.SiftConfig(ori_bins=24))

@@ -272,3 +272,18 @@ def test_jacobian_numeric_matches_analytic_and_jax(n_cams, n_pts):
                                atol=1e-5 * np.abs(jjtj).max())
     np.testing.assert_allclose(jtr_n, jjtr, rtol=1e-5,
                                atol=1e-5 * np.abs(jjtr).max())
+
+
+def test_params_per_camera_matches_jax():
+    """The public parameter count of a camera, in both modules and their
+    ``__all__``, as the JAX package has it."""
+    from pano360_tpu import geometry as jgeo
+    from pano360_tpu_torch import geometry as tgeo
+    assert (tgeo.PARAMS_PER_CAMERA == treg.PARAMS_PER_CAMERA
+            == jgeo.PARAMS_PER_CAMERA == jreg.PARAMS_PER_CAMERA == 6)
+    assert "PARAMS_PER_CAMERA" in tgeo.__all__
+    assert "PARAMS_PER_CAMERA" in treg.__all__
+    params = torch.zeros(tgeo.PARAMS_PER_CAMERA, dtype=torch.float64)
+    params[0] = 800.0
+    assert tgeo.camera_to_params(tgeo.params_to_camera(params)).shape == (
+        tgeo.PARAMS_PER_CAMERA,)

@@ -1,12 +1,14 @@
 """SIFT's tail (``pano360_tpu_torch.ops.sift_tail``): the plain versions
-of its four kernels held against the JAX package on the CPU, and the
+of its kernels held against the JAX package on the CPU, and the
 wrappers' dispatch.
 
 Inputs come from the port's own extraction of two numpy-seeded 48x64
-views (upscaled octaves of 96x128 down to 6x8), recorded at the four
-wrappers, plus numpy-seeded DoG stacks and gradient patches. The JAX
-side runs as its own tests run it on the CPU; the Newton field op by op
-(``jax.disable_jit()``: eager operations contract no a*b+c).
+views (upscaled octaves of 96x128 down to 6x8), recorded at the three
+wrappers (the refinement's DoG stacks feed the Newton field's tests),
+plus numpy-seeded DoG stacks, candidates on the image's edges and
+gradient patches. The JAX side runs as its own tests run it on the CPU;
+the Newton field op by op (``jax.disable_jit()``: eager operations
+contract no a*b+c).
 
 Tolerances (measured on these inputs in brackets): the Newton field
 equal on every pixel; the refinement's positions and ``ok`` equal,
@@ -39,14 +41,14 @@ from pano360_tpu_torch.ops import sift_tail as T
 
 torch.set_num_threads(1)
 
-WRAPPERS = ("newton_field", "refine", "orientation", "descriptors")
+WRAPPERS = ("refine", "orientation", "descriptors")
 CFG = tsift.SiftConfig(max_kpts=1024, descr_mode="grid")
 JCFG = jsift.SiftConfig(max_kpts=1024)
 
 
 @pytest.fixture(scope="module")
 def calls():
-    """The four wrappers' arguments in one CPU extraction of two views."""
+    """The three wrappers' arguments in one CPU extraction of two views."""
     imgs, _, _ = synth.make_views(n_views=2, shape=(48, 64), seed=3)
     u8 = np.stack([(im * 255).astype(np.uint8) for im in imgs])
     with recording(T, WRAPPERS) as rec:
@@ -86,14 +88,14 @@ def _patches(seed, k, psg):
 
 def test_recorded_extraction_reaches_every_wrapper(calls):
     """Five octaves, the keypoint stage in chunks of 2048 on the CPU."""
-    assert [len(calls[k]) for k in WRAPPERS] == [5, 5, 2, 2]
+    assert [len(calls[k]) for k in WRAPPERS] == [5, 2, 2]
     assert calls["orientation"][0][0][0].shape[1:] == (64, 64)
 
 
 @pytest.mark.parametrize("which", ["octave 0", "octave 2", "random 33x41"])
 def test_newton_field_plain_matches_jax(calls, which):
     if which.startswith("octave"):
-        dog = calls["newton_field"][int(which[-1])][0][0]
+        dog = calls["refine"][int(which[-1])][0][0]
     else:
         rng = np.random.default_rng(7)
         dog = torch.from_numpy(
@@ -109,7 +111,8 @@ def test_newton_field_plain_matches_jax(calls, which):
 
 @pytest.mark.parametrize("octave", [0, 2])
 def test_refine_plain_matches_jax(calls, octave):
-    dog, field, l0, y0, x0, cfg = calls["refine"][octave][0]
+    dog, l0, y0, x0, cfg = calls["refine"][octave][0]
+    field = tsift._newton_step_field(dog)
     l, y, x, offs, contrast, ok = tsift._refine(dog, field, l0, y0, x0, cfg)
     for i in range(dog.shape[0]):
         d, f = _np(dog[i], field[i])
@@ -122,6 +125,80 @@ def test_refine_plain_matches_jax(calls, octave):
         np.testing.assert_allclose(contrast[i].numpy(), jcon, rtol=0,
                                    atol=1e-6)
     assert ok.sum() > 10
+
+
+def _plain_refine(dog, l0, y0, x0, cfg):
+    return tsift._refine(dog, tsift._newton_step_field(dog), l0, y0, x0, cfg)
+
+
+@pytest.mark.parametrize("octave", [0, 1, 2, 3, 4])
+def test_refine_takes_no_field(calls, octave):
+    """``refine`` without a field (the kernel computes each step where a
+    candidate visits it) equals the plain steps on the dense field, bit
+    for bit, at every recorded octave, and launches nothing here."""
+    args, kw = calls["refine"][octave]
+    before = [c.launches for c in T.COUNTS]
+    outs = T.refine(*args, **kw)
+    assert [c.launches for c in T.COUNTS] == before
+    assert all(torch.equal(a, b)
+               for a, b in zip(outs, _plain_refine(*args, **kw)))
+
+
+def _edge_candidates(n, s, h, w, seed):
+    """(N, C) candidates on every image edge (x = 0, x = w - 1, y = 0,
+    y = h - 1, the corners) at layers 1 and S, then random ones."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for lay in (1, s):
+        for x in (0, w - 1):
+            pts += [(lay, y, x) for y in rng.integers(0, h, 4)] + \
+                [(lay, 0, x), (lay, h - 1, x)]
+        for y in (0, h - 1):
+            pts += [(lay, y, x) for x in rng.integers(0, w, 4)]
+    pts = np.concatenate([np.array(pts), np.stack(
+        [rng.integers(1, s + 1, 32), rng.integers(0, h, 32),
+         rng.integers(0, w, 32)], -1)])
+    cand = np.stack([np.roll(pts, 5 * i, 0) for i in range(n)])
+    return tuple(torch.from_numpy(cand[..., k].copy()) for k in range(3))
+
+
+@pytest.mark.parametrize("border", [5, 0])
+def test_refine_on_the_wrap_border_matches_jax(border):
+    """Candidates on the image's edges at layers 1 and S, where the
+    Newton step's stencil wraps as ``torch.roll`` wraps (at ``img_border
+    = 0`` also after the first step): ``refine`` without a field equals
+    the plain steps on the dense field bit for bit; the field is JAX's
+    and the final positions are ``_refine_one``'s. ``ok`` is held to
+    JAX's where the final cube lies inside the image: at an edge the
+    packages read the cube past the plane differently (the port clamps
+    the flat index, JAX's gather each axis), which only invalid slots
+    reach."""
+    cfg = tsift.SiftConfig(img_border=border)
+    s = cfg.n_layers
+    rng = np.random.default_rng(21)
+    dog = torch.from_numpy((rng.standard_normal((2, s + 2, 27, 36)) * 0.02)
+                           .astype(np.float32))
+    l0, y0, x0 = _edge_candidates(2, s, 27, 36, 4)
+    outs = T.refine(dog, l0, y0, x0, cfg)
+    assert all(torch.equal(a, b)
+               for a, b in zip(outs, _plain_refine(dog, l0, y0, x0, cfg)))
+    with jax.disable_jit():
+        field = torch.from_numpy(np.array(
+            jsift._newton_step_field(*_np(dog))))
+    assert torch.equal(field, tsift._newton_step_field(dog))
+    jcfg = jsift.SiftConfig(max_kpts=1024, img_border=border)
+    for i in range(dog.shape[0]):
+        d, f = _np(dog[i], field[i])
+        one = jax.vmap(lambda a, b, c: jsift._refine_one(d, f, a, b, c, jcfg))
+        jl, jy, jx, _, _, jok = (np.asarray(t) for t in one(
+            *_np(l0[i], y0[i], x0[i])))
+        for a, b in ((outs[0], jl), (outs[1], jy), (outs[2], jx)):
+            np.testing.assert_array_equal(a[i].numpy(), b)
+        y, x = outs[1][i].numpy(), outs[2][i].numpy()
+        inside = (y >= 1) & (y <= 25) & (x >= 1) & (x <= 34)
+        assert inside.sum() >= 16 and (~inside).sum() >= 8
+        np.testing.assert_array_equal(outs[5][i].numpy()[inside],
+                                      jok[inside])
 
 
 def _jax_orientation(args, cfg):
@@ -203,7 +280,7 @@ def test_wrapper_cpu_takes_plain_version(calls, name):
     args, kw = calls[name][0]
     before = [c.launches for c in T.COUNTS]
     out = getattr(T, name)(*args, **kw)
-    plain = dict(newton_field=tsift._newton_step_field, refine=tsift._refine,
+    plain = dict(refine=_plain_refine,
                  orientation=lambda *a, cfg: tsift._peak_angles(
                      tsift._orientation_hist(*a, cfg), cfg),
                  descriptors=tsift._descriptors)[name](*args, **kw)
@@ -242,8 +319,16 @@ def test_orientation_cost_counts_the_window(calls):
 
 
 def test_refine_cost_counts_distinct_words(calls):
-    dog, field, l0, y0, x0, cfg = calls["refine"][0][0]
-    cost = T.refine_cost(field, l0, y0, x0, cfg)
+    """The bytes: 65 a candidate (its position, its six outputs) and the
+    19 DoG values of each distinct position its steps visit (the final
+    cube's included); the operations: the cube's per candidate and a
+    Newton step per distinct position stepped from."""
+    dog, l0, y0, x0, cfg = calls["refine"][0][0]
+    cost = T.refine_cost(dog, l0, y0, x0, cfg)
     cands = l0.numel()
-    words = (cost["bytes"] - cands * 141) // 4
-    assert cands <= words <= cands * cfg.refine_iters
+    positions, rest = divmod(cost["bytes"] - cands * 65, 76)
+    assert rest == 0
+    assert cands < positions <= cands * (cfg.refine_iters + 1)
+    steps, rest = divmod(cost["flops"] - cands * T.REFINE_OPS, T.NEWTON_OPS)
+    assert rest == 0
+    assert cands <= steps <= min(positions, cands * cfg.refine_iters)
