@@ -107,11 +107,16 @@ Phases (any failure exits non-zero):
       at ``-e -c`` on phase 8 B's mixed-size views against a one-process
       run, and ``--mesh 2`` through the CLI, which on one GPU warns and
       runs the one-process path;
-   B. ``upload_extract`` with ``descr_mode='dense'`` on the bench views
+   B. the orientation kernel's block design, which the dense mode's
+      80x80 patches take, against its plain version on the keypoints of
+      the first upload batch under ``descr_mode='dense'``, as in 3 B
+      (bit for bit, times, bound, the one-hot ``torch.matmul``);
+      ``upload_extract`` with ``descr_mode='dense'`` on the bench views
       beside the grid descriptor's (time, peak memory): the same
       keypoints, descriptors of unit norm; the CLI with
       ``PANO_SIFT_DESCR=dense`` registers within phase 5's bounds and
-      launches the orientation kernel but not the grid descriptor's; one
+      launches the orientation kernel (its launches are the block
+      design's in the kernels line) but not the grid descriptor's; one
       ``upscale=False`` extraction (keypoints, time);
 10. the kernels line.
 
@@ -290,10 +295,14 @@ SIFT_TAIL = tuple(row[0] for row in SIFT_TAIL_LINE)
 # the orientation and the descriptor once a batch
 TAIL_LAUNCHES = dict(sift_refine=36, sift_orient=4, sift_descr=4)
 # device names of the kernels whose launches phase 6 holds to the profile
+# (the orientation's: its grid design, a warp per keypoint)
 PROFILED = {"octave_stack": "octave_stack_kernel",
             "sift_refine": "p360_sift_refine_kernel",
             "sift_orient": "p360_sift_orient_kernel",
             "sift_descr": "p360_sift_descr_kernel"}
+# the orientation kernel's block design, which the dense mode's 80x80
+# patches take (phase 9 B; counted as sift_orient)
+BLOCK_ORIENT_KERNEL = "p360_sift_orient_block_kernel"
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -320,22 +329,14 @@ def phase_sift_tail(torch, u8):
     ms, bound and plain summed over the octaves of the batch for the
     refinement."""
     from pano360_tpu_torch import _kernels, pipeline
-    from pano360_tpu_torch.features import sift as S
-    from pano360_tpu_torch.measure import alternate, device_ms, recording
+    from pano360_tpu_torch.measure import recording
     from pano360_tpu_torch.ops import sift_tail as T
-    cfg = S.SiftConfig()
     dev = torch.device("cuda")
     with recording(T, SIFT_TAIL) as calls:
         pipeline.upload_extract(u8[:4], dev, capture=False)
     torch.cuda.synchronize()
     check([len(calls[k]) for k in SIFT_TAIL] == [9, 1, 1],
           f"3 B: recorded calls {[len(calls[k]) for k in SIFT_TAIL]}")
-    plain = dict(
-        refine=lambda dog, l0, y0, x0, cfg: S._refine(
-            dog, S._newton_step_field(dog), l0, y0, x0, cfg),
-        orientation=lambda *a, cfg: S._peak_angles(
-            S._orientation_hist(*a, cfg), cfg),
-        descriptors=S._descriptors)
     device_name = {fn: PROFILED[kernel]
                    for fn, kernel, _, _ in SIFT_TAIL_LINE}
     out = {}
@@ -343,35 +344,13 @@ def phase_sift_tail(torch, u8):
         tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes_ms=0.0,
                    flops_ms=0.0, library_ms=None, max_abs_err=0.0)
         for args, kw in calls[name]:
-            def kern():
-                return getattr(T, name)(*args, **kw)
-
-            def ref():
-                return plain[name](*args, **kw)
-            got, want = kern(), ref()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            same = all(bits_equal(torch, a, b) for a, b in zip(got, want))
-            err = max_abs(torch, got, want)
-            tp, tk = alternate(ref, kern, REPS)
-            td = device_ms(kern, device_name[name], REPS, flush=True)
-            cost, lib, shape = _tail_cost(torch, T, S, cfg, name, args)
-            log(f"  {name} {shape}: bit for bit {same} (max|d| {err}); "
-                f"kernel {tk:.4f} ms, device {td:.4f} ms with the L2 "
-                f"flushed, bound {cost['bound_ms']:.4f} ms "
-                f"({cost['bound_by']}: {cost['bytes']} bytes, "
-                f"{cost['flops']} operations), plain {tp:.3f} ms"
-                + ("" if lib is None else f", library {lib:.4f} ms"))
-            check(same, f"3 B: {name} {shape} differs from its plain "
-                  f"version (max|d| {err})")
-            tot["ms"] += tk
-            tot["device_ms"] += td
-            tot["plain_ms"] += tp
-            tot["bytes_ms"] += cost["bytes_ms"]
-            tot["flops_ms"] += cost["flops_ms"]
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            tot["library_ms"] = lib
-            del got, want
+            one = hold_tail_call(torch, name, args, kw, device_name[name],
+                                 "3 B")
+            for key in ("ms", "device_ms", "plain_ms", "bytes_ms",
+                        "flops_ms"):
+                tot[key] += one[key]
+            tot["max_abs_err"] = max(tot["max_abs_err"], one["max_abs_err"])
+            tot["library_ms"] = one["library_ms"]
         tot["bound_ms"] = max(tot["bytes_ms"], tot["flops_ms"])
         tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["flops_ms"]
                            else "operations")
@@ -388,6 +367,51 @@ def phase_sift_tail(torch, u8):
     del calls
     torch.cuda.empty_cache()
     return out
+
+
+def hold_tail_call(torch, name, args, kw, device_name, phase):
+    """One recorded call of a SIFT tail wrapper against its plain version:
+    bit for bit (fails otherwise), the launch and the plain version in
+    turns (CUDA events), the device time of the kernel named
+    ``device_name`` with the L2 flushed, the bound and the library call's
+    time. -> dict(ms, device_ms, plain_ms, bytes_ms, flops_ms, bound_ms,
+    bound_by, library_ms, max_abs_err)."""
+    from pano360_tpu_torch.features import sift as S
+    from pano360_tpu_torch.measure import alternate, device_ms
+    from pano360_tpu_torch.ops import sift_tail as T
+    plain = dict(
+        refine=lambda dog, l0, y0, x0, cfg: S._refine(
+            dog, S._newton_step_field(dog), l0, y0, x0, cfg),
+        orientation=lambda *a, cfg: S._peak_angles(
+            S._orientation_hist(*a, cfg), cfg),
+        descriptors=S._descriptors)[name]
+
+    def kern():
+        return getattr(T, name)(*args, **kw)
+
+    def ref():
+        return plain(*args, **kw)
+    got, want = kern(), ref()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    same = all(bits_equal(torch, a, b) for a, b in zip(got, want))
+    err = max_abs(torch, got, want)
+    del got, want
+    tp, tk = alternate(ref, kern, REPS)
+    td = device_ms(kern, device_name, REPS, flush=True)
+    cfg = kw["cfg"] if "cfg" in kw else args[-1]   # refine's: positional
+    cost, lib, shape = _tail_cost(torch, T, S, cfg, name, args)
+    log(f"  {name} {shape}: bit for bit {same} (max|d| {err}); "
+        f"kernel {tk:.4f} ms, device {td:.4f} ms with the L2 "
+        f"flushed, bound {cost['bound_ms']:.4f} ms "
+        f"({cost['bound_by']}: {cost['bytes']} bytes, "
+        f"{cost['flops']} operations), plain {tp:.3f} ms"
+        + ("" if lib is None else f", library {lib:.4f} ms"))
+    check(same, f"{phase}: {name} {shape} differs from its plain "
+          f"version (max|d| {err})")
+    return dict(ms=tk, device_ms=td, plain_ms=tp, bytes_ms=cost["bytes_ms"],
+                flops_ms=cost["flops_ms"], bound_ms=cost["bound_ms"],
+                bound_by=cost["bound_by"], library_ms=lib, max_abs_err=err)
 
 
 def _tail_cost(torch, T, S, cfg, name, args):
@@ -1282,10 +1306,26 @@ def phase_mesh(torch, u8, rots, focal, ref5):
 
 
 def phase_dense(torch, u8, rots, focal):
-    """9 B: the dense descriptor and upscale=False on the card."""
+    """9 B: the dense descriptor and upscale=False on the card; the
+    orientation kernel's block design (the dense mode's 80x80 patches)
+    against its plain version on the first upload batch's keypoints, as
+    in 3 B. -> that call's dict for the kernels line, with the launches
+    of the CLI run under ``PANO_SIFT_DESCR=dense``."""
     from pano360_tpu_torch import cli, pipeline
     from pano360_tpu_torch.features import sift as S
+    from pano360_tpu_torch.measure import recording
+    from pano360_tpu_torch.ops import sift_tail as T
     dev = torch.device("cuda")
+    with recording(T, ("orientation",)) as calls:
+        pipeline.upload_extract(u8[:4], dev,
+                                S.SiftConfig(descr_mode="dense"),
+                                capture=False)
+    (args, kw), = calls["orientation"]
+    check(args[0].shape[1:] == (80, 80),
+          f"9 B: dense orientation patches {tuple(args[0].shape)}")
+    block = hold_tail_call(torch, "orientation", args, kw,
+                           BLOCK_ORIENT_KERNEL, "9 B")
+    del calls, args
     feats, secs, peak = {}, {}, {}
     for mode in ("grid", "dense", "grid", "dense"):   # cold, then warm
         torch.cuda.synchronize()
@@ -1324,6 +1364,7 @@ def phase_dense(torch, u8, rots, focal):
     check(launches["sift_orient"] >= 1 and launches["sift_descr"] == 0,
           f"9 B: under dense the orientation kernel runs and the grid "
           f"descriptor's does not: {launches}")
+    block["launches"] = launches["sift_orient"]
     regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
     f_err, r_err = registration_errors(regs, rots, focal)
     log(f"  {len(regs)} of {BENCH_VIEWS} placed; focal max rel err "
@@ -1343,6 +1384,7 @@ def phase_dense(torch, u8, rots, focal):
         f"{int(f.valid.sum())} ({S.n_octaves_for(u8[0].shape[:2], False)} "
         f"octaves)")
     check(int(f.valid.sum()) > 100 * len(u8), "9 B: upscale=False keypoints")
+    return block
 
 
 def busy_us(intervals) -> float:
@@ -1474,7 +1516,7 @@ def main():
     log("phase 9 A: the mesh, 2 ranks on one GPU")
     phase_mesh(torch, u8, rots, focal, ref5)
     log("phase 9 B: the dense descriptor")
-    phase_dense(torch, u8, rots, focal)
+    block = phase_dense(torch, u8, rots, focal)
     log("phase 10: the kernels line")
 
     kernels = [
@@ -1503,7 +1545,14 @@ def main():
               **{k: tail[fn][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "device_ms")})
-         for fn, kernel, src, replaces in SIFT_TAIL_LINE]
+         for fn, kernel, src, replaces in SIFT_TAIL_LINE] + [
+        dict(name="sift_orient_block", route="cuda",
+             source="pano360_tpu_torch/csrc/sift_orient.cu",
+             replaces="pano360_tpu/features/sift.py:594 and :635 (XLA "
+             "fusion; descr_mode='dense')",
+             **{k: block[k] for k in ("launches", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "device_ms")})]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -84,6 +84,7 @@ _SIGNATURES = {
         # gx, gy, y, x, pcy, pcx, oh, ow, sig, angles, valid, m, psg,
         # bins / 2 pi, 2 pi / bins, stream
         "p360_sift_orient": [_P] * 11 + [_I, _I, _F, _F, _P],
+        "p360_sift_orient_block": [_P] * 11 + [_I, _I, _F, _F, _P],
     },
     "sift_descr": {
         # gx, gy, yf, xf, sig, pcy, pcx, oh, ow, angle, desc, m, n_ori,

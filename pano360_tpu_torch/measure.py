@@ -10,6 +10,7 @@ Usage, on a CUDA machine::
     python -m pano360_tpu_torch.measure --traverse [DIR ...]
     python -m pano360_tpu_torch.measure --features [DIR ...]
     python -m pano360_tpu_torch.measure --tail [DIR] [--descr A.cu ...]
+        [--orient A.cu ...]
 
 The first form builds ``csrc/gauss_octave.cu`` (and each ``--against``
 source: an octave-stack source with the same ``p360_octave_stack`` C
@@ -87,18 +88,21 @@ scale space, the candidates, the Newton field (where a tree makes it),
 the refinement, the compaction and patches, the orientation, the
 descriptor, and the final top-k with the keypoint stage's copies.
 
-``--tail`` takes SIFT's refinement and grid descriptor on the bench's
-first upload batch (4 views, 9 octaves, one descriptor launch over the
-batch's keypoints), recorded from one eager extraction, and holds each
-of this tree's kernels bit for bit to its plain version. ``DIR``: another
-checkout of the package, whose refinement (with its dense Newton field,
-where it has one) and descriptor are held to the same plain versions
+``--tail`` takes SIFT's refinement, orientation and grid descriptor on
+the bench's first upload batch (4 views, 9 octaves, one orientation and
+one descriptor launch over the batch's keypoints), recorded from one
+eager extraction, and holds each of this tree's kernels bit for bit to
+its plain version. ``DIR``: another checkout of the package, whose
+refinement (with its dense Newton field, where it has one), orientation
+and descriptor are held to the same plain versions
 and timed in turns with this tree's (CUDA events); each ``--descr``
-source (a ``sift_descr.cu`` with this tree's C interface) likewise,
-through this tree's wrapper. Per kernel also the device time with the
-L2 flushed, the bound, the descriptor's sampling phase alone (this
-tree's and the other's source cut after it) and ptxas's registers,
-shared memory and theoretical occupancy.
+source (a ``sift_descr.cu`` with this tree's C interface) and each
+``--orient`` source (a ``sift_orient.cu``) likewise, through this tree's
+wrapper. Per kernel also the device time with the L2 flushed, the bound,
+the descriptor's sampling phase alone (this tree's and the other's
+source cut after it), the orientation's work per keypoint (window rows,
+columns, samples, (column, bin) row trees) and ptxas's registers, shared
+memory and theoretical occupancy.
 """
 from __future__ import annotations
 
@@ -1058,7 +1062,13 @@ def features_main(args, smi: str, device="cuda"):
 # binning them (so that the compiler keeps the sampling)
 TAIL_THREADS = {"p360_newton_field_kernel": 256,
                 "p360_sift_refine_kernel": 128,
+                "p360_sift_orient_block_kernel": 256,
+                "p360_sift_orient_kernel": 128,
                 "p360_sift_descr_kernel": 128}
+# an orientation source without the block design's entry point has the
+# block design alone, under the grid's kernel name
+BLOCK_ORIENT_THREADS = {**TAIL_THREADS, "p360_sift_orient_kernel": 256}
+TAIL_STEMS = ("sift_refine", "sift_orient", "sift_descr")
 _DESCR_SAMPLING_ONLY = (
     ("  // bin q of thread t",          # one block of 128 threads each
      "  desc[(size_t)kj * THREADS + t] = (sa[t] + sa[t + 128]) + (sb[t] + "
@@ -1086,14 +1096,17 @@ def occupancy(regs: int, smem: int, threads: int) -> float:
     return blocks * warps / SM_WARPS
 
 
-def ptxas_kernels(log: str) -> dict:
+def ptxas_kernels(log: str, threads=None) -> dict:
     """{kernel name: dict(regs, smem, spill, occupancy)} from ptxas's
-    ``-v`` report (a kernel's mangled name holds its plain one)."""
+    ``-v`` report (a kernel's mangled name holds its plain one; a
+    template's instances share it, and the last reported is kept), at
+    ``threads`` per block by name (default ``TAIL_THREADS``)."""
+    threads = threads or TAIL_THREADS
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k for k in TAIL_THREADS if k in mangled), mangled)
+            name = next((k for k in threads if k in mangled), mangled)
         elif "spill stores" in line and name:
             out.setdefault(name, {})["spill"] = line.strip()
         elif ": Used" in line and name:
@@ -1103,7 +1116,7 @@ def ptxas_kernels(log: str) -> dict:
                 if "smem" in words else 0
             row = out.setdefault(name, {})
             row.update(regs=regs, smem=smem, occupancy=occupancy(
-                regs, smem, TAIL_THREADS.get(name, 128)))
+                regs, smem, threads.get(name, 128)))
     return out
 
 
@@ -1144,37 +1157,43 @@ def _bits_equal(outs, refs) -> bool:
 
 
 def tail_main(args, smi: str, device="cuda"):
-    """``--tail``: SIFT's refinement and grid descriptor on the bench's
-    first upload batch (this tree's calls, recorded from one eager
-    extraction), this tree's kernels against another checkout's in turns.
-    Per octave: the refinement here against the other tree's (its dense
-    Newton field and its refinement, where it has the field); the
-    descriptor likewise, and each ``--descr`` source through this tree's
-    wrapper. Each: the outputs bit for bit this tree's plain version's,
-    the times of each version in turns (CUDA events), the device time of
-    each of its kernels with the L2 flushed, and the bound. The
-    descriptor's sampling phase alone (each source cut after it,
-    ``sampling_only``) and ptxas's registers, shared memory and
-    theoretical occupancy of every kernel."""
+    """``--tail``: SIFT's refinement, orientation and grid descriptor on
+    the bench's first upload batch (this tree's calls, recorded from one
+    eager extraction), this tree's kernels against another checkout's in
+    turns. Per octave: the refinement here against the other tree's (its
+    dense Newton field and its refinement, where it has the field); the
+    orientation and the descriptor likewise, and each ``--descr`` source
+    through this tree's wrapper. Each: the outputs bit for bit this
+    tree's plain version's, the times of each version in turns (CUDA
+    events), the device time of each of its kernels with the L2 flushed
+    (the orientation's also in turns), and the bound. The descriptor's
+    sampling phase alone (each source cut after it, ``sampling_only``)
+    and ptxas's registers, shared memory and theoretical occupancy of
+    every kernel."""
     from pano360_tpu_torch import _kernels, pipeline
     from pano360_tpu_torch.features import sift as S
     from pano360_tpu_torch.ops import sift_tail as T
     dev = torch.device(device)
     cfg = S.SiftConfig()
     _, u8, _, _ = bench_views()
-    with recording(T, ("refine", "descriptors")) as calls:
+    with recording(T, ("refine", "orientation", "descriptors")) as calls:
         pipeline.upload_extract(u8[:4], dev, capture=False)
     torch.cuda.synchronize()
     other = _import_tree(args.tail)[0].S.sift_tail if args.tail else None
     fused = other is not None and not hasattr(other, "newton_field")
     out = dict(card=smi, other=str(args.tail), ptxas={
-        "this": {k: v for stem in ("sift_refine", "sift_descr")
+        "this": {k: v for stem in TAIL_STEMS
                  for k, v in ptxas_kernels(_kernels.build_log(stem)).items()}})
     if other is not None:
         other._kernels.lib()
+        block = "p360_sift_orient_block" not in (
+            other._kernels.CSRC / "sift_orient.cu").read_text()
         out["ptxas"]["other"] = {
-            k: v for stem in ("newton_field", "sift_refine", "sift_descr")
-            for k, v in ptxas_kernels(other._kernels.build_log(stem)).items()}
+            k: v for stem in ("newton_field",) + TAIL_STEMS
+            if (other._kernels.CSRC / f"{stem}.cu").exists()
+            for k, v in ptxas_kernels(
+                other._kernels.build_log(stem),
+                BLOCK_ORIENT_THREADS if block else None).items()}
 
     # the refinement, per octave
     rows = []
@@ -1214,6 +1233,9 @@ def tail_main(args, smi: str, device="cuda"):
             for n in rows[0]["other_device_ms"]}
         out["refine"]["other_identical"] = all(r["other_identical"]
                                                for r in rows)
+
+    out["orientation"] = orientation_turns(calls["orientation"], other,
+                                           args.orient)
 
     # the descriptor, one launch over the batch's keypoints
     (dargs, dkw), = calls["descriptors"]
@@ -1260,8 +1282,88 @@ def tail_main(args, smi: str, device="cuda"):
         row[name] = part
     out["descriptors"] = row
     print(json.dumps(out), flush=True)
-    if not (out["refine"]["identical"] and row["this"]["identical"]):
+    if not (out["refine"]["identical"] and out["orientation"]["identical"]
+            and row["this"]["identical"]):
         sys.exit("measure: a kernel differs from its plain version")
+
+
+def orientation_work(args, cfg) -> dict:
+    """What the grid orientation kernel's lanes do for a call's keypoints,
+    per keypoint: window rows, window columns, samples inside the window,
+    and (column, bin) pairs present (one row tree each)."""
+    from pano360_tpu_torch.features import sift as S
+    gx, _, y, x, pcy, pcx, sig, oh, ow = args
+    m, psg = gx.shape[:2]
+    bins = S._orientation_samples(*args, cfg)[1]
+    ar = torch.arange(psg, device=gx.device)
+    r = torch.round(4.5 * sig)[:, None]
+    rows = (((pcy[:, None] + 1 + ar - y[:, None]).abs() <= r)
+            & (pcy[:, None] + 1 + ar >= 1)
+            & (pcy[:, None] + 1 + ar <= oh[:, None] - 2))
+    cols = (((pcx[:, None] + 1 + ar - x[:, None]).abs() <= r)
+            & (pcx[:, None] + 1 + ar >= 1)
+            & (pcx[:, None] + 1 + ar <= ow[:, None] - 2))
+    inside = rows[:, :, None] & cols[:, None, :]
+    nb = cfg.ori_bins
+    idx = torch.where(inside, bins.reshape(m, psg, psg), nb)
+    seen = torch.zeros((m, psg, nb + 1), dtype=torch.bool, device=gx.device)
+    seen.scatter_(2, idx.transpose(1, 2), True)    # (keypoint, column, bin)
+    return dict(rows=float(rows.sum()) / m, columns=float(cols.sum()) / m,
+                samples=float(inside.sum()) / m,
+                column_bins=float(seen[..., :nb].sum()) / m)
+
+
+def orientation_turns(calls, other, variants=()) -> dict:
+    """The orientation's one launch over the batch's keypoints (``calls``,
+    its recorded call): this tree's kernel and the other tree's
+    (``other``: its ``sift_tail``, or None) against this tree's plain
+    version bit for bit, in turns: CUDA events, and the device time with
+    the L2 flushed; the bound and the work per keypoint
+    (``orientation_work``). Each of ``variants`` (other ``sift_orient.cu``
+    sources with this tree's C interface) likewise, through this tree's
+    wrapper, in turns with this tree's kernel."""
+    from pano360_tpu_torch import _kernels
+    from pano360_tpu_torch.features import sift as S
+    from pano360_tpu_torch.ops import sift_tail as T
+    (args, kw), = calls
+    gx, gy, y, x, pcy, pcx, sig, oh, ow = args
+    want = S._peak_angles(S._orientation_hist(*args, **kw), **kw)
+
+    def this():
+        return T.orientation(*args, **kw)
+    cost = T.orientation_cost(y, x, pcy, pcx, sig, oh, ow, gx.shape[1])
+    row = dict(keypoints=gx.shape[0], identical=_bits_equal(this(), want),
+               bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
+               bytes=cost["bytes"], flops=cost["flops"],
+               work=orientation_work(args, kw["cfg"]))
+    name = "p360_sift_orient_kernel"
+    if other is None:
+        row["ms"] = timed(this, REPS)
+        row["device_ms"] = device_ms(this, name, REPS, flush=True)
+    else:
+        def theirs():
+            return other.orientation(*args, **kw)
+        row["other_identical"] = _bits_equal(theirs(), want)
+        row["ms"], row["other_ms"] = alternate(this, theirs, REPS)
+        row["device_ms"], row["other_device_ms"] = device_turns(
+            this, theirs, name, REPS, flush=True)
+    built = build_others(list(variants))
+    sig_ = _kernels._SIGNATURES["sift_orient"]["p360_sift_orient"]
+    for src in variants:
+        fn = entry(built[src][0], "p360_sift_orient", sig_)
+
+        def run():
+            with entry_swapped(_kernels, "p360_sift_orient", fn):
+                return T.orientation(*args, **kw)
+        part = dict(identical=_bits_equal(run(), want),
+                    ptxas=ptxas_kernels(built[src][1]))
+        part["this_ms"], part["ms"] = alternate(this, run, REPS)
+        part["this_device_ms"], part["device_ms"] = device_turns(
+            this, run, name, REPS, flush=True)
+        row[str(src)] = part
+        print(json.dumps({str(src): part}), flush=True)
+    print(json.dumps(dict(orientation=row)), flush=True)
+    return row
 
 
 def _identical(outs, refs) -> bool:
@@ -1286,10 +1388,14 @@ def main(argv=None):
                         "instead, beside each other checkout given")
     parser.add_argument("--tail", type=Path, nargs="?", const=False,
                         default=None,
-                        help="time SIFT's refinement and grid descriptor "
-                        "instead, beside another checkout's if given")
+                        help="time SIFT's refinement, orientation and grid "
+                        "descriptor instead, beside another checkout's if "
+                        "given")
     parser.add_argument("--descr", type=Path, nargs="*", default=[],
                         help="with --tail: other sift_descr.cu sources to "
+                        "time beside this one")
+    parser.add_argument("--orient", type=Path, nargs="*", default=[],
+                        help="with --tail: other sift_orient.cu sources to "
                         "time beside this one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

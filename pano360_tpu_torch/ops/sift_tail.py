@@ -13,7 +13,9 @@ version in ``features/sift.py``:
   makes);
 - ``orientation`` (``csrc/sift_orient.cu``): each keypoint's smoothed
   36-bin histogram and its two interpolated peaks (``_orientation_hist``
-  and ``_peak_angles``);
+  and ``_peak_angles``), a warp per keypoint on the grid mode's 64x64
+  patches, a block per keypoint on other patches (the dense mode's
+  80x80);
 - ``descriptors`` (``csrc/sift_descr.cu``): the rotated grid descriptor
   of each keypoint and orientation (``_descriptors``).
 
@@ -145,7 +147,8 @@ def orientation(gx, gy, y, x, pcy, pcx, sig, oh, ow, cfg):
     """Orientations of M keypoints from their (M, psg, psg) gradient
     patches anchored at (pcy + 1, pcx + 1): -> (angles (M, 2) f32, valid
     (M, 2) bool). The kernel takes 36 bins, two orientations and
-    psg^2 <= 8192."""
+    psg^2 <= 8192: 64x64 patches take its warp-per-keypoint design,
+    others its block-per-keypoint one (both counted as ``ORIENT``)."""
     if not _on_card(gx, "orientation"):
         sift = _plain()
         return sift._peak_angles(sift._orientation_hist(
@@ -160,7 +163,8 @@ def orientation(gx, gy, y, x, pcy, pcx, sig, oh, ow, cfg):
     angles = torch.empty((m, 2), dtype=torch.float32, device=dev)
     valid = torch.empty((m, 2), dtype=torch.bool, device=dev)
     nb = cfg.ori_bins
-    _launch(ORIENT, "p360_sift_orient", gx.data_ptr(), gy.data_ptr(),
+    entry = "p360_sift_orient" if psg == 64 else "p360_sift_orient_block"
+    _launch(ORIENT, entry, gx.data_ptr(), gy.data_ptr(),
             y.data_ptr(), x.data_ptr(), pcy.data_ptr(), pcx.data_ptr(),
             oh.data_ptr(), ow.data_ptr(), sig.data_ptr(), angles.data_ptr(),
             valid.data_ptr(), m, psg, nb / (2 * math.pi),

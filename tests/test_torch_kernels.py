@@ -726,6 +726,66 @@ def test_sift_descr_kernel_windows_leave_the_patch(k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 257])
+def test_sift_orient_kernel_windows_on_every_patch_edge(k):
+    """Keypoints whose orientation windows lie anywhere in the 64x64
+    gradient patch (numpy-seeded): corners clamped to 0 and to h - 66 as
+    ``_extract_patches`` clamps them, positions on and near the image's
+    edges, sigmas from 1.6 to 7.2 (a window of the whole patch), small
+    octaves (h, w < 66) whose patches are zero-padded, two equal peaks
+    (the lower bin first, keypoint 0) and an all-zero window (both
+    orientations invalid, keypoint 1): the grid orientation kernel bit
+    for bit its plain version, twice in a row."""
+    dev = _cuda()
+    rng = np.random.default_rng(k)
+    psg = 64
+    gx, gy = ((rng.standard_normal((k, psg, psg)) * 0.05).astype(np.float32)
+              for _ in range(2))
+    oh = rng.choice([20, 41, 65, 66, 125, 160], k)
+    ow = rng.choice([24, 50, 64, 67, 145, 170], k)
+
+    def near_edges(size, mod):
+        pos = rng.integers(0, size)
+        return np.select([mod == 0, mod == 1, mod == 2],
+                         [np.minimum(rng.integers(0, 3, k), size - 1),
+                          size - 1 - np.minimum(rng.integers(0, 3, k),
+                                                size - 1),
+                          np.minimum(33 + rng.integers(-2, 3, k), size - 1)],
+                         pos)
+    i = np.arange(k)
+    y, x = near_edges(oh, i % 4), near_edges(ow, (i // 4) % 4)
+    sig = rng.uniform(1.6, 7.2, k).astype(np.float32)
+    sig[i % 5 == 0], sig[i % 5 == 1] = 1.6, 7.2
+    # keypoint 0: gradients (0.5, 0) and (-0.5, 0) one pixel left and right
+    # of it (bins 0 and 18, the same weight), nothing else
+    oh[0] = ow[0] = 125
+    y[0], x[0], sig[0] = 60, 60, 2.0
+    gx[0], gy[0] = 0.0, 0.0
+    gx[0, 32, 31], gx[0, 32, 33] = 0.5, -0.5
+    if k > 1:
+        gx[1], gy[1] = 0.0, 0.0
+    pcy = np.clip(y - psg // 2 - 1, 0, np.maximum(oh - psg - 2, 0))
+    pcx = np.clip(x - psg // 2 - 1, 0, np.maximum(ow - psg - 2, 0))
+    # a small octave's patch: its gradients end at row (column) h - 3, and
+    # the rest is zero padding
+    for j in range(k):
+        gx[j, oh[j] - 2:], gy[j, oh[j] - 2:] = 0.0, 0.0
+        gx[j, :, ow[j] - 2:], gy[j, :, ow[j] - 2:] = 0.0, 0.0
+    ints = (torch.from_numpy(a.astype(np.int64)) for a in (y, x, pcy, pcx))
+    args = _on(dev, (torch.from_numpy(gx), torch.from_numpy(gy), *ints,
+                     torch.from_numpy(sig), torch.from_numpy(oh),
+                     torch.from_numpy(ow)))
+    _hold_to_plain("orientation", args, dict(cfg=S.SiftConfig()))
+    angle, valid = T.orientation(*args, cfg=S.SiftConfig())
+    assert valid[0].tolist() == [True, True]
+    assert angle[0, 0].item() == 0.0 and angle[0, 1].item() > 3.0
+    if k > 1:
+        assert valid[1].tolist() == [False, False]
+    if k > 3:
+        assert 0.5 < valid[:, 0].float().mean().item() < 1.0
+
+
+@pytest.mark.gpu
 def test_sift_tail_kernels_reject_bad_input():
     dev = _cuda()
     calls = _tail_calls((54, 72), 1, dev)

@@ -228,6 +228,136 @@ def test_orientation_plain_matches_jax(calls, case):
     assert dang.max() <= 1e-5
 
 
+def _row_node(leaves, d, r):
+    """The grid orientation kernel's depth-first node over the leaves q =
+    r (mod d) of dim -2: node(d, r) = node(2d, r) + node(2d, r + d)."""
+    if d == leaves.shape[-2]:
+        return leaves[..., r, :]
+    return _row_node(leaves, 2 * d, r) + _row_node(leaves, 2 * d, r + d)
+
+
+def _kernel_window(y, x, pcy, pcx, sig, oh, ow, psg=64):
+    """The patch rows and columns (rlo, rhi, clo, chi) that the grid
+    kernel visits: the window of radius round(4.5 sigma) cut by the patch
+    and the image's interior."""
+    r = torch.round(4.5 * sig).to(torch.int64)
+    oy, ox = pcy + 1, pcx + 1
+    one = torch.ones_like(y)
+    rlo = torch.maximum(torch.maximum(0 * one, 1 - oy), y - r - oy)
+    rhi = torch.minimum(torch.minimum(one * (psg - 1), oh - 2 - oy),
+                        y + r - oy)
+    clo = torch.maximum(torch.maximum(0 * one, 1 - ox), x - r - ox)
+    chi = torch.minimum(torch.minimum(one * (psg - 1), ow - 2 - ox),
+                        x + r - ox)
+    return rlo, rhi, clo, chi
+
+
+def _kernel_order_hist(val, bins, rlo, rhi, clo, chi, nb=36):
+    """The grid kernel's (``csrc/sift_orient.cu``) raw histograms of (M,
+    64, 64) samples in its order, with the +0 leaves it leaves out left
+    out: per column of the window, the row tree over the window's rows
+    folded to nl = 32 residues (64 above 32 rows), the
+    leaves of other bins +0, added only for the bins present in the
+    column to a +0 partial of column l and l + 32; then the halving tree
+    over the 32 partials. Nothing outside the window is read. (At nl =
+    64 the kernel takes the root's two subtrees, the even and the odd
+    rows, in turn: ``_row_node(leaves, 1, 0)`` is their sum.)"""
+    out = []
+    b_all = torch.arange(nb)[:, None, None]
+    for k in range(val.shape[0]):
+        lo, hi = int(rlo[k]), int(rhi[k])
+        rows = hi - lo + 1
+        nl = 32 if rows <= 32 else 64
+        iy = lo + (torch.arange(nl) - lo) % nl
+        has = (iy <= hi)[:, None]
+        iy = iy.clamp(0, 63)
+        leaf_v = torch.where(has, val[k, iy], 0.0)           # (nl, 64)
+        leaf_b = torch.where(has, bins[k, iy], -1)
+        present = (leaf_b[None] == b_all).any(1)             # (nb, 64)
+        sums = _row_node(torch.where(leaf_b[None] == b_all, leaf_v[None],
+                                     0.0), 1, 0)             # (nb, 64)
+        cols = torch.arange(64)
+        keep = present & (cols >= int(clo[k])) & (cols <= int(chi[k]))
+        part = torch.zeros((nb, 32))
+        for h in (0, 1):
+            c = slice(32 * h, 32 * h + 32)
+            part = torch.where(keep[:, c], part + sums[:, c], part)
+        out.append(_row_node(part.T[None], 1, 0)[0])
+    return torch.stack(out)
+
+
+def _smooth(hist):
+    hm2, hm1 = torch.roll(hist, 2, -1), torch.roll(hist, 1, -1)
+    hp1, hp2 = torch.roll(hist, -1, -1), torch.roll(hist, -2, -1)
+    return (hm2 + hp2) * (1 / 16) + (hm1 + hp1) * (4 / 16) + hist * (6 / 16)
+
+
+def _order_windows(seed):
+    """Numpy-seeded (M, 64, 64) weighted magnitudes and bins, zero outside
+    each keypoint's window: windows centred, against each patch edge and
+    corner, cut short by zero-padded rows and columns (a small octave),
+    of heights 1-32 and 33-64, one all +0."""
+    rng = np.random.default_rng(seed)
+    spans = []
+    for height in (9, 15, 16, 17, 23, 31, 32, 33, 37, 64):
+        width = int(rng.integers(1, 65))
+        for rlo in (0, (64 - height) // 2, 64 - height):
+            for clo in (0, (64 - width) // 2, 64 - width):
+                spans.append((rlo, rlo + height - 1, clo, clo + width - 1))
+    # zero-padded rows and columns: the window ends at the image's last
+    # interior row or column inside the patch
+    for pad in (5, 20, 40):
+        spans.append((0, 63 - pad, 10, 63 - pad // 2))
+        spans.append((30 - pad // 2, 63 - pad, 0, 63 - pad))
+    m = len(spans)
+    val = (rng.lognormal(-3.0, 1.5, (m, 64, 64))
+           * (rng.random((m, 64, 64)) > 0.05)).astype(np.float32)
+    bins = rng.integers(0, 36, (m, 64, 64))
+    rlo, rhi, clo, chi = (torch.tensor(v) for v in zip(*spans))
+    ar = np.arange(64)
+    inside = ((ar[None, :, None] >= rlo.numpy()[:, None, None])
+              & (ar[None, :, None] <= rhi.numpy()[:, None, None])
+              & (ar[None, None, :] >= clo.numpy()[:, None, None])
+              & (ar[None, None, :] <= chi.numpy()[:, None, None]))
+    val = np.where(inside, val, np.float32(0.0))
+    val[-1] = 0.0
+    return (torch.from_numpy(val), torch.from_numpy(bins), rlo, rhi, clo,
+            chi)
+
+
+@pytest.mark.parametrize("case", ["windows", "recorded"])
+def test_orientation_kernel_order_equals_tree_sum(calls, case, monkeypatch):
+    """The grid orientation kernel's order (a row tree inside a column
+    tree, its +0 leaves left out, written here in torch) gives every bin
+    the bits of ``_orientation_hist``'s ``tree_sum`` over the 4096
+    flattened samples; the smoothed histograms and ``_peak_angles`` then
+    agree. Numpy-seeded windows anywhere in the patch, and the recorded
+    extraction's samples with the windows the kernel computes."""
+    if case == "windows":
+        val, bins, *window = _order_windows(5)
+        m = val.shape[0]
+    else:
+        args = _flat(calls, "orientation", 512)
+        flat_v, flat_b = tsift._orientation_samples(*args, CFG)
+        m = flat_v.shape[0]
+        val, bins = flat_v.reshape(m, 64, 64), flat_b.reshape(m, 64, 64)
+        window = _kernel_window(*args[2:])
+    ours = _kernel_order_hist(val, bins, *window)
+    flat_v, flat_b = val.reshape(m, -1), bins.reshape(m, -1)
+    raw = torch.stack([tsift.tree_sum(torch.where(flat_b == i, flat_v, 0.0),
+                                      1) for i in range(36)], dim=1)
+    assert torch.equal(ours.view(torch.int32), raw.view(torch.int32))
+    assert (ours > 0).sum() > m
+    monkeypatch.setattr(tsift, "_orientation_samples",
+                        lambda *a: (flat_v, flat_b))
+    plain = tsift._orientation_hist(*([None] * 9), CFG)
+    smooth = _smooth(ours)
+    assert torch.equal(smooth.view(torch.int32), plain.view(torch.int32))
+    for a, b in zip(tsift._peak_angles(smooth, CFG),
+                    tsift._peak_angles(plain, CFG)):
+        assert torch.equal(a, b)
+
+
 def _jax_descriptors(args, cfg):
     one = jax.vmap(lambda *a: jsift._descriptor_from_patch(*a, cfg),
                    in_axes=(None,) * 7 + (0, None, None))
