@@ -22,6 +22,13 @@ Phases (any failure exits non-zero):
    flushed, bound, plain version, and the PyTorch call of the same
    function where one exists (the histogram's one-hot ``torch.matmul``,
    the descriptor binning's contraction); ptxas's report of each;
+   C. SIFT's front end (``ops.sift_front``: the base image, upsampled and
+   blurred, and the small octaves' chain, DoG and score) vs the plain
+   versions, bit for bit, on the bench world's first upload batch (its
+   base and its octaves 6-8, recorded from one eager extraction): each
+   kernel's launch, device time with the L2 flushed, bound and plain
+   version (no single PyTorch call computes either); the base without
+   the upsample (``upscale=False``) bit for bit; ptxas's report;
 4. kernel 2 (backward warp) vs its plain version at the bench's render
    layout, bit for bit with no mask flip: the launch with a prepared
    plan, the prepare step (host), the device time per launch, the bound
@@ -32,8 +39,8 @@ Phases (any failure exits non-zero):
    extraction's and the match graph's CUDA graphs) and a warm one
    (replays), per-stage seconds, peak device memory (allocated, and
    reserved by where the allocator keeps it), kernel launch
-   counts (the warm run's are the main path's: SIFT's tail 36, 4 and 4
-   inside the replays), three more warm runs'
+   counts (the warm run's are the main path's: SIFT's front end 4 and
+   12, its tail 36, 4 and 4 inside the replays), three more warm runs'
    stage seconds, registration accuracy against the synthetic ground
    truth, and a cached re-run; SIFT's extraction and the match graph
    replayed against the same steps run eagerly (features and match rows
@@ -46,8 +53,9 @@ Phases (any failure exits non-zero):
 6. profile: one more uncached run of the main path under
    ``torch.profiler``: device busy time, the device's idle share, the
    device operations that take the most time, and the kernels' entries;
-   the launches of the octave kernel and of SIFT's tail in the profile
-   (inside the replays) equal to their counts, SIFT's tail's 36, 4 and 4;
+   the launches of the octave kernel and of SIFT's front end and tail in
+   the profile (inside the replays) equal to their counts, the front
+   end's 4 and 12, the tail's 36, 4 and 4;
 7. render options, each path with the kernel counts set to 0 just
    before it and read just after:
    B. ``-e -c --warp pallas`` on the bench views at known per-view
@@ -139,14 +147,14 @@ the samples, texels and field words its inputs need). ``library_ms``
 times ``torch.nn.functional.grid_sample`` (bilinear, reflection,
 align_corners=False) on each warp's own sample grid, built outside the
 timed window: the gather alone, without the ray mapping, the mask or
-the seam; no PyTorch call computes the octave stack or the refinement
-(null); for the orientation the one-hot
+the seam; no PyTorch call computes the octave stack, SIFT's front end or
+the refinement (null); for the orientation the one-hot
 ``torch.matmul`` of the histogram and for the descriptor the binning's
 contraction (``torch.matmul``), the JAX package's forms, inputs built
 outside the timed window. The refinement's ``ms``, ``plain_ms`` and
-``bound_ms`` are per upload batch (9 launches), the other kernels' per
-launch; SIFT's tail's entries also carry
-``device_ms``.
+``bound_ms`` are per upload batch (9 launches), the small octave's too
+(3 launches), the other kernels' per launch; the entries of SIFT's
+front end and tail also carry ``device_ms``.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -294,9 +302,23 @@ SIFT_TAIL = tuple(row[0] for row in SIFT_TAIL_LINE)
 # replays): the refinement at each of the 9 octaves of 4 upload batches,
 # the orientation and the descriptor once a batch
 TAIL_LAUNCHES = dict(sift_refine=36, sift_orient=4, sift_descr=4)
+# SIFT's front end: (wrapper, kernel and count name, source, the JAX
+# computation replaced)
+SIFT_FRONT_LINE = (
+    ("base_image", "sift_base", "sift_base.cu",
+     "pano360_tpu/features/sift.py:164 (XLA fusion)"),
+    ("small_octave", "sift_small_octave", "sift_small_octave.cu",
+     "pano360_tpu/features/sift.py:216 and :308 (XLA fusion)"))
+SIFT_FRONT = tuple(row[0] for row in SIFT_FRONT_LINE)
+# its launches per warm panorama on the main path (inside the replays):
+# the base once per upload batch (4), each of the 3 small octaves (6-8)
+# once per batch
+FRONT_LAUNCHES = dict(sift_base=4, sift_small_octave=12)
 # device names of the kernels whose launches phase 6 holds to the profile
 # (the orientation's: its grid design, a warp per keypoint)
 PROFILED = {"octave_stack": "octave_stack_kernel",
+            "sift_base": "p360_sift_base_kernel",
+            "sift_small_octave": "p360_sift_small_octave_kernel",
             "sift_refine": "p360_sift_refine_kernel",
             "sift_orient": "p360_sift_orient_kernel",
             "sift_descr": "p360_sift_descr_kernel"}
@@ -365,6 +387,91 @@ def phase_sift_tail(torch, u8):
         for ln in _kernels.build_log(stem).splitlines()
         if ": Used" in ln or "spill" in ln]))
     del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sift_front(torch, u8):
+    """3 C: the two kernels of SIFT's front end vs their plain versions on
+    the bench world's first upload batch (4 views), recorded from one
+    eager extraction: the base of its gray views and its 3 small octaves
+    (6-8); bit for bit, every output plane; per kernel the launch (CUDA
+    events), the device time with the L2 flushed (``torch.profiler``),
+    the bound and the plain version; no single PyTorch call computes
+    either (library null). Then the base without the upsample
+    (``upscale=False``), bit for bit. -> {wrapper: dict for the kernels
+    line}, the small octave's ms, bound and plain summed over its 3
+    octaves."""
+    from pano360_tpu_torch import _kernels, pipeline
+    from pano360_tpu_torch.features import sift as S
+    from pano360_tpu_torch.measure import alternate, device_ms, recording
+    from pano360_tpu_torch.ops import sift_front as F
+    dev = torch.device("cuda")
+    with recording(F, SIFT_FRONT) as calls:
+        pipeline.upload_extract(u8[:4], dev, capture=False)
+    torch.cuda.synchronize()
+    check([len(calls[k]) for k in SIFT_FRONT] == [1, 3],
+          f"3 C: recorded calls {[len(calls[k]) for k in SIFT_FRONT]}")
+    out = {}
+    for name, kernel, _, _ in SIFT_FRONT_LINE:
+        tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes_ms=0.0,
+                   flops_ms=0.0, library_ms=None, max_abs_err=0.0)
+        for args, kw in calls[name]:
+            x, cfg = args
+
+            def kern():
+                return getattr(F, name)(x, cfg)
+
+            def ref():
+                return getattr(F, f"{name}_ref")(x, cfg)
+            got, want = kern(), ref()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            same = all(bits_equal(torch, a, b) for a, b in zip(got, want))
+            err = max_abs(torch, got, want)
+            del got, want
+            tp, tk = alternate(ref, kern, REPS)
+            td = device_ms(kern, PROFILED[kernel], REPS, flush=True)
+            base = name == "base_image"
+            cost = getattr(F, "base_cost" if base
+                           else "small_octave_cost")(*x.shape, cfg)
+            log(f"  {name} {tuple(x.shape)}: bit for bit {same} (max|d| "
+                f"{err}); kernel {tk:.4f} ms, device {td:.4f} ms with the "
+                f"L2 flushed, bound {cost['bound_ms']:.5f} ms "
+                f"({cost['bound_by']}: {cost['bytes']} bytes, "
+                f"{cost['flops']} operations), plain {tp:.3f} ms"
+                + ("" if base else "; in shared memory "
+                   f"{F.small_octave_in_shared(*x.shape[1:])}"))
+            check(same, f"3 C: {name} {tuple(x.shape)} differs from its "
+                  f"plain version (max|d| {err})")
+            for key, v in (("ms", tk), ("device_ms", td), ("plain_ms", tp),
+                           ("bytes_ms", cost["bytes_ms"]),
+                           ("flops_ms", cost["flops_ms"])):
+                tot[key] += v
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["bound_ms"] = max(tot["bytes_ms"], tot["flops_ms"])
+        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["flops_ms"]
+                           else "operations")
+        if len(calls[name]) > 1:
+            log(f"  {name}, the batch's {len(calls[name])} octaves: kernel "
+                f"{tot['ms']:.4f} ms, device {tot['device_ms']:.4f} ms, "
+                f"bound {tot['bound_ms']:.5f} ms, plain "
+                f"{tot['plain_ms']:.3f} ms")
+        out[name] = tot
+    gray = calls["base_image"][0][0][0]
+    flat = S.SiftConfig(upscale=False)
+    same = bits_equal(torch, F.base_image(gray, flat),
+                      F.base_image_ref(gray, flat))
+    log(f"  base_image {tuple(gray.shape)}, upscale=False (13 taps): bit "
+        f"for bit {same}")
+    check(same, "3 C: base_image with upscale=False differs from its "
+          "plain version")
+    log("  ptxas -v:" + "\n    ".join([""] + [
+        ln.strip() for _, stem, _, _ in SIFT_FRONT_LINE
+        for ln in _kernels.build_log(stem).splitlines()
+        if ": Used" in ln or "spill" in ln or (
+            "Compiling entry" in ln and "ILi11ELb1E" in ln)]))
+    del calls, gray
     torch.cuda.empty_cache()
     return out
 
@@ -520,11 +627,12 @@ def registration_errors(regs, rots, focal):
 def counters():
     """{kernel: what counts its launches}."""
     from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops import sift_front as F
     from pano360_tpu_torch.ops import sift_tail as T
     from pano360_tpu_torch.ops import warp_kernel as W
     from pano360_tpu_torch.ops import warp_mip as M
     return {"octave_stack": G, "backward_warp": W, "backward_warp_mip": M,
-            **{c.name: c for c in T.COUNTS}}
+            **{c.name: c for c in F.COUNTS + T.COUNTS}}
 
 
 def reset_counts():
@@ -574,6 +682,9 @@ def phase_slice(torch, u8, rots, focal):
           f"main path did not launch every kernel: {launches}")
     check(all(launches[k] == v for k, v in TAIL_LAUNCHES.items()),
           f"SIFT's tail on the main path: {launches}, not {TAIL_LAUNCHES}")
+    check(all(launches[k] == v for k, v in FRONT_LAUNCHES.items()),
+          f"SIFT's front end on the main path: {launches}, not "
+          f"{FRONT_LAUNCHES}")
     for rep in range(3):
         cache = os.path.join(work, f"again{rep}")
         os.makedirs(cache)
@@ -1104,8 +1215,8 @@ def phase_mixed(torch, rots, focal):
     flags = BASE_FLAGS + ["-e", "-c"]
     mosaic, launches, _, cache, _ = cold_warm(
         torch, u8, flags, "chip_smoke_mixed_", "B",
-        ["octave_stack", "backward_warp", "sift_refine", "sift_orient",
-         "sift_descr"])
+        ["octave_stack", "backward_warp", "sift_base", "sift_small_octave",
+         "sift_refine", "sift_orient", "sift_descr"])
     check(launches["backward_warp_mip"] == 0, f"B: launches {launches}")
     regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
     check(len(regs) == BENCH_VIEWS, f"B: {len(regs)} of {BENCH_VIEWS} placed")
@@ -1424,6 +1535,9 @@ def phase_profile(torch, u8, warm_s: float):
     check(all(launches[k] == v for k, v in TAIL_LAUNCHES.items()),
           f"SIFT's tail in the profiled run: {launches}, not "
           f"{TAIL_LAUNCHES}")
+    check(all(launches[k] == v for k, v in FRONT_LAUNCHES.items()),
+          f"SIFT's front end in the profiled run: {launches}, not "
+          f"{FRONT_LAUNCHES}")
 
 
 def profile_device(torch, fn, warm_s=None):
@@ -1499,6 +1613,8 @@ def main():
     k1 = phase_octave(torch, u8)
     log("phase 3 B: SIFT's tail, three kernels vs plain")
     tail = phase_sift_tail(torch, u8)
+    log("phase 3 C: SIFT's front end, two kernels vs plain")
+    front = phase_sift_front(torch, u8)
     log("phase 4: backward_warp kernel vs plain")
     k2 = phase_warp(u8, rots, focal)
     log("phase 5: CLI main path on the bench dataset")
@@ -1542,10 +1658,11 @@ def main():
     ] + [dict(name=kernel, route="cuda",
               source=f"pano360_tpu_torch/csrc/{src}", replaces=replaces,
               launches=launches[kernel],
-              **{k: tail[fn][k] for k in ("max_abs_err", "ms", "plain_ms",
+              **{k: rows[fn][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "device_ms")})
-         for fn, kernel, src, replaces in SIFT_TAIL_LINE] + [
+         for rows, line in ((front, SIFT_FRONT_LINE), (tail, SIFT_TAIL_LINE))
+         for fn, kernel, src, replaces in line] + [
         dict(name="sift_orient_block", route="cuda",
              source="pano360_tpu_torch/csrc/sift_orient.cu",
              replaces="pano360_tpu/features/sift.py:594 and :635 (XLA "

@@ -4,7 +4,7 @@ A port of ``pano360_tpu`` (JAX/XLA/Pallas) to PyTorch, for one NVIDIA
 H100. Module names mirror the JAX package so each counterpart is easy to
 find; public functions keep the JAX layouts ((N, H, W[, C]) images,
 (N, 3, 3) cameras) so the two packages can be held against each other
-on the same inputs. Six CUDA kernels, written by hand and built from
+on the same inputs. Eight CUDA kernels, written by hand and built from
 ``csrc/`` at first use, each with a plain PyTorch version beside it that
 the CPU runs and the card is held to bit for bit:
 
@@ -14,6 +14,11 @@ the CPU runs and the card is held to bit for bit:
   ``ops/warp_kernel.backward_warp_ref``) and mip-sampled for ``--warp
   pallas`` (``backward_warp_mip.cu``;
   ``ops/warp_mip.backward_warp_mip_ref``);
+- XLA's fusions of SIFT's front end (``ops/sift_front.py``): the base
+  image, upsampled and blurred (``sift_base.cu``; plain
+  ``ops/sift_front.base_image_ref``), and the small octaves' per-layer
+  chain, DoG and score (``sift_small_octave.cu``;
+  ``features/sift._gaussian_stack`` and ``gauss_octave._extrema_score``);
 - XLA's fusions of SIFT's tail (``ops/sift_tail.py``): the refinement
   with each Newton step computed where a candidate visits it
   (``sift_refine.cu``, ``newton_step.cuh``; plain

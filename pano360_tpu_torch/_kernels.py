@@ -91,6 +91,16 @@ _SIGNATURES = {
         # psg, 2 pi, ori_bins / 2 pi, mag_thresh, stream
         "p360_sift_descr": [_P] * 11 + [_I, _I, _I, _F, _F, _F, _P],
     },
+    "sift_base": {
+        # gray, out, n, h, w, upscale, taps(host), k, stream
+        "p360_sift_base": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
+    },
+    "sift_small_octave": {
+        # base, gauss, dog, score, scratch (or null), n, h, w, taps(host),
+        # ksizes(host), n_lay, thresh, edge_r, border, stream
+        "p360_sift_small_octave": [_P] * 5 + [_I] * 3 + [_P, _P, _I, _F,
+                                                         _F, _I, _P],
+    },
     "backward_warp_mip": {
         # launch scalars (host), level_ptrs (host), origins, params,
         # patches, invalid, stream

@@ -24,7 +24,9 @@ chunk and the kernels repeat it bit for bit.
 The fused octave op and the per-layer chain (the JAX package's CPU
 path, kept here for the octaves too small to reflect-pad) compute the
 same stacks to f32 rounding: blurring a reflect101 extension with a
-symmetric kernel preserves the reflection.
+symmetric kernel preserves the reflection. The base image and the
+small octaves' chain, DoG and score run through ``ops.sift_front``: a
+CUDA kernel each on a card, the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -37,9 +39,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from pano360_tpu_torch.geometry import det3x3, inv3x3, tree_sum
-from pano360_tpu_torch.ops import gauss_octave, sift_tail
+from pano360_tpu_torch.ops import gauss_octave, sift_front, sift_tail
 from pano360_tpu_torch.ops.filters import blur_bhw, cv2_sift_ksize
-from pano360_tpu_torch.ops.resize import upsample2x_bilinear
 
 DESCR_MODES = ("grid", "dense")
 # keypoint-stage chunk per descriptor mode (the JAX package's lax.map
@@ -108,13 +109,9 @@ def n_octaves_for(shape: Tuple[int, int], upscale: bool = True) -> int:
 
 
 def _base_image(gray: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
-    if cfg.upscale:
-        img = upsample2x_bilinear(gray)
-        cur = cfg.init_sigma * 2.0
-    else:
-        img, cur = gray, cfg.init_sigma
-    delta = math.sqrt(max(cfg.sigma ** 2 - cur ** 2, 0.01))
-    return blur_bhw(img, delta, cv2_sift_ksize(delta))
+    """The upscaled (``cfg.upscale``) and blurred base: a CUDA kernel on
+    a card (``ops.sift_front.base_image``)."""
+    return sift_front.base_image(gray.contiguous(), cfg)
 
 
 def _gaussian_stack(base: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
@@ -130,17 +127,19 @@ def _gaussian_stack(base: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
 
 
 def _gauss_and_dog(base: torch.Tensor, cfg: SiftConfig, taps, score_cfg):
-    """One octave's (Gaussian stack, DoG stack, extrema score | None)."""
+    """One octave's (Gaussian stack, DoG stack, extrema score): the
+    octave kernel where its single reflect101 extension is legal, else
+    the per-layer chain (``ops.sift_front.small_octave``)."""
     h, w = base.shape[1:]
     if gauss_octave.reflect_legal(h, w, taps):
         return gauss_octave.octave_stack(base.contiguous(), taps, score_cfg)
-    gauss = _gaussian_stack(base, cfg)
-    return gauss, gauss[:, 1:] - gauss[:, :-1], None
+    return sift_front.small_octave(base.contiguous(), cfg)
 
 
 def _octave_candidates(dog: torch.Tensor, cfg: SiftConfig, cap: int,
                        score=None):
-    """Top-``cap`` extrema per image -> (layer, y, x, score > 0)."""
+    """Top-``cap`` extrema per image -> (layer, y, x, score > 0). Without
+    ``score`` (a caller's own DoG stack) the dense score is made here."""
     n, nl, h, w = dog.shape
     s = cfg.n_layers
     if score is None:
@@ -560,8 +559,7 @@ def sift_extract(gray: torch.Tensor, cfg: Optional[SiftConfig] = None
     s = cfg.n_layers
     half = cfg.patch_half
     taps = gauss_octave.chain_taps(cfg.sigma, s)
-    score_cfg = (0.5 * cfg.contrast_thresh / s, cfg.edge_thresh,
-                 cfg.img_border)
+    score_cfg = sift_front.score_cfg(cfg)
 
     octv = _base_image(gray, cfg)
     outs = []

@@ -30,10 +30,12 @@ import torch
 
 def _kernel_counters():
     """What counts the port's kernels' launches, each in ``launches``:
-    the modules of one kernel each, and SIFT's tail's counts."""
-    from pano360_tpu_torch.ops import (gauss_octave, sift_tail, warp_kernel,
-                                       warp_mip)
-    return (gauss_octave, warp_kernel, warp_mip) + sift_tail.COUNTS
+    the modules of one kernel each, and SIFT's front end's and tail's
+    counts."""
+    from pano360_tpu_torch.ops import (gauss_octave, sift_front, sift_tail,
+                                       warp_kernel, warp_mip)
+    return ((gauss_octave, warp_kernel, warp_mip) + sift_front.COUNTS
+            + sift_tail.COUNTS)
 
 
 class Launches:

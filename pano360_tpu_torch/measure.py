@@ -819,10 +819,11 @@ def synced(fn):
 
 
 # the extraction's stages and the functions that run them: names in the
-# SIFT module, or "sift_tail.<name>" in the kernels of its tail
+# SIFT module, or "sift_front.<name>" and "sift_tail.<name>" in the
+# kernels of its front end and tail
 SIFT_STAGES = (
-    ("base", ("_base_image",)),
-    ("scale space", ("_gauss_and_dog",)),
+    ("base", ("_base_image", "sift_front.base_image")),
+    ("scale space", ("_gauss_and_dog", "sift_front.small_octave")),
     ("candidates", ("_octave_candidates",)),
     ("Newton field", ("_newton_step_field", "sift_tail.newton_field")),
     ("refine", ("_refine", "sift_tail.refine")),

@@ -244,10 +244,16 @@ def _c_taps(taps, n: int, h: int, w: int):
     if kernel_tile(taps, n, h, w) is None:
         raise ValueError(f"octave_stack: halo {chain_halo(taps)} leaves no "
                          "tile whose buffers fit a block's shared memory")
+    return pack_taps(taps, MAX_TAPS)
+
+
+def pack_taps(taps, width: int):
+    """A chain's taps as a kernel takes them: -> ((n_lay, width) f32 host
+    array, zero past each layer's taps; the per-layer kernel sizes)."""
     nl = len(taps)
-    flat = (ctypes.c_float * (nl * MAX_TAPS))()
+    flat = (ctypes.c_float * (nl * width))()
     for i, t in enumerate(taps):
-        flat[i * MAX_TAPS:i * MAX_TAPS + len(t)] = t
+        flat[i * width:i * width + len(t)] = t
     return flat, (ctypes.c_int * nl)(*[len(t) for t in taps])
 
 
@@ -303,4 +309,4 @@ def launch(entry, base: torch.Tensor, taps, score_cfg=None):
 
 __all__ = ["chain_taps", "chain_halo", "reflect_legal", "octave_stack",
            "octave_stack_ref", "octave_stack_cost", "bound", "kernel_tile",
-           "kernel_taps_per_px"]
+           "kernel_taps_per_px", "pack_taps"]

@@ -49,12 +49,14 @@ def pipeline(mesh, imgs: List[np.ndarray], device="cuda",
     the peak device memory)."""
     from pano360_tpu_torch import render
     from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops import sift_front as F
     from pano360_tpu_torch.ops import sift_tail as T
     from pano360_tpu_torch.ops import warp_kernel as W
     from pano360_tpu_torch.pipeline import idx_to_keypoints, matching
     from pano360_tpu_torch.register import traverse
     dev = torch.device(device) if mesh is None else mesh.device
-    for c in (G, W) + T.COUNTS:
+    counts = F.COUNTS + T.COUNTS
+    for c in (G, W) + counts:
         c.launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -81,7 +83,7 @@ def pipeline(mesh, imgs: List[np.ndarray], device="cuda",
                 gathers=0 if mesh is None else mesh.stats.get("gathers", 0),
                 launches={"octave_stack": G.launches,
                           "backward_warp": W.launches,
-                          **{c.name: c.launches for c in T.COUNTS}},
+                          **{c.name: c.launches for c in counts}},
                 peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
                           if dev.type == "cuda" else None))
     ranks = [mine] if mesh is None else mesh.all_gather_object(mine)

@@ -12,7 +12,8 @@ multiply and add in both versions; the kernel is built with
 -fmad=false), score flips <= 0.1% of candidates; both warps (exact and
 mip-sampled) bit for bit, patches and masks (the same products summed
 in the same order, -fmad=false, IEEE divisions, the accurate sinf, cosf
-and tanf).
+and tanf); SIFT's front end (the base image, the small octaves) bit for
+bit, every output plane.
 """
 import math
 
@@ -24,6 +25,7 @@ from pano360_tpu_torch import render
 from pano360_tpu_torch import synth
 from pano360_tpu_torch.features import sift as S
 from pano360_tpu_torch.ops import gauss_octave as G
+from pano360_tpu_torch.ops import sift_front as F
 from pano360_tpu_torch.ops import sift_tail as T
 from pano360_tpu_torch.ops import warp_kernel as W
 from pano360_tpu_torch.ops import warp_mip as M
@@ -543,9 +545,10 @@ def test_features_replayed_equal_eager_on_card():
     """SIFT's extraction and the match graph replayed from CUDA graphs
     against the same steps run eagerly on the card (five views: a batch
     of 4 and a short one; ten pairs in chunks of 4 and a short one):
-    features, stack and match rows bit for bit; the octave kernel's
-    launches and SIFT's tail's of a replayed extraction those of an eager
-    one; no host sync
+    features, stack and match rows bit for bit; the launches of the
+    octave kernel, of SIFT's front end (the base, the small octaves) and
+    of its tail in a replayed extraction those of an eager one; no host
+    sync
     in a replayed extraction, one per chunk (``eigh``) and one for the
     rows in a replayed match graph."""
     from pano360_tpu_torch import match as pm
@@ -557,11 +560,12 @@ def test_features_replayed_equal_eager_on_card():
     u8 = [(im * 255).astype(np.uint8) for im in imgs]
     pairs = [(a, b) for a in range(5) for b in range(a + 1, 5)]
     out, launches = {}, {}
+    counts = (G,) + F.COUNTS + T.COUNTS
     for capture in (True, False, True):     # capture, eager, replay only
-        for c in (G,) + T.COUNTS:
+        for c in counts:
             c.launches = 0
         stack, feats = pipeline.upload_extract(u8, dev, capture=capture)
-        launches[capture] = [c.launches for c in (G,) + T.COUNTS]
+        launches[capture] = [c.launches for c in counts]
         _, kp, ds, va, _ = pipeline.sift_buffers(u8, feats)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -575,9 +579,10 @@ def test_features_replayed_equal_eager_on_card():
     assert all(a.dtype == b.dtype and a.shape == b.shape
                and a.tobytes() == b.tobytes() for a, b in zip(rr, re))
     assert rr.ok.sum() >= 4
-    # two batches of 7 octaves: the octave kernel on the 4 legal ones,
-    # the refinement on all, the keypoint stage once
-    assert launches[True] == launches[False] == [8, 14, 2, 2]
+    # two batches of 7 octaves: the base once, the octave kernel on the 4
+    # legal ones, the small-octave kernel on the other 3, the refinement
+    # on all, the keypoint stage once
+    assert launches[True] == launches[False] == [8, 2, 6, 14, 2, 2]
     _, sites = host_syncs(lambda: pipeline.upload_extract(u8, dev))
     assert not sites, sites
     _, sites = host_syncs(lambda: pm.match_all_pairs(kp, ds, va, pairs, 4,
@@ -802,3 +807,139 @@ def test_sift_tail_kernels_reject_bad_input():
     args, kw = calls["descriptors"][0]
     with pytest.raises(ValueError, match="4x4 bins"):
         T.descriptors(*args, cfg=S.SiftConfig(descr_width=3))
+
+
+# ---------------------------------------------------------------------------
+# SIFT's front end on the card
+# ---------------------------------------------------------------------------
+
+def _front_bits(name, arg, cfg):
+    """A front-end kernel's call, then the same call again, against its
+    plain version on the card, bit for bit; -> its outputs."""
+    fn = getattr(F, name)
+    plain = getattr(F, f"{name}_ref")
+    count = F.BASE if name == "base_image" else F.SMALL
+    before = count.launches
+    got = _tuple(fn(arg, cfg))
+    again = _tuple(fn(arg, cfg))
+    want = _tuple(plain(arg, cfg))
+    torch.cuda.synchronize()
+    assert count.launches == before + 2
+    assert all(_bits(a, b) and _bits(a, c)
+               for a, b, c in zip(got, want, again)), name
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4])
+def test_sift_base_kernel_bench_shape(n):
+    """The bench's upload batches (4, 4, 4 and 3 views of 864x1152) and
+    one view."""
+    dev = _cuda()
+    _front_bits("base_image", _gray((864, 1152), n=n).to(dev),
+                S.SiftConfig())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("upscale", [True, False])
+@pytest.mark.parametrize("shape,n", [((33, 65), 2), ((129, 257), 1),
+                                     ((97, 161), 3), ((3, 4), 2), ((1, 7), 1),
+                                     ((5, 2), 1)])
+def test_sift_base_kernel_odd_and_tiny(upscale, shape, n):
+    """Sides that are not tile multiples, and images narrower than the
+    blur's halo (5 px on the 2x grid, 6 without): reflect101 folds more
+    than once. ``upscale=False`` takes the 13-tap blur alone."""
+    dev = _cuda()
+    gray = torch.as_tensor(np.random.default_rng(1).random(
+        (n,) + shape, dtype=np.float32), device=dev)
+    out = _front_bits("base_image", gray, S.SiftConfig(upscale=upscale))
+    up = 2 if upscale else 1
+    assert out[0].shape == (n, up * shape[0], up * shape[1])
+
+
+def _small_bases(n, shapes, seed=6):
+    """Bases of the small octaves as SIFT makes them: layer S of the
+    octave before, halved, from one view of each shape."""
+    out = []
+    for shape in shapes:
+        base = _base(shape, n=n, seed=seed)
+        while G.reflect_legal(*base.shape[1:], TAPS):
+            base = G.octave_stack_ref(base, TAPS)[0][:, 3, ::2, ::2]
+        out.append(base.contiguous())
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4])
+def test_sift_small_octave_kernel_bench_octaves(n):
+    """The bench's octaves 6-8 (27x36, 14x18, 7x9 from 864x1152 views,
+    here from 216x288 ones: the same sizes), each on the next's base as
+    the extraction chains them, all in shared memory; candidates found."""
+    dev = _cuda()
+    cfg = S.SiftConfig()
+    base = _small_bases(n, [(216, 288)])[0].to(dev)
+    sizes, found = [], 0
+    while min(base.shape[1:]) >= 4:
+        assert F.small_octave_in_shared(*base.shape[1:])
+        gauss, _, score = _front_bits("small_octave", base, cfg)
+        sizes.append(tuple(base.shape[1:]))
+        found += int((score > 0).sum())
+        base = gauss[:, cfg.n_layers, ::2, ::2].contiguous()
+    assert sizes[:3] == [(27, 36), (14, 18), (7, 9)]
+    assert found > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("shape", [(40, 300), (12, 1100), (300, 41)])
+def test_sift_small_octave_kernel_strips(n, shape):
+    """Octaves whose min side is <= 42 and whose other side is long: six
+    planes do not fit a block's shared memory, so the passes go through
+    device memory."""
+    dev = _cuda()
+    assert not F.small_octave_in_shared(*shape)
+    base = torch.as_tensor(np.random.default_rng(2).random(
+        (n,) + shape, dtype=np.float32), device=dev)
+    _front_bits("small_octave", base, S.SiftConfig())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers", [2, 4])
+@pytest.mark.parametrize("shape", [(27, 36), (40, 300)])
+def test_sift_small_octave_kernel_other_chains(n_layers, shape):
+    """S = 2 and 4: 4 and 6 blurred layers of other tap counts, in shared
+    and in device memory; the score with other thresholds."""
+    dev = _cuda()
+    base = torch.as_tensor(np.random.default_rng(4).random(
+        (2,) + shape, dtype=np.float32), device=dev)
+    cfg = S.SiftConfig(n_layers=n_layers)
+    gauss, dog, score = _front_bits("small_octave", base, cfg)
+    assert gauss.shape[1] == n_layers + 3 and score.shape[1] == n_layers
+
+
+@pytest.mark.gpu
+def test_sift_front_kernels_score_border_zero():
+    """``img_border=0``: the score's extrema on the image's edge rows
+    and columns, where the plain version's max and min leave the outside
+    out and its derivatives are zero-padded."""
+    dev = _cuda()
+    base = torch.as_tensor(np.random.default_rng(8).random(
+        (3, 20, 30), dtype=np.float32), device=dev) * 4
+    _front_bits("small_octave", base, S.SiftConfig(img_border=0,
+                                                   contrast_thresh=0.0))
+
+
+@pytest.mark.gpu
+def test_sift_front_kernels_reject_bad_input():
+    dev = _cuda()
+    gray = torch.zeros((2, 20, 24), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        F.base_image(gray.double(), S.SiftConfig())
+    with pytest.raises(ValueError, match="contiguous"):
+        F.base_image(gray.transpose(1, 2), S.SiftConfig())
+    with pytest.raises(ValueError, match="taps"):
+        F.base_image(gray, S.SiftConfig(sigma=5.0))
+    with pytest.raises(ValueError, match="contiguous"):
+        F.small_octave(gray[:, ::2], S.SiftConfig())
+    with pytest.raises(ValueError, match="float32"):
+        F.small_octave(gray[0], S.SiftConfig())
