@@ -296,7 +296,8 @@ def run(args, timer: Optional[StageTimer] = None) -> np.ndarray:
 
 @contextlib.contextmanager
 def device_trace(logdir: Optional[str]):
-    """torch.profiler over the run, saved as a Chrome trace."""
+    """torch.profiler over the run, saved as a Chrome trace, with the
+    program's spans (``profiling.span``) as ranges on its timeline."""
     if not logdir:
         yield
         return
@@ -305,7 +306,7 @@ def device_trace(logdir: Optional[str]):
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, profiling.annotated():
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 

@@ -10,6 +10,8 @@ import dataclasses
 
 import torch
 
+from pano360_tpu_torch import profiling
+
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(Batched) matrix product; full f32 (TF32 is off, see __init__)."""
@@ -137,7 +139,9 @@ def log_so3(rot: torch.Tensor) -> torch.Tensor:
 
 
 def nearest_rotation(mat: torch.Tensor) -> torch.Tensor:
-    """Closest rotation in Frobenius norm via SVD."""
+    """Closest rotation in Frobenius norm via SVD (on a card, its result
+    checks sync twice)."""
+    profiling.count("host_syncs", 2)
     uu, _, vt = torch.linalg.svd(mat)
     rot = mm(uu, vt)
     return rot * torch.sign(det3x3(rot))[..., None, None]
@@ -236,6 +240,8 @@ def straighten(rots: torch.Tensor) -> torch.Tensor:
     ``rots``: (N, 3, 3) -> (N, 3, 3) straightened rotations.
     """
     xs = rots[:, 0, :]
+    # cov's check of its divisor, the SVD's two checks, the flip's read
+    profiling.count("host_syncs", 4)
     cov = torch.cov(xs.T)
     _, _, vt = torch.linalg.svd(cov)
     v_y = vt[2]

@@ -27,6 +27,8 @@ from typing import Callable, Dict, Sequence
 import numpy as np
 import torch
 
+from pano360_tpu_torch import profiling
+
 
 def _kernel_counters():
     """What counts the port's kernels' launches, each in ``launches``:
@@ -81,19 +83,23 @@ def capture(fn: Callable[[dict], None], state: dict, pool=None,
     """``fn(state)``, a step on the static buffers of ``state``, captured
     as a CUDA graph (in ``pool``, a ``torch.cuda.graph_pool_handle()``,
     or a pool of its own). A first run on copies of the buffers, outside
-    the capture, sets up the libraries' lazy handles and workspaces."""
+    the capture, sets up the libraries' lazy handles and workspaces.
+    Both are the span ``graphs.capture``, counted in ``graphs.captures``."""
+    profiling.count("graphs.captures")
     graph = torch.cuda.CUDAGraph()
     stream = _capture_stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn({k: v.clone() for k, v in state.items()})
-        with launches.capturing() if launches else contextlib.nullcontext():
-            graph.capture_begin(pool=pool)
-            try:
-                fn(state)
-            finally:
-                graph.capture_end()
-    torch.cuda.current_stream().wait_stream(stream)
+    with profiling.span("graphs.capture"):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn({k: v.clone() for k, v in state.items()})
+            with (launches.capturing() if launches
+                  else contextlib.nullcontext()):
+                graph.capture_begin(pool=pool)
+                try:
+                    fn(state)
+                finally:
+                    graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
     return graph
 
 
@@ -113,6 +119,7 @@ class Replayed:
                                      self.launches)
             self.graph.replay()
         self.launches.replayed()
+        profiling.count("graphs.replays")
 
 
 class Programs:
@@ -167,6 +174,7 @@ def upload_into(dst: torch.Tensor, a: np.ndarray):
 def to_host(*tensors: torch.Tensor):
     """numpy copies of device tensors with one host sync (pinned copies
     behind one wait)."""
+    profiling.count("host_syncs")
     if all(t.device.type == "cpu" for t in tensors):
         return [t.numpy() for t in tensors]
     outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

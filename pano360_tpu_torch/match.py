@@ -27,7 +27,7 @@ import numpy as np
 
 import torch
 
-from pano360_tpu_torch import graphs
+from pano360_tpu_torch import graphs, profiling
 from pano360_tpu_torch.geometry import inv3x3
 
 LOWE_RATIO = 0.7
@@ -290,6 +290,7 @@ def _pair_inputs(kpts, desc, valid, pair_a, pair_b, ratio: float):
 def _host_draws(draw_fn: DrawFn, first_pair: int, n_valid: torch.Tensor):
     """``draw_fn``'s (B, K, 4) draws of pairs ``first_pair`` on, made for
     each pair's ``n_valid`` (read on the host)."""
+    profiling.count("host_syncs")
     nv = n_valid.tolist()
     return torch.stack([torch.as_tensor(draw_fn(first_pair + j, int(nv[j])))
                         for j in range(len(nv))]).to(n_valid.device)
@@ -412,8 +413,10 @@ def _hypotheses_step(chunks, draws, state: dict):
 
 
 def _eigh_step(chunks, state: dict):
-    """The refit's decomposition, one ``eigh`` per chunk."""
+    """The refit's decomposition, one ``eigh`` per chunk (its result
+    check syncs)."""
     for c in range(len(chunks)):
+        profiling.count("host_syncs")
         state[f"evecs.{c}"].copy_(torch.linalg.eigh(state[f"ata.{c}"])[1])
 
 

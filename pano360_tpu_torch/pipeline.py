@@ -25,7 +25,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from pano360_tpu_torch import graphs
+from pano360_tpu_torch import graphs, profiling
 from pano360_tpu_torch import match as pm
 from pano360_tpu_torch.features import msop as M
 from pano360_tpu_torch.features import sift as S
@@ -96,6 +96,7 @@ class BucketStacks:
         return out[_input_order(order, out.device)]
 
 
+@profiling.span("features")
 def upload_extract(imgs: List[np.ndarray], device: torch.device,
                    cfg: Optional[S.SiftConfig] = None, mesh=None,
                    capture: bool = True):
@@ -325,7 +326,8 @@ def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
     hypothesis draws per pair (index k into the a < b pair list); by
     default a ``torch.Generator`` on the device seeded with ``seed``
     draws them. ``stats``: an optional dict for ``msop_extract``'s
-    counts. ``mesh`` (``parallel.mesh.Mesh``): extraction sharded over
+    counts and the stage's spans and totals (``profiling.recording``).
+    ``mesh`` (``parallel.mesh.Mesh``): extraction sharded over
     images and the match graph over pairs; every rank returns the same
     ``(kpts, matches)``, bit-identical to one process's. ``capture``:
     SIFT's extraction and the match graph replayed from CUDA graphs on a
@@ -337,45 +339,50 @@ def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
         raise ValueError("no images to process (empty directory?)")
     if detector not in ("sift", "msop"):
         raise ValueError(f"detector must be sift or msop, got {detector!r}")
-    device = torch.device(device)
-    n = len(imgs)
-    start = time.time()
-    if detector == "msop":
-        if feats is None:
-            feats = msop_extract(imgs, device, stats, mesh)
-        kpts_host, kp_buf, ds_buf, va_buf = feats[:4]
-        remap = None                # compact already
-    else:
-        if feats is None:
-            _, feats = upload_extract(imgs, device,
-                                      S.SiftConfig(max_kpts=max_kpts), mesh,
-                                      capture)
-        kpts_host, kp_buf, ds_buf, va_buf, remap = sift_buffers(imgs, feats)
-    LOG.info("Extracted keypoints, time: %s", time.time() - start)
+    with profiling.recording(stats), profiling.span("match"):
+        device = torch.device(device)
+        n = len(imgs)
+        start = time.time()
+        if detector == "msop":
+            if feats is None:
+                feats = msop_extract(imgs, device, stats, mesh)
+            kpts_host, kp_buf, ds_buf, va_buf = feats[:4]
+            remap = None                # compact already
+        else:
+            if feats is None:
+                _, feats = upload_extract(imgs, device,
+                                          S.SiftConfig(max_kpts=max_kpts),
+                                          mesh, capture)
+            kpts_host, kp_buf, ds_buf, va_buf, remap = sift_buffers(imgs,
+                                                                    feats)
+        LOG.info("Extracted keypoints, time: %s", time.time() - start)
 
-    start = time.time()
-    res = match_graph(kp_buf, ds_buf, va_buf, seed, draw_fn, mesh, capture)
-    pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
-    matches: Dict[int, Dict[int, tuple]] = {i: {} for i in range(n)}
-    for k, (src, dst) in enumerate(pairs):
-        if not bool(res.ok[k]):
-            continue
-        idx = res.idx[k][res.inlier[k]].astype(np.int32)
-        if remap is not None:
-            idx = np.stack([remap[src][idx[:, 0]],
-                            remap[dst][idx[:, 1]]], axis=1).astype(np.int32)
-        hom = res.hom[k].astype(np.float64)
-        matches[src][dst] = (idx, hom)
-        matches[dst][src] = (np.fliplr(idx), reverse_homography(hom))
-    LOG.info("Matched features, time: %s", time.time() - start)
+        start = time.time()
+        res = match_graph(kp_buf, ds_buf, va_buf, seed, draw_fn, mesh,
+                          capture)
+        pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
+        matches: Dict[int, Dict[int, tuple]] = {i: {} for i in range(n)}
+        for k, (src, dst) in enumerate(pairs):
+            if not bool(res.ok[k]):
+                continue
+            idx = res.idx[k][res.inlier[k]].astype(np.int32)
+            if remap is not None:
+                idx = np.stack([remap[src][idx[:, 0]],
+                                remap[dst][idx[:, 1]]],
+                               axis=1).astype(np.int32)
+            hom = res.hom[k].astype(np.float64)
+            matches[src][dst] = (idx, hom)
+            matches[dst][src] = (np.fliplr(idx), reverse_homography(hom))
+        LOG.info("Matched features, time: %s", time.time() - start)
 
-    matches = {i: col for i, col in matches.items() if col}
-    kpts_arr = np.empty(n, dtype=object)
-    for i, kp in enumerate(kpts_host):
-        kpts_arr[i] = kp
-    return kpts_arr, np.array(matches, dtype=object)
+        matches = {i: col for i, col in matches.items() if col}
+        kpts_arr = np.empty(n, dtype=object)
+        for i, kp in enumerate(kpts_host):
+            kpts_arr[i] = kp
+        return kpts_arr, np.array(matches, dtype=object)
 
 
+@profiling.span("keypoints")
 def idx_to_keypoints(matches, kpts):
     """Keypoint indices -> homogeneous coords + confidence (the cache's
     rehydrated form, ``matches[i][j] = (pts (M, 6), hom, M)``)."""

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from pano360_tpu_torch import geometry as geo
+from pano360_tpu_torch import profiling
 from pano360_tpu_torch.graphs import Replayed, upload as _upload
 from pano360_tpu_torch import resolve_device
 
@@ -427,6 +428,7 @@ def drive(step, ctr, chunk) -> int:
     while True:
         for _ in range(n):
             step()
+        profiling.count("host_syncs")
         it, count, stopped = ctr.tolist()
         if stopped:
             return it
@@ -492,7 +494,9 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     (``ba_edges``) and of those that passed the RMSE gate
     (``ba_edges_enabled``), the largest edge (``ba_edge_points``) and the
     LM iterations run (``lm_iterations``, one count per optimisation,
-    and ``polish_iterations``). ``mesh`` (``parallel.mesh.Mesh``): the
+    and ``polish_iterations``), and the spans and totals of the recorder
+    (``profiling.recording``: ``register`` and its five parts, the
+    graphs' captures). ``mesh`` (``parallel.mesh.Mesh``): the
     edges of the problem are sharded over the ranks (``Problem``); every
     rank returns the same cameras, and runs on ``mesh.device``.
 
@@ -510,109 +514,135 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     if badjust not in ("incr", "last", "none"):
         raise ValueError(f"badjust {badjust!r}")
     device = torch.device(device if mesh is None else mesh.device)
-    pair_list = [(i, matches[i][j][1], matches[i][j][2])
-                 for i in matches.keys() for j in matches[i].keys()]
-    if not pair_list:
-        return []
-    ids, homs_all, scores = zip(*pair_list)
-    src = ids[int(np.argmax(scores))]
+    with profiling.recording(stats), profiling.span("register"):
+        return _traverse(imgs, matches, badjust, use_straighten, polish,
+                         device, stats, mesh, capture)
 
-    placed = {src}
-    adds: List[Tuple[int, int, np.ndarray]] = []
-    edges: List[Tuple[int, int, np.ndarray, int]] = []
-    qq = [(-matches[src][j][2], src, j) for j in matches[src].keys()]
-    heapq.heapify(qq)
-    while qq:
-        _, src_i, dst = heapq.heappop(qq)
-        if dst in placed:
-            continue
-        k = len(adds)
-        adds.append((dst, src_i, matches[src_i][dst][1]))
-        for other in range(len(imgs)):
-            if other in placed and other in matches.get(dst, {}):
-                edges.append((dst, other, matches[dst][other][0], k))
-        placed.add(dst)
-        for new in matches[dst].keys():
-            heapq.heappush(qq, (-matches[dst][new][2], dst, new))
 
-    n = len(imgs)
-    f32 = torch.float32
-    mp = max((m.shape[0] for _, _, m, _ in edges), default=1)
-    ne = max(len(edges), 1)
-    pts = np.zeros((ne, mp, 6), np.float32)
-    pts[..., 2] = 1.0    # benign homogeneous padding
-    pts[..., 5] = 1.0
-    mask = np.zeros((ne, mp), np.float32)
-    cam1 = np.zeros(ne, np.int64)
-    cam2 = np.zeros(ne, np.int64)
-    edge_add = np.full(ne, -1, np.int64)
-    for e, (c1, c2, m, k) in enumerate(edges):
-        cam1[e], cam2[e], edge_add[e] = c1, c2, k
-        pts[e, :len(m)] = m
-        mask[e, :len(m)] = 1.0
-    prob = Problem(_upload(cam1, device), _upload(cam2, device),
-                   _upload(pts, device), _upload(mask, device), n, mesh)
-    homs_t = _upload(np.stack(homs_all).astype(np.float32), device)
-    add_homs = _upload(np.stack([np.asarray(h, np.float32)
-                                 for _, _, h in adds]), device)
-    place = _upload(np.array([(d, s) for d, s, _ in adds], np.int64).T,
-                    device)
-    placed_idx = _upload(np.array(sorted(placed), np.int64), device)
+def _traverse(imgs, matches, badjust, use_straighten, polish, device,
+              stats, mesh, capture) -> List[PanoImage]:
+    """``traverse``'s body in five spans: ``register.schedule`` (the heap
+    walk, the packing and the uploads), ``register.rotations`` (the
+    focal and each add's SVD), ``register.lm`` (the adds and their LM
+    drives, the graphs' captures inside), ``register.polish`` and
+    ``register.readback`` (straightening, ``stats`` and the cameras'
+    read)."""
+    with profiling.span("register.schedule"):
+        pair_list = [(i, matches[i][j][1], matches[i][j][2])
+                     for i in matches.keys() for j in matches[i].keys()]
+        if not pair_list:
+            return []
+        ids, homs_all, scores = zip(*pair_list)
+        src = ids[int(np.argmax(scores))]
 
-    focal = torch.quantile(geo.focal_from_hom(homs_t), 0.5)
-    zero = torch.zeros_like(focal)
-    intr = geo.intrinsics(focal, (zero, zero))
-    kinv = geo.inv3x3(intr)
-    lead = torch.stack([intr[0, 0], intr[0, 2], intr[1, 2]])
-    # each add's relative rotation depends on the focal and its pair
-    # homography only: the SVDs (each checks its result with a host
-    # sync) run here, one per add as in the loop they come from
-    sched = dict(dst=place[0], src=place[1], lead=lead,
-                 edge_add=_upload(edge_add, device),
-                 r_rel=torch.stack([geo.nearest_rotation(geo.mm(geo.mm(
-                     kinv, add_homs[k]), intr)) for k in range(len(adds))]))
-    params = torch.zeros((n, 6), dtype=f32, device=device)
-    params[:, 0] = 1.0
-    params[src] = 0.0
-    params[src, :3] = lead
-    state = _lm_state(params, prob, torch.zeros_like(prob.mask))
-    state.update(enabled=torch.zeros(ne, dtype=torch.bool, device=device),
-                 k=torch.zeros(1, dtype=torch.int64, device=device))
-    steps = [partial(_add_step, prob, sched), partial(lm_step, prob),
-             partial(polish_step, prob)]
-    if capture and device.type == "cuda" and mesh is None:
-        add, lm, pol = (Replayed(f, state) for f in steps)
-    else:
-        add, lm, pol = (partial(f, state) for f in steps)
+        placed = {src}
+        adds: List[Tuple[int, int, np.ndarray]] = []
+        edges: List[Tuple[int, int, np.ndarray, int]] = []
+        qq = [(-matches[src][j][2], src, j) for j in matches[src].keys()]
+        heapq.heapify(qq)
+        while qq:
+            _, src_i, dst = heapq.heappop(qq)
+            if dst in placed:
+                continue
+            k = len(adds)
+            adds.append((dst, src_i, matches[src_i][dst][1]))
+            for other in range(len(imgs)):
+                if other in placed and other in matches.get(dst, {}):
+                    edges.append((dst, other, matches[dst][other][0], k))
+            placed.add(dst)
+            for new in matches[dst].keys():
+                heapq.heappush(qq, (-matches[dst][new][2], dst, new))
 
-    lm_iters, polish_iters = [], 0
-    for _ in adds:
-        add()
-        if badjust == "incr":
+        n = len(imgs)
+        f32 = torch.float32
+        mp = max((m.shape[0] for _, _, m, _ in edges), default=1)
+        ne = max(len(edges), 1)
+        pts = np.zeros((ne, mp, 6), np.float32)
+        pts[..., 2] = 1.0    # benign homogeneous padding
+        pts[..., 5] = 1.0
+        mask = np.zeros((ne, mp), np.float32)
+        cam1 = np.zeros(ne, np.int64)
+        cam2 = np.zeros(ne, np.int64)
+        edge_add = np.full(ne, -1, np.int64)
+        for e, (c1, c2, m, k) in enumerate(edges):
+            cam1[e], cam2[e], edge_add[e] = c1, c2, k
+            pts[e, :len(m)] = m
+            mask[e, :len(m)] = 1.0
+        prob = Problem(_upload(cam1, device), _upload(cam2, device),
+                       _upload(pts, device), _upload(mask, device), n, mesh)
+        homs_t = _upload(np.stack(homs_all).astype(np.float32), device)
+        add_homs = _upload(np.stack([np.asarray(h, np.float32)
+                                     for _, _, h in adds]), device)
+        place = _upload(np.array([(d, s) for d, s, _ in adds], np.int64).T,
+                        device)
+        placed_idx = _upload(np.array(sorted(placed), np.int64), device)
+        edge_add = _upload(edge_add, device)
+
+    with profiling.span("register.rotations"):
+        focal = torch.quantile(geo.focal_from_hom(homs_t), 0.5)
+        zero = torch.zeros_like(focal)
+        intr = geo.intrinsics(focal, (zero, zero))
+        kinv = geo.inv3x3(intr)
+        lead = torch.stack([intr[0, 0], intr[0, 2], intr[1, 2]])
+        # each add's relative rotation depends on the focal and its pair
+        # homography only: the SVDs (each checks its result with a host
+        # sync) run here, one per add as in the loop they come from
+        sched = dict(dst=place[0], src=place[1], lead=lead,
+                     edge_add=edge_add,
+                     r_rel=torch.stack([geo.nearest_rotation(geo.mm(geo.mm(
+                         kinv, add_homs[k]), intr))
+                         for k in range(len(adds))]))
+
+    with profiling.span("register.lm"):
+        params = torch.zeros((n, 6), dtype=f32, device=device)
+        params[:, 0] = 1.0
+        params[src] = 0.0
+        params[src, :3] = lead
+        state = _lm_state(params, prob, torch.zeros_like(prob.mask))
+        state.update(enabled=torch.zeros(ne, dtype=torch.bool,
+                                         device=device),
+                     k=torch.zeros(1, dtype=torch.int64, device=device))
+        steps = [partial(_add_step, prob, sched), partial(lm_step, prob),
+                 partial(polish_step, prob)]
+        if capture and device.type == "cuda" and mesh is None:
+            add, lm, pol = (Replayed(f, state) for f in steps)
+        else:
+            add, lm, pol = (partial(f, state) for f in steps)
+
+        lm_iters, polish_iters = [], 0
+        for _ in adds:
+            add()
+            if badjust == "incr":
+                lm_iters.append(drive(lm, state["ctr"], _lm_chunk))
+        if badjust == "last":
             lm_iters.append(drive(lm, state["ctr"], _lm_chunk))
-    if badjust == "last":
-        lm_iters.append(drive(lm, state["ctr"], _lm_chunk))
-    if polish and badjust != "none":
-        _lm_restart(prob, state)
-        polish_iters = drive(pol, state["ctr"], _polish_chunk)
-    params = state["best"]
-    if use_straighten:
-        rots = geo.exp_so3(params[placed_idx, 3:6])
-        params = params.clone()
-        params[placed_idx, 3:6] = geo.log_so3(geo.straighten(rots))
-    if stats is not None:
-        stats.update(focal0=float(focal), ba_edges=len(edges),
-                     ba_edges_enabled=int(state["enabled"].sum()),
-                     ba_edge_points=mp, lm_iterations=lm_iters,
-                     polish_iterations=polish_iters)
-    params = params.cpu().numpy().astype(np.float64)
 
-    cameras: List[Optional[PanoImage]] = [None] * n
-    for i in sorted(placed):
-        cam = _np_camera_from_params(params[i])
-        cam.img = imgs[i]
-        cameras[i] = cam
-    return [c for c in cameras if c is not None]
+    with profiling.span("register.polish"):
+        if polish and badjust != "none":
+            _lm_restart(prob, state)
+            polish_iters = drive(pol, state["ctr"], _polish_chunk)
+
+    with profiling.span("register.readback"):
+        params = state["best"]
+        if use_straighten:
+            rots = geo.exp_so3(params[placed_idx, 3:6])
+            params = params.clone()
+            params[placed_idx, 3:6] = geo.log_so3(geo.straighten(rots))
+        if stats is not None:
+            profiling.count("host_syncs", 2)    # float, int
+            stats.update(focal0=float(focal), ba_edges=len(edges),
+                         ba_edges_enabled=int(state["enabled"].sum()),
+                         ba_edge_points=mp, lm_iterations=lm_iters,
+                         polish_iterations=polish_iters)
+        profiling.count("host_syncs")
+        params = params.cpu().numpy().astype(np.float64)
+
+        cameras: List[Optional[PanoImage]] = [None] * n
+        for i in sorted(placed):
+            cam = _np_camera_from_params(params[i])
+            cam.img = imgs[i]
+            cameras[i] = cam
+        return [c for c in cameras if c is not None]
 
 
 # ---------------------------------------------------------------------------

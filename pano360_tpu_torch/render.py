@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from pano360_tpu_torch import geometry as geo
+from pano360_tpu_torch import profiling
 from pano360_tpu_torch.ops.filters import gaussian_blur
 from pano360_tpu_torch.ops.warp import bilinear_taps, perspective_maps
 from pano360_tpu_torch.ops.warp_kernel import launch_warp, prepare_warp
@@ -64,6 +65,7 @@ def proj_img_range_border(shape: Tuple[int, int], homs: torch.Tensor,
     ``shapes``: optional per-image (N, 2) (h, w) in place of the single
     ``shape`` when the images have mixed sizes."""
     homs = homs.to(torch.float32)
+    profiling.count("host_syncs")       # the borders' blocking copy
     if shapes is None:
         borders = torch.as_tensor(_border_points(shape, nel),
                                   device=homs.device)
@@ -151,6 +153,7 @@ def add_weights(imgs: torch.Tensor,
         alpha = hat(h, dev)[:, None] * hat(w, dev)[None, :]
         alpha = alpha.expand(n, h, w)
     else:
+        profiling.count("host_syncs")
         dims = torch.as_tensor(np.asarray(shapes), dtype=torch.float32,
                                device=dev)
         hs, ws = dims[:, 0, None, None], dims[:, 1, None, None]
@@ -267,6 +270,8 @@ def overlap_matrices(regions: List[PanoImage], imgs_rgba: torch.Tensor,
              for y, x in zip(oy, ox)]
     homs_win = np.stack([s @ h for s, h in zip(shift, homs)])
     dev = imgs_rgba.device
+    # four (five) blocking copies to the device, three reads back
+    profiling.count("host_syncs", 7 + mixed)
     mi, mj, cnt = (t.cpu().numpy() for t in _pair_overlap_stats(
         imgs_rgba, torch.as_tensor(homs_win, dtype=torch.float32,
                                    device=dev),
@@ -296,6 +301,7 @@ def estimate_gains(regions: List[PanoImage], imgs_rgba: torch.Tensor,
 
 def apply_gains(imgs_rgba: torch.Tensor, gains) -> torch.Tensor:
     """Scale rgb by per-image gains, clipped to [0, 1]."""
+    profiling.count("host_syncs")
     g = torch.as_tensor(gains, dtype=torch.float32,
                         device=imgs_rgba.device)[:, None, None, None]
     rgb = torch.clamp(imgs_rgba[..., :3] * g, 0.0, 1.0)
@@ -593,6 +599,7 @@ def prepare(regions: List[PanoImage], blender: str,
     if dev_images is not None and dev_images.shape[0] == n:
         imgs = dev_images
     elif uniform:
+        profiling.count("host_syncs")
         imgs = torch.as_tensor(np.stack([r.img for r in regions]),
                                device=device)
     else:
@@ -600,11 +607,13 @@ def prepare(regions: List[PanoImage], blender: str,
         for k, r in enumerate(regions):
             hk, wk = r.img.shape[:2]
             stack[k, :hk, :wk] = r.img
+        profiling.count("host_syncs")
         imgs = torch.as_tensor(stack, device=device)
     if imgs.dtype == torch.uint8:
         imgs = imgs.to(torch.float32) / 255.0
     imgs = imgs.to(torch.float32)
     shapes = None if uniform else shapes
+    profiling.count("host_syncs", 2)    # the homographies' copy, the read
     homs = torch.as_tensor(np.stack([r.hom() for r in regions]),
                            dtype=torch.float32, device=device)
     ranges = proj_img_range_border((h, w), homs, projection, shapes=shapes
@@ -686,6 +695,7 @@ def _region_shard(imgs_rgba: torch.Tensor, projs: np.ndarray,
         shapes=shapes)
 
 
+@profiling.span("render")
 def stitch(regions: List[PanoImage], blender: str = "multiband",
            equalize: bool = False, crop: bool = False, dev_images=None,
            max_resolution: int = MAX_RESOLUTION, warp: str = "auto",
@@ -727,9 +737,11 @@ def stitch(regions: List[PanoImage], blender: str = "multiband",
     if mesh is not None:
         invalid = mesh.gather_rows(invalid, len(regions))
     out_h, out_w = layout.out_hw
+    profiling.count("host_syncs")
     mosaic = mosaic.cpu().numpy()[:out_h, :out_w]
     if crop:
         from pano360_tpu_torch import native
+        profiling.count("host_syncs")
         valid = _crop_valid(invalid.cpu().numpy(), layout.bottoms, layout.ph,
                             layout.pw, layout.shape, layout.period)
         mosaic = native.crop_mosaic(mosaic, valid[:out_h, :out_w])
