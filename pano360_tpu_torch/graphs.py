@@ -6,7 +6,8 @@ reads its inputs there and leaves its outputs there, with no host sync
 and no upload of host data. ``capture`` records a step as a CUDA graph;
 ``Replayed`` captures at its first call and replays after that;
 ``PROGRAMS`` keeps the process's captured steps by key (as ``jax.jit``'s
-cache lives per process), all in one memory pool.
+cache lives per process: SIFT's extraction, the match graph and the
+registration's steps), all in one memory pool.
 
 Sharing the pool is safe because the steps run one at a time on one
 stream, and each step's outputs are read or copied before another step
@@ -124,7 +125,8 @@ class Replayed:
 
 class Programs:
     """What ``make()`` returns, made once per key for the life of the
-    process (steps ``Replayed`` in ``pool``)."""
+    process (steps ``Replayed`` in ``pool``): a miss counts in
+    ``graphs.programs_made``, a hit in ``graphs.programs_hit``."""
 
     def __init__(self):
         self._made: Dict[tuple, object] = {}
@@ -137,12 +139,15 @@ class Programs:
         return self._pool
 
     def get(self, key: tuple, make: Callable[[], object]):
-        if key not in self._made:
+        if key in self._made:
+            profiling.count("graphs.programs_hit")
+        else:
+            profiling.count("graphs.programs_made")
             self._made[key] = make()
         return self._made[key]
 
 
-# the process's extraction and match-graph programs
+# the process's extraction, match-graph and registration programs
 PROGRAMS = Programs()
 
 

@@ -9,7 +9,9 @@ The recorder is the one place where the port times and counts itself:
   cause). Process-wide totals keep each name's count, total time and
   self time (total less the time its child spans cover).
 - ``count(name, k)`` adds to a process-wide counter: ``graphs.captures``,
-  ``graphs.replays``, and ``host_syncs``, each point of the window's
+  ``graphs.replays``, ``graphs.programs_made`` and
+  ``graphs.programs_hit`` (``graphs.Programs.get``'s misses and hits),
+  and ``host_syncs``, each point of the window's
   path where the host waits for the device, counted at its call site
   with the syncs it makes on a card (a run on the CPU counts the same
   points, though nothing waits there).
@@ -170,8 +172,9 @@ class StageTimer:
     the spans' stamps (a rank's, under ``--mesh``, merged by name);
     ``extra`` takes what a stage counts besides (MSOP: candidates and
     keypoints per level, SSC host seconds); ``report()`` adds the
-    program's spans, graph captures and replays, host syncs and kernel
-    launches recorded since the timer was made."""
+    program's spans, graph captures and replays, programs made and
+    reused, host syncs and kernel launches recorded since the timer was
+    made."""
 
     def __init__(self):
         self.stages: Dict[str, float] = {}
@@ -202,7 +205,8 @@ class StageTimer:
         counters = got["counters"]
         lines.append(", ".join(f"{k}: {counters.get(k, 0)}" for k in
                                ("graphs.captures", "graphs.replays",
-                                "host_syncs")))
+                                "graphs.programs_made",
+                                "graphs.programs_hit", "host_syncs")))
         launched = {k: v for k, v in got["launches"].items() if v}
         if launched:
             lines.append("launches: " + ", ".join(

@@ -35,7 +35,8 @@ import torch
 
 from pano360_tpu_torch import geometry as geo
 from pano360_tpu_torch import profiling
-from pano360_tpu_torch.graphs import Replayed, upload as _upload
+from pano360_tpu_torch import graphs
+from pano360_tpu_torch.graphs import Replayed, upload as _upload, upload_into
 from pano360_tpu_torch import resolve_device
 
 PARAMS_PER_CAMERA = geo.PARAMS_PER_CAMERA
@@ -200,29 +201,64 @@ class Problem:
     stage runs on every rank as on one process, so every rank takes the
     one process's LM steps. ``mask`` arguments of the methods are
     shard-local (``local`` takes a global per-edge vector to the shard).
+
+    ``empty`` makes the buffers of a problem and ``load_`` fills them in
+    place: a step captured on a problem replays on every problem loaded
+    into it.
     """
 
     def __init__(self, cam1, cam2, pts, mask, n_cams: int, mesh=None):
-        self.mesh = mesh
-        e, m = int(cam1.shape[0]), int(pts.shape[1])
-        self.n_edges = e
-        eye = torch.eye(n_cams, dtype=pts.dtype, device=pts.device)
-        self.sel1, self.sel2 = eye[cam1], eye[cam2]      # (E, C) one-hot
+        m = int(pts.shape[1])
+        self._alloc(int(cam1.shape[0]), 1 << max(m - 1, 0).bit_length(),
+                    n_cams, pts.dtype, pts.device, mesh)
+        self.load_(cam1, cam2, pts, mask)
+
+    @classmethod
+    def empty(cls, n_edges: int, n_points: int, n_cams: int, dtype, device,
+              mesh=None) -> "Problem":
+        """A problem of ``n_edges`` edges of ``n_points`` (a power of two)
+        match points, every one masked."""
+        prob = cls.__new__(cls)
+        prob._alloc(n_edges, n_points, n_cams, dtype, device, mesh)
+        return prob
+
+    def _alloc(self, e, p2, n_cams, dtype, device, mesh):
+        self.mesh, self.n_edges = mesh, e
         size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
         per = -(-e // size)                               # edges per shard
-        p2 = 1 << max(m - 1, 0).bit_length()
-        full = torch.zeros((per * size, p2, 6), dtype=pts.dtype,
-                           device=pts.device)
-        full[..., 2] = full[..., 5] = 1.0    # benign homogeneous padding
-        full[:e, :m] = pts
-        fmask = mask.new_zeros((per * size, p2))
-        fmask[:e, :m] = mask
         self.lo = rank * per
-        sl = slice(self.lo, self.lo + per)
-        self.cam1, self.cam2 = (torch.cat([c, c.new_zeros(per * size - e)])[sl]
-                                for c in (cam1, cam2))
-        self.pts, self.mask = full[sl], fmask[sl]
-        self.dk = _dk(pts.dtype, pts.device)
+        self.sel1, self.sel2 = (torch.zeros((e, n_cams), dtype=dtype,
+                                            device=device) for _ in range(2))
+        self.cam1, self.cam2 = (torch.zeros(per, dtype=torch.int64,
+                                            device=device) for _ in range(2))
+        self.pts = torch.zeros((per, p2, 6), dtype=dtype, device=device)
+        self.mask = torch.zeros((per, p2), dtype=dtype, device=device)
+        self.dk = _dk(dtype, device)
+
+    def load_(self, cam1, cam2, pts, mask):
+        """Fill the problem in place with its E edges: ``cam1``, ``cam2``
+        (E,), ``pts`` (E, M, 6) and ``mask`` (E, M), M at most its
+        points; host arrays (copied up without a host sync) or tensors.
+        The edges past this shard's and the points past M are masked."""
+        def put(dst, a):
+            if isinstance(a, np.ndarray):
+                upload_into(dst, a)
+            else:
+                dst.copy_(a)
+        sl = slice(self.lo, self.lo + self.cam1.shape[0])
+        k, m = len(cam1[sl]), int(pts.shape[1])     # this shard's edges
+        for buf in (self.cam1, self.cam2, self.pts, self.mask):
+            buf.zero_()
+        self.pts[..., 2] = self.pts[..., 5] = 1.0  # benign homogeneous padding
+        put(self.cam1[:k], cam1[sl])
+        put(self.cam2[:k], cam2[sl])
+        put(self.pts[:k, :m], pts[sl])
+        put(self.mask[:k, :m], mask[sl])
+        for sel, c in ((self.sel1, cam1), (self.sel2, cam2)):   # one-hot
+            c = (_upload(np.asarray(c, np.int64), sel.device)
+                 if isinstance(c, np.ndarray)
+                 else c.to(sel.device, torch.int64))
+            sel.zero_().scatter_(1, c[:, None], 1.0)
 
     def local(self, t: torch.Tensor) -> torch.Tensor:
         """A global per-edge (E, ...) tensor -> this shard's rows."""
@@ -481,6 +517,135 @@ def _add_step(prob: Problem, sched: dict, state: dict):
     k.add_(1)
 
 
+# Shape buckets of the registration's programs, the JAX package's
+# (``traverse``): the edges padded to a power of two of at least 16, the
+# longest edge's match points to one of at least 64. The view count stays
+# exact: a rig's is fixed, and padded cameras would widen the 6C solve.
+EDGE_BUCKET = 16
+POINT_BUCKET = 64
+
+
+def _next_pow2(x: int, lo: int) -> int:
+    n = lo
+    while n < x:
+        n *= 2
+    return n
+
+
+@dataclasses.dataclass
+class _Plan:
+    """The host's half of ``traverse`` over ``n`` views: the seed camera
+    ``src``, the ``adds`` (dst, src, pair homography) in order, the
+    ``edges`` (camera a, camera b, match points (M, 6), the add that
+    brings it), the ``placed`` cameras and every pair's homography."""
+
+    n: int
+    src: int
+    adds: List[Tuple[int, int, np.ndarray]]
+    edges: List[Tuple[int, int, np.ndarray, int]]
+    placed: List[int]
+    homs: List[np.ndarray]
+
+    @property
+    def longest(self) -> int:
+        return max((m.shape[0] for _, _, m, _ in self.edges), default=1)
+
+    @property
+    def key(self) -> Tuple[int, int, int]:
+        """The bucket: (views, padded edges, padded match points)."""
+        return (self.n, _next_pow2(max(len(self.edges), 1), EDGE_BUCKET),
+                _next_pow2(self.longest, POINT_BUCKET))
+
+    def arrays(self):
+        """The problem and the schedule padded to the bucket, on the host:
+        -> cam1, cam2 (EP,), pts (EP, MP, 6), mask (EP, MP), edge_add
+        (EP,), place (2, n - 1): each add's dst and src. A padded edge
+        joins camera 0 to itself, every point masked, and no add brings
+        it (``edge_add`` -1): it is never enabled and adds zero to every
+        per-edge term. The adds past the plan's are never reached."""
+        _, ep, mp = self.key
+        pts = np.zeros((ep, mp, 6), np.float32)
+        pts[..., 2] = pts[..., 5] = 1.0    # benign homogeneous padding
+        mask = np.zeros((ep, mp), np.float32)
+        cam1, cam2 = np.zeros(ep, np.int64), np.zeros(ep, np.int64)
+        edge_add = np.full(ep, -1, np.int64)
+        for e, (c1, c2, m, k) in enumerate(self.edges):
+            cam1[e], cam2[e], edge_add[e] = c1, c2, k
+            pts[e, :len(m)] = m
+            mask[e, :len(m)] = 1.0
+        place = np.zeros((2, max(self.n - 1, 1)), np.int64)
+        for k, (dst, src, _) in enumerate(self.adds):
+            place[:, k] = dst, src
+        return cam1, cam2, pts, mask, edge_add, place
+
+
+def _plan(n: int, matches: Dict) -> Optional[_Plan]:
+    """The best-first heap walk over the match graph of ``n`` views (None
+    without a pair): it depends on the match scores only."""
+    pair_list = [(i, matches[i][j][1], matches[i][j][2])
+                 for i in matches.keys() for j in matches[i].keys()]
+    if not pair_list:
+        return None
+    ids, homs_all, scores = zip(*pair_list)
+    src = ids[int(np.argmax(scores))]
+
+    placed = {src}
+    adds: List[Tuple[int, int, np.ndarray]] = []
+    edges: List[Tuple[int, int, np.ndarray, int]] = []
+    qq = [(-matches[src][j][2], src, j) for j in matches[src].keys()]
+    heapq.heapify(qq)
+    while qq:
+        _, src_i, dst = heapq.heappop(qq)
+        if dst in placed:
+            continue
+        k = len(adds)
+        adds.append((dst, src_i, matches[src_i][dst][1]))
+        for other in range(n):
+            if other in placed and other in matches.get(dst, {}):
+                edges.append((dst, other, matches[dst][other][0], k))
+        placed.add(dst)
+        for new in matches[dst].keys():
+            heapq.heappush(qq, (-matches[dst][new][2], dst, new))
+    return _Plan(n, src, adds, edges, sorted(placed), list(homs_all))
+
+
+def _program(key: Tuple[int, int, int], device: torch.device, mesh,
+             replay: bool):
+    """-> (problem, schedule, state, [add, lm, polish]) of the bucket
+    ``key`` (``_Plan.key``): the static buffers of the three steps, which
+    ``traverse`` fills in place at every call, and the steps on them,
+    replayed from the process's graphs of ``key`` (``graphs.PROGRAMS``,
+    in its pool: every output lies in the buffers, made outside any
+    capture) or eager on buffers of their own."""
+    n, ep, mp = key
+
+    def make():
+        f32, i64 = torch.float32, torch.int64
+        prob = Problem.empty(ep, mp, n, f32, device, mesh)
+        rows = max(n - 1, 1)
+        sched = dict(dst=torch.zeros(rows, dtype=i64, device=device),
+                     src=torch.zeros(rows, dtype=i64, device=device),
+                     lead=torch.zeros(3, dtype=f32, device=device),
+                     edge_add=torch.zeros(ep, dtype=i64, device=device),
+                     r_rel=torch.zeros((rows, 3, 3), dtype=f32,
+                                       device=device))
+        state = dict(best=torch.zeros((n, 6), dtype=f32, device=device),
+                     mask=torch.zeros_like(prob.mask),
+                     err=torch.zeros((), dtype=f32, device=device),
+                     lam=torch.zeros((), dtype=f32, device=device),
+                     ctr=torch.zeros(3, dtype=torch.int32, device=device),
+                     enabled=torch.zeros(ep, dtype=torch.bool,
+                                         device=device),
+                     k=torch.zeros(1, dtype=i64, device=device))
+        steps = [partial(_add_step, prob, sched), partial(lm_step, prob),
+                 partial(polish_step, prob)]
+        return prob, sched, state, [
+            Replayed(f, state, graphs.PROGRAMS.pool) if replay
+            else partial(f, state) for f in steps]
+    return (graphs.PROGRAMS.get(("register",) + key + (device,), make)
+            if replay else make())
+
+
 def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
              use_straighten: bool = True, polish: bool = True,
              device="cuda", stats=None, mesh=None,
@@ -503,12 +668,15 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
     As the JAX package's ``_traverse_impl``, the schedule (which camera
     is added when, from which camera and pair homography, gating which
     edges) is fixed on the host and uploaded once; the problem holds
-    every edge from the start and only its mask grows. Each add, LM and
-    polish iteration is a step on the device with no host sync; on a
-    card without a mesh each of the three is captured once as a CUDA
-    graph on static buffers and replayed (``capture=False`` runs the
-    same steps eagerly: the check of the graphs). On the CPU, and under
-    a mesh, whose gloo collectives stage through the host and cannot be
+    every edge from the start and only its mask grows, and it is padded
+    to the JAX package's shape bucket (``_Plan.key``) on every path. Each
+    add, LM and polish iteration is a step on the device with no host
+    sync. On a card without a mesh the three steps are made once per
+    process and bucket (``_program``), captured as CUDA graphs at their
+    first call and replayed at every later call of the bucket, on static
+    buffers refilled in place (``capture=False`` runs the same steps
+    eagerly: the check of the graphs). On the CPU, and under a mesh,
+    whose gloo collectives stage through the host and cannot be
     captured, the steps run eagerly on the device asked for.
     """
     if badjust not in ("incr", "last", "none"):
@@ -522,61 +690,27 @@ def traverse(imgs: List[np.ndarray], matches: Dict, badjust: str = "incr",
 def _traverse(imgs, matches, badjust, use_straighten, polish, device,
               stats, mesh, capture) -> List[PanoImage]:
     """``traverse``'s body in five spans: ``register.schedule`` (the heap
-    walk, the packing and the uploads), ``register.rotations`` (the
-    focal and each add's SVD), ``register.lm`` (the adds and their LM
-    drives, the graphs' captures inside), ``register.polish`` and
-    ``register.readback`` (straightening, ``stats`` and the cameras'
-    read)."""
+    walk, the packing and the uploads into the bucket's buffers),
+    ``register.rotations`` (the focal and each add's SVD),
+    ``register.lm`` (the adds and their LM drives, a new bucket's
+    captures inside), ``register.polish`` and ``register.readback``
+    (straightening, ``stats`` and the cameras' read)."""
     with profiling.span("register.schedule"):
-        pair_list = [(i, matches[i][j][1], matches[i][j][2])
-                     for i in matches.keys() for j in matches[i].keys()]
-        if not pair_list:
+        plan = _plan(len(imgs), matches)
+        if plan is None:
             return []
-        ids, homs_all, scores = zip(*pair_list)
-        src = ids[int(np.argmax(scores))]
-
-        placed = {src}
-        adds: List[Tuple[int, int, np.ndarray]] = []
-        edges: List[Tuple[int, int, np.ndarray, int]] = []
-        qq = [(-matches[src][j][2], src, j) for j in matches[src].keys()]
-        heapq.heapify(qq)
-        while qq:
-            _, src_i, dst = heapq.heappop(qq)
-            if dst in placed:
-                continue
-            k = len(adds)
-            adds.append((dst, src_i, matches[src_i][dst][1]))
-            for other in range(len(imgs)):
-                if other in placed and other in matches.get(dst, {}):
-                    edges.append((dst, other, matches[dst][other][0], k))
-            placed.add(dst)
-            for new in matches[dst].keys():
-                heapq.heappush(qq, (-matches[dst][new][2], dst, new))
-
-        n = len(imgs)
-        f32 = torch.float32
-        mp = max((m.shape[0] for _, _, m, _ in edges), default=1)
-        ne = max(len(edges), 1)
-        pts = np.zeros((ne, mp, 6), np.float32)
-        pts[..., 2] = 1.0    # benign homogeneous padding
-        pts[..., 5] = 1.0
-        mask = np.zeros((ne, mp), np.float32)
-        cam1 = np.zeros(ne, np.int64)
-        cam2 = np.zeros(ne, np.int64)
-        edge_add = np.full(ne, -1, np.int64)
-        for e, (c1, c2, m, k) in enumerate(edges):
-            cam1[e], cam2[e], edge_add[e] = c1, c2, k
-            pts[e, :len(m)] = m
-            mask[e, :len(m)] = 1.0
-        prob = Problem(_upload(cam1, device), _upload(cam2, device),
-                       _upload(pts, device), _upload(mask, device), n, mesh)
-        homs_t = _upload(np.stack(homs_all).astype(np.float32), device)
+        replay = capture and device.type == "cuda" and mesh is None
+        prob, sched, state, (add, lm, pol) = _program(plan.key, device,
+                                                      mesh, replay)
+        cam1, cam2, pts, mask, edge_add, place = plan.arrays()
+        prob.load_(cam1, cam2, pts, mask)
+        upload_into(sched["edge_add"], edge_add)
+        upload_into(sched["dst"], place[0])
+        upload_into(sched["src"], place[1])
+        homs_t = _upload(np.stack(plan.homs).astype(np.float32), device)
         add_homs = _upload(np.stack([np.asarray(h, np.float32)
-                                     for _, _, h in adds]), device)
-        place = _upload(np.array([(d, s) for d, s, _ in adds], np.int64).T,
-                        device)
-        placed_idx = _upload(np.array(sorted(placed), np.int64), device)
-        edge_add = _upload(edge_add, device)
+                                     for _, _, h in plan.adds]), device)
+        placed_idx = _upload(np.array(plan.placed, np.int64), device)
 
     with profiling.span("register.rotations"):
         focal = torch.quantile(geo.focal_from_hom(homs_t), 0.5)
@@ -584,33 +718,25 @@ def _traverse(imgs, matches, badjust, use_straighten, polish, device,
         intr = geo.intrinsics(focal, (zero, zero))
         kinv = geo.inv3x3(intr)
         lead = torch.stack([intr[0, 0], intr[0, 2], intr[1, 2]])
+        sched["lead"].copy_(lead)
         # each add's relative rotation depends on the focal and its pair
         # homography only: the SVDs (each checks its result with a host
         # sync) run here, one per add as in the loop they come from
-        sched = dict(dst=place[0], src=place[1], lead=lead,
-                     edge_add=edge_add,
-                     r_rel=torch.stack([geo.nearest_rotation(geo.mm(geo.mm(
-                         kinv, add_homs[k]), intr))
-                         for k in range(len(adds))]))
+        sched["r_rel"][:len(plan.adds)].copy_(torch.stack([
+            geo.nearest_rotation(geo.mm(geo.mm(kinv, add_homs[k]), intr))
+            for k in range(len(plan.adds))]))
 
     with profiling.span("register.lm"):
-        params = torch.zeros((n, 6), dtype=f32, device=device)
-        params[:, 0] = 1.0
-        params[src] = 0.0
-        params[src, :3] = lead
-        state = _lm_state(params, prob, torch.zeros_like(prob.mask))
-        state.update(enabled=torch.zeros(ne, dtype=torch.bool,
-                                         device=device),
-                     k=torch.zeros(1, dtype=torch.int64, device=device))
-        steps = [partial(_add_step, prob, sched), partial(lm_step, prob),
-                 partial(polish_step, prob)]
-        if capture and device.type == "cuda" and mesh is None:
-            add, lm, pol = (Replayed(f, state) for f in steps)
-        else:
-            add, lm, pol = (partial(f, state) for f in steps)
+        best = state["best"]
+        best.zero_()
+        best[:, 0] = 1.0
+        best[plan.src, :3] = lead
+        for name in ("mask", "enabled", "k"):
+            state[name].zero_()
+        _lm_restart(prob, state)
 
         lm_iters, polish_iters = [], 0
-        for _ in adds:
+        for _ in plan.adds:
             add()
             if badjust == "incr":
                 lm_iters.append(drive(lm, state["ctr"], _lm_chunk))
@@ -630,15 +756,15 @@ def _traverse(imgs, matches, badjust, use_straighten, polish, device,
             params[placed_idx, 3:6] = geo.log_so3(geo.straighten(rots))
         if stats is not None:
             profiling.count("host_syncs", 2)    # float, int
-            stats.update(focal0=float(focal), ba_edges=len(edges),
+            stats.update(focal0=float(focal), ba_edges=len(plan.edges),
                          ba_edges_enabled=int(state["enabled"].sum()),
-                         ba_edge_points=mp, lm_iterations=lm_iters,
+                         ba_edge_points=plan.longest, lm_iterations=lm_iters,
                          polish_iterations=polish_iters)
         profiling.count("host_syncs")
         params = params.cpu().numpy().astype(np.float64)
 
-        cameras: List[Optional[PanoImage]] = [None] * n
-        for i in sorted(placed):
+        cameras: List[Optional[PanoImage]] = [None] * plan.n
+        for i in plan.placed:
             cam = _np_camera_from_params(params[i])
             cam.img = imgs[i]
             cameras[i] = cam
@@ -648,12 +774,6 @@ def _traverse(imgs, matches, badjust, use_straighten, polish, device,
 # ---------------------------------------------------------------------------
 # The incremental bundle adjuster and the finite-difference check
 # ---------------------------------------------------------------------------
-
-def _next_pow2(x: int, lo: int) -> int:
-    n = lo
-    while n < x:
-        n *= 2
-    return n
 
 
 def _np_log_so3(rot: np.ndarray) -> np.ndarray:

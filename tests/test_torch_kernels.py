@@ -505,39 +505,114 @@ def test_refit_homography_pair_without_inliers_on_card():
     assert abs(float(hom[1, 0, 0]) - 1.01) < 1e-3
 
 
+def _world_of_bucket(dev, seeds, key=None, shape=None):
+    """-> (seed, uint8 views, rehydrated match graph, registration
+    bucket, compact keypoint buffer's shape: the match graph's key) of
+    the first world of five 192x256 views from ``seeds`` in the bucket
+    ``key`` and of the buffer ``shape`` (any, where None), found with
+    every step run eagerly."""
+    from pano360_tpu_torch import register
+    from pano360_tpu_torch.pipeline import (idx_to_keypoints, matching,
+                                            sift_buffers, upload_extract)
+    for seed in seeds:
+        imgs, _, _ = synth.make_views(n_views=5, shape=(192, 256),
+                                      overlap=0.45, seed=seed)
+        u8 = [(im * 255).astype(np.uint8) for im in imgs]
+        _, feats = upload_extract(u8, dev, capture=False)
+        got = tuple(sift_buffers(u8, feats)[1].shape)
+        kpts, matches = matching(u8, dev, feats=feats, capture=False)
+        graph = idx_to_keypoints(matches, kpts)
+        plan = register._plan(5, graph)
+        if plan is not None and key in (None, plan.key) \
+                and shape in (None, got):
+            return seed, u8, graph, plan.key, got
+    pytest.fail(f"no world in bucket {key} with buffers {shape}")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("badjust", ["incr", "last"])
-def test_traverse_replayed_equals_eager_on_card(badjust):
+def test_traverse_replayed_equals_eager_on_card(badjust, monkeypatch):
     """``register.traverse`` with its add, LM and polish steps replayed
-    from CUDA graphs against the same steps run eagerly on the card: the
-    same cameras bit for bit and the same LM counts; at most one host
-    sync per read of the counters, two per add (the SVDs) and a few per
-    traverse."""
-    from pano360_tpu_torch import register
+    from CUDA graphs against the same steps run eagerly on the card, on
+    a 5-view world (captured, eager, replayed) and on a second world of
+    the same bucket (replayed, eager): the same cameras bit for bit and
+    the same LM counts; a replay-only traverse captures nothing and
+    takes its bucket's program (``graphs.programs_hit`` + 1); at most
+    one host sync per read of the counters, two per add (the SVDs) and a
+    few per traverse."""
+    from pano360_tpu_torch import graphs, profiling, register
     from pano360_tpu_torch.measure import host_syncs
-    from pano360_tpu_torch.pipeline import idx_to_keypoints, matching
     dev = _cuda()
-    imgs, _, _ = synth.make_views(n_views=5, shape=(192, 256), overlap=0.45,
-                                  seed=3)
-    u8 = [(im * 255).astype(np.uint8) for im in imgs]
-    kpts, matches = matching(u8, dev)
-    graph = idx_to_keypoints(matches, kpts)
-    out = {}
-    for capture in (True, False):
+    monkeypatch.setattr(graphs, "PROGRAMS", graphs.Programs())
+    _, u8, graph, key, _ = _world_of_bucket(dev, [3])
+    _, u8_b, graph_b, _, _ = _world_of_bucket(dev, range(4, 60), key)
+
+    def run(u8, graph, capture):
         stats = {}
+        before = profiling.snapshot()["counters"]
         regs = register.traverse(u8, graph, badjust=badjust, stats=stats,
                                  capture=capture)
-        out[capture] = (regs, stats)
-    (rg, sg), (re, se) = out[True], out[False]
-    assert len(rg) == len(re) == 5
-    assert all(np.array_equal(a.rot, b.rot) and np.array_equal(a.intr, b.intr)
-               for a, b in zip(rg, re))
-    assert sg["lm_iterations"] == se["lm_iterations"]
-    assert sg["polish_iterations"] == se["polish_iterations"]
+        after = profiling.snapshot()["counters"]
+        made = {k: after.get(k, 0) - before.get(k, 0)
+                for k in ("graphs.captures", "graphs.programs_hit")}
+        return regs, stats, made
+
+    def same(a, b):
+        (ra, sa, _), (rb, sb, _) = a, b
+        assert len(ra) == len(rb) == 5
+        assert all(np.array_equal(x.rot, y.rot)
+                   and np.array_equal(x.intr, y.intr) for x, y in zip(ra, rb))
+        assert sa["lm_iterations"] == sb["lm_iterations"]
+        assert sa["polish_iterations"] == sb["polish_iterations"]
+
+    first = run(u8, graph, True)
+    assert first[2]["graphs.captures"] == 3
+    same(first, run(u8, graph, False))
+    for u8_w, graph_w in ((u8, graph), (u8_b, graph_b)):
+        replayed = run(u8_w, graph_w, True)
+        assert replayed[2] == {"graphs.captures": 0,
+                               "graphs.programs_hit": 1}
+        same(replayed, run(u8_w, graph_w, False))
+    sg = first[1]
     _, sites = host_syncs(lambda: register.traverse(u8, graph,
                                                     badjust=badjust))
     iters = sum(sg["lm_iterations"]) + sg["polish_iterations"]
     assert sum(sites.values()) <= 2 * 4 + iters + 8, sites
+
+
+@pytest.mark.gpu
+def test_reserved_memory_flat_over_worlds_of_one_bucket_on_card(
+        monkeypatch):
+    """Five different 5-view worlds of one bucket (the registration's and
+    the match graph's), each stitched in turn on the card through the
+    replayed path: the first captures, the others replay what it made,
+    and ``torch.cuda.memory_reserved()`` is the same after the second
+    panorama and after the fifth."""
+    from pano360_tpu_torch import graphs, profiling, register
+    from pano360_tpu_torch.pipeline import (idx_to_keypoints, matching,
+                                            upload_extract)
+    dev = _cuda()
+    monkeypatch.setattr(graphs, "PROGRAMS", graphs.Programs())
+    seed, *_, key, shape = _world_of_bucket(dev, [3])
+    seeds = [seed]
+    while len(seeds) < 5:
+        seeds.append(_world_of_bucket(dev, range(seeds[-1] + 1, 200), key,
+                                      shape)[0])
+    reserved, captures = [], []
+    for s in seeds:
+        imgs, _, _ = synth.make_views(n_views=5, shape=(192, 256),
+                                      overlap=0.45, seed=s)
+        u8 = [(im * 255).astype(np.uint8) for im in imgs]
+        stack, feats = upload_extract(u8, dev)
+        kpts, matches = matching(u8, dev, feats=feats)
+        regs = register.traverse(u8, idx_to_keypoints(matches, kpts),
+                                 device=dev)
+        render.stitch(regs, dev_images=stack, device=dev)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        captures.append(profiling.snapshot()["counters"]["graphs.captures"])
+    assert captures[1:] == [captures[0]] * 4, captures
+    assert reserved[1] == reserved[4], reserved
 
 
 @pytest.mark.gpu

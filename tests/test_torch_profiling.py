@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from pano360_tpu_torch import cli, pipeline, profiling, register, render
+from pano360_tpu_torch import cli, graphs, pipeline, profiling, register
+from pano360_tpu_torch import render
 from pano360_tpu_torch import synth
 
 CPU = torch.device("cpu")
@@ -134,6 +135,33 @@ def test_stage_timer_reads_the_recorder(caplog):
     rep = t.report()
     assert "Stage one" in rep and "total" in rep and "t.inside" in rep
     assert "graphs.captures: 0" in rep and "host_syncs: 2" in rep
+    assert "graphs.programs_made: 0" in rep
+    assert "graphs.programs_hit: 0" in rep
+
+
+def test_programs_count_made_and_hit():
+    """``graphs.Programs.get`` makes a key's program once, counted in
+    ``graphs.programs_made``, and hands it back at each later call of
+    the key, counted in ``graphs.programs_hit``; the report has both."""
+    programs = graphs.Programs()
+    made = []
+
+    def make():
+        made.append(object())
+        return made[-1]
+    t = profiling.StageTimer()
+    before = profiling.snapshot()
+    first = programs.get(("t.key", 1), make)
+    again = [programs.get(("t.key", 1), make) for _ in range(3)]
+    other = programs.get(("t.key", 2), make)
+    counters = profiling.delta(profiling.snapshot(), before)["counters"]
+    assert counters["graphs.programs_made"] == 2
+    assert counters["graphs.programs_hit"] == 3
+    assert all(p is first for p in again) and other is made[1]
+    assert len(made) == 2
+    rep = t.report()
+    assert "graphs.programs_made: 2" in rep
+    assert "graphs.programs_hit: 3" in rep
 
 
 def test_traverse_records_its_parts(world):
@@ -240,16 +268,19 @@ def test_device_trace_writes_the_spans(tmp_path):
                                    dict(badjust="incr", equalize=True),
                                    dict(badjust="last", crop=True)],
                          ids=["incr", "incr-e", "last-c"])
-def test_host_syncs_counted_where_they_happen_on_card(flags):
+def test_host_syncs_counted_where_they_happen_on_card(flags, monkeypatch):
     """On a warm panorama of the bench world, stage by stage, the
     ``host_syncs`` counter equals the syncs that PyTorch's sync-debug
-    mode reports; ``traverse`` captures its three steps, each a
-    ``graphs.capture`` span under ``register.lm`` or ``register.polish``.
+    mode reports. With the process's programs made afresh, ``traverse``
+    captures its three steps on the first panorama, each a
+    ``graphs.capture`` span under ``register.lm`` or ``register.polish``,
+    and none on the warm one, which replays them.
     """
     from pano360_tpu_torch.measure import bench_views, host_syncs
     dev = _cuda()
     _, u8, _, _ = bench_views()
     badjust = flags.pop("badjust")
+    monkeypatch.setattr(graphs, "PROGRAMS", graphs.Programs())
 
     def panorama():
         got = {}
@@ -272,7 +303,7 @@ def test_host_syncs_counted_where_they_happen_on_card(flags):
         stage("render", lambda: render.stitch(regions, dev_images=stack,
                                               device=dev, **flags))
         return got, stats
-    panorama()                  # the process's captures of SIFT and match
+    _, cold = panorama()        # the captures of SIFT, match and register
     got, stats = panorama()
     table = {name: (counted, sum(sites.values()), sites)
              for name, (counted, sites) in got.items()}
@@ -280,6 +311,7 @@ def test_host_syncs_counted_where_they_happen_on_card(flags):
         f"{name}: counted {c}, the mode saw {w}: {sites}"
         for name, (c, w, sites) in table.items())
     assert got["register"][0] > 0
-    caps = [s for s in stats["spans"] if s[0] == "graphs.capture"]
+    caps = [s for s in cold["spans"] if s[0] == "graphs.capture"
+            and s[1] in ("register.lm", "register.polish")]
     assert len(caps) == 3
-    assert {p for _, p, _, _ in caps} <= {"register.lm", "register.polish"}
+    assert not [s for s in stats["spans"] if s[0] == "graphs.capture"]

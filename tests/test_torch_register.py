@@ -1,7 +1,9 @@
 """The port's bundle adjustment held against the JAX package's on small
 synthetic problems (CPU): the chunked LM loops against a literal host loop,
 ``lm_core``/``lm_polish`` against ``_lm_optimize``/``_lm_polish``,
-``BundleAdjuster`` and ``jacobian_numeric`` against theirs.
+``BundleAdjuster`` and ``jacobian_numeric`` against theirs, and
+``traverse``'s padded problem against the JAX package's bucket and
+``traverse``.
 
 Problems: 3-5 cameras on a yaw arc, 40-60 matches per adjacent pair made
 from the true geometry with pixel noise (numpy, seeded), as in the JAX
@@ -30,9 +32,11 @@ from pano360_tpu_torch import register as treg
 torch.set_num_threads(1)
 
 
-def synthetic_problem(n_cams=4, n_pts=60, focal=900.0, noise=0.3, seed=3):
-    """Cameras on a yaw arc and the matches of adjacent pairs, made from
-    the true geometry: -> (cameras, matches, focal)."""
+def synthetic_problem(n_cams=4, n_pts=60, focal=900.0, noise=0.3, seed=3,
+                      skips=0):
+    """Cameras on a yaw arc and the matches of adjacent pairs (and of the
+    first ``skips`` pairs two apart), made from the true geometry: ->
+    (cameras, matches, focal)."""
     rng = np.random.default_rng(seed)
     rots = [treg._np_exp_so3(np.array([0.02 * rng.standard_normal(),
                                        0.35 * i, 0.0]))
@@ -40,8 +44,9 @@ def synthetic_problem(n_cams=4, n_pts=60, focal=900.0, noise=0.3, seed=3):
     intr = np.diag([focal, focal, 1.0])
     cams = [treg.PanoImage(None, r, intr.copy()) for r in rots]
     matches = {i: {} for i in range(n_cams)}
-    for i in range(n_cams - 1):
-        j = i + 1
+    pairs = ([(i, i + 1) for i in range(n_cams - 1)]
+             + [(i, i + 2) for i in range(skips)])
+    for i, j in pairs:
         p1 = rng.uniform(-300, 300, (n_pts, 2))
         hom = cams[j].intr @ cams[j].rot @ cams[i].rot.T @ \
             np.linalg.inv(cams[i].intr)
@@ -287,3 +292,88 @@ def test_params_per_camera_matches_jax():
     params[0] = 800.0
     assert tgeo.camera_to_params(tgeo.params_to_camera(params)).shape == (
         tgeo.PARAMS_PER_CAMERA,)
+
+
+# two worlds of five views in one bucket (5 views, 16 edges, 64 points):
+# 4 edges of 60 points, and 7 edges of 40
+BUCKET_WORLDS = [dict(n_pts=60, seed=3), dict(n_pts=40, seed=8, skips=3)]
+
+
+def _jax_bucket(matches, n):
+    """The padded edges and match points of the JAX package's
+    ``traverse`` for ``matches``: the shape of the points it hands to its
+    traverse program."""
+    got = {}
+
+    class _Stop(Exception):
+        pass
+
+    def kernel(*ops, **kw):
+        got["shape"] = tuple(ops[9].shape[:2])
+        raise _Stop
+    orig = jreg._traverse_kernel
+    jreg._traverse_kernel = kernel
+    try:
+        jreg.traverse([np.zeros((8, 8, 3))] * n, matches)
+    except _Stop:
+        pass
+    finally:
+        jreg._traverse_kernel = orig
+    return got["shape"]
+
+
+@pytest.mark.parametrize("world", BUCKET_WORLDS, ids=["edges4", "edges7"])
+def test_traverse_pads_to_the_jax_bucket(world, monkeypatch):
+    """The padded problem takes the JAX package's bucket for the same
+    graph; a padded edge joins camera 0 to itself, masked whole, brought
+    by no add, and is never enabled; ``stats`` reports the real edges
+    and the real longest edge."""
+    _, matches, _ = synthetic_problem(n_cams=5, **world)
+    plan = treg._plan(5, matches)
+    n_edges = len(plan.edges)
+    assert n_edges == 4 + world.get("skips", 0)
+    assert plan.key == (5, 16, 64)
+    assert plan.key[1:] == _jax_bucket(matches, 5)
+    cam1, cam2, pts, mask, edge_add, place = plan.arrays()
+    assert pts.shape == (16, 64, 6) and mask.shape == (16, 64)
+    assert not cam1[n_edges:].any() and not cam2[n_edges:].any()
+    assert (edge_add[n_edges:] == -1).all() and not mask[n_edges:].any()
+    assert (pts[n_edges:, :, [2, 5]] == 1).all()
+    assert not pts[n_edges:, :, [0, 1, 3, 4]].any()
+    assert place.shape == (2, 4)
+    states = []
+    program = treg._program
+
+    def keep(*a, **k):
+        out = program(*a, **k)
+        states.append(out[2])
+        return out
+    monkeypatch.setattr(treg, "_program", keep)
+    stats = {}
+    regs = treg.traverse([np.zeros((8, 8, 3))] * 5, matches, device="cpu",
+                         stats=stats)
+    assert len(regs) == 5
+    enabled = states[0]["enabled"]
+    assert enabled.shape == (16,) and not enabled[n_edges:].any()
+    assert stats["ba_edges"] == n_edges
+    assert stats["ba_edges_enabled"] == int(enabled.sum()) == n_edges
+    assert stats["ba_edge_points"] == world["n_pts"]
+
+
+@pytest.mark.parametrize("world", BUCKET_WORLDS, ids=["edges4", "edges7"])
+def test_padded_traverse_matches_jax(world):
+    """On two worlds of one bucket with 4 and 7 edges, the padded
+    traverse's cameras match the JAX package's ``traverse`` (rotations
+    within 1e-3 rad, focals within 1e-3 relative, as the pipeline's
+    parity test) and the truth."""
+    cams, matches, focal = synthetic_problem(n_cams=5, **world)
+    imgs = [np.zeros((8, 8, 3))] * 5
+    regs = treg.traverse(imgs, matches, device="cpu")
+    jregs = jreg.traverse(imgs, matches)
+    assert len(regs) == len(jregs) == 5
+    for a, b in zip(regs, jregs):
+        assert rot_err(a.rot, b.rot) <= 1e-3
+        assert abs(a.intr[0, 0] / b.intr[0, 0] - 1) <= 1e-3
+        assert abs(a.intr[0, 0] / focal - 1) <= 0.05
+    for (a0, t0), (a1, t1) in zip(zip(regs, cams), zip(regs[1:], cams[1:])):
+        assert rot_err(a1.rot @ a0.rot.T, t1.rot @ t0.rot.T) <= 1e-2
