@@ -12,7 +12,8 @@ outputs are read only to be judged:
   each edge's homography maps the points of the true overlap where the
   true homography K R_j R_i^T K^-1 maps them;
 - the registration: every view placed, and each adjacent pair's relative
-  rotation and each focal as the truth has them;
+  rotation and each focal as the truth has them (adjacent: a sweep's
+  index neighbours, a rig's strongly overlapping pairs);
 - the render: every covered pixel of the mosaic shows what the views
   show along the ray that the mosaic's spherical frame gives it, under
   the registered cameras (the views' mean, each divided by its true
@@ -289,7 +290,12 @@ def judge(world: World, kpts, matches: dict,
     - ``rot_err_deg``: the mean error of adjacent views' relative
       rotations; ``cam_err_px``: the mean over adjacent views of the root
       mean square distance, over their true overlap, between the images
-      under the homography their cameras induce and the true one;
+      under the homography their cameras induce and the true one.
+      Adjacent are a sweep's index neighbours k, k + 1 and a rig's
+      strongly overlapping pairs (each ring's closing pair and the
+      neighbours across rings among them). ``cam_worst_px``: the largest
+      of those root mean squares (a rig's mean runs over some fifty
+      pairs, of which one view may hold two);
       ``focal_err``: the largest relative focal error;
     - ``mosaic_err``: the mosaic's mean absolute difference from the
       reference's, in gray levels.
@@ -297,7 +303,8 @@ def judge(world: World, kpts, matches: dict,
     n = len(world.views)
     out = {"views_unplaced": float(n - len(cams))}
     missing, hmax, hrms = 0, 0.0, []
-    for i, j, pts in strong_pairs(world):
+    pairs = strong_pairs(world)
+    for i, j, pts in pairs:
         edge = matches.get(i, {}).get(j)
         if edge is None:
             missing += 1
@@ -310,20 +317,22 @@ def judge(world: World, kpts, matches: dict,
     out["edges_missing"] = float(missing)
     out["hom_err_px"] = hmax
     out["hom_rms_px"] = float(np.mean(hrms)) if hrms else 0.0
+    adjacent = pairs if world.rig else [
+        (k, k + 1, overlap_points(world, k, k + 1)) for k in range(n - 1)]
     rel, cam = [], []
-    for k in range(n - 1):
-        if k not in cams or k + 1 not in cams:
+    for i, j, pts in adjacent:
+        if i not in cams or j not in cams:
             continue
-        (ra, ka), (rb, kb) = cams[k], cams[k + 1]
+        (ra, ka), (rb, kb) = cams[i], cams[j]
         rel.append(_rot_deg((rb @ ra.T)
-                            @ (world.rots[k + 1] @ world.rots[k].T).T))
-        pts = overlap_points(world, k, k + 1)
+                            @ (world.rots[j] @ world.rots[i].T).T))
         if len(pts):
             cam.append(_pair_err(kb @ rb @ ra.T @ np.linalg.inv(ka),
                                  true_homography(world.rots, world.focal,
-                                                 k, k + 1), pts)[1])
+                                                 i, j), pts)[1])
     out["rot_err_deg"] = float(np.mean(rel)) if rel else math.inf
     out["cam_err_px"] = float(np.mean(cam)) if cam else math.inf
+    out["cam_worst_px"] = float(np.max(cam)) if cam else math.inf
     foc = [abs(intr[0, 0] - world.focal) / world.focal
            for _, intr in cams.values()]
     out["focal_err"] = float(max(foc)) if foc else math.inf
