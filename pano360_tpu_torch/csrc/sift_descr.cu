@@ -5,9 +5,13 @@
 // Replaces: pano360_tpu/features/sift.py, _descriptor_from_patch (:658)
 // with _trilinear_hist (:741), vmapped over keypoints and orientations;
 // XLA fuses them, the binning as one contraction (no Pallas kernel lies
-// behind them). The plain version is features/sift.py _descriptors: per
+// behind them); that function turns the grid against the keypoint's angle,
+// this kernel with it. The plain version is features/sift.py _descriptors: per
 // sample s of the grid (gu, gv) = ((s % 16 + 0.5) / 4 - 2,
-// (s / 16 + 0.5) / 4 - 2), the rotated position at 3 sigma per bin, its
+// (s / 16 + 0.5) / 4 - 2), the position turned by the keypoint's angle at
+// 3 sigma per bin, (xf + (gu cos + gv sin) 3 sigma, yf + (gv cos - gu sin)
+// 3 sigma): the angle is counter-clockwise on screen (gy is the row above
+// less the row below), the pixels' y points down; its
 // bilinear gx and gy from the patch (indices clamped as the plain gather
 // clamps them), the in-bounds mask, magnitude sqrtf, angle atan2f less
 // the orientation (float remainder 2 pi as PyTorch computes it), weight
@@ -155,8 +159,8 @@ p360_sift_descr_kernel(const float* __restrict__ gx,
   // sampling
   for (int s = lane; s < S; s += 32) {
     const float gu = grid_coord(s % P), gv = grid_coord(s / P);
-    const float sx = xf + (gu * cosa - gv * sina) * hw;
-    const float sy = yf + (gu * sina + gv * cosa) * hw;
+    const float sx = xf + (gu * cosa + gv * sina) * hw;
+    const float sy = yf + (gv * cosa - gu * sina) * hw;
     const float px = sx - ox, py = sy - oy;
     const float x0f = floorf(px), y0f = floorf(py);
     const float fx = px - x0f, fy = py - y0f;

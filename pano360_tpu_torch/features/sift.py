@@ -350,6 +350,20 @@ def _peak_angles(hist: torch.Tensor, cfg: SiftConfig):
     return bin_pos * (2 * math.pi / nb), torch.isfinite(vals)
 
 
+def _grid_positions(xf, yf, sig, angle, gu, gv):
+    """Where the grid's samples (gu, gv) (S,), in bins of 3 sigma, lie in
+    the octave for keypoints at (xf, yf) turned by ``angle`` (K, n_ori):
+    -> (sx, sy) (K, n_ori, S). The angle is counter-clockwise on screen,
+    as the gradients' y points up (``gy`` is the row above less the row
+    below), so the grid's u axis runs along (cos, -sin) in pixels, whose
+    y points down, and its v axis along (sin, cos)."""
+    cosa, sina = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    hw_ = (3.0 * sig)[:, None, None]
+    sx = xf[:, None, None] + (gu * cosa + gv * sina) * hw_
+    sy = yf[:, None, None] + (gv * cosa - gu * sina) * hw_
+    return sx, sy
+
+
 def _descriptor_samples(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
                         cfg: SiftConfig):
     """The grid descriptor's samples: rotated 16x16 bilinear samples of
@@ -367,10 +381,7 @@ def _descriptor_samples(gx, gy, yf, xf, cy, cx, sig, angle, oh, ow,
         - d / 2
     gv, gu = torch.meshgrid(g, g, indexing="ij")       # gu varies along x
     gu, gv = gu.reshape(-1), gv.reshape(-1)            # (S,)
-    cosa, sina = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
-    hw_ = (3.0 * sig)[:, None, None]
-    sx = xf[:, None, None] + (gu * cosa - gv * sina) * hw_   # (K, no, S)
-    sy = yf[:, None, None] + (gu * sina + gv * cosa) * hw_
+    sx, sy = _grid_positions(xf, yf, sig, angle, gu, gv)   # (K, no, S)
     px = sx - (cx[:, None, None] + 1)
     py = sy - (cy[:, None, None] + 1)
     x0f, y0f = torch.floor(px), torch.floor(py)

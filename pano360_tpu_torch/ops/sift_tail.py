@@ -265,10 +265,7 @@ def descriptors_cost(yf, xf, pcy, pcx, sig, angle, oh, ow, psg: int,
     g = (torch.arange(p, dtype=torch.float32, device=yf.device) + 0.5) \
         / p * d - d / 2
     gv, gu = (t.reshape(-1) for t in torch.meshgrid(g, g, indexing="ij"))
-    cosa, sina = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
-    hw = (3.0 * sig)[:, None, None]
-    sx = xf[:, None, None] + (gu * cosa - gv * sina) * hw
-    sy = yf[:, None, None] + (gu * sina + gv * cosa) * hw
+    sx, sy = _plain()._grid_positions(xf, yf, sig, angle, gu, gv)
     px = sx - (pcx[:, None, None] + 1)
     py = sy - (pcy[:, None, None] + 1)
     inb = ((px >= 0) & (px <= psg - 2) & (py >= 0) & (py <= psg - 2)

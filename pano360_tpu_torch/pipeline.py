@@ -361,6 +361,8 @@ def matching(imgs: List[np.ndarray], device, max_kpts: int = 4096,
         res = match_graph(kp_buf, ds_buf, va_buf, seed, draw_fn, mesh,
                           capture)
         pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
+        profiling.count("match.pairs", len(pairs))
+        profiling.count("match.edges", int(np.count_nonzero(res.ok)))
         matches: Dict[int, Dict[int, tuple]] = {i: {} for i in range(n)}
         for k, (src, dst) in enumerate(pairs):
             if not bool(res.ok[k]):

@@ -14,7 +14,11 @@ The recorder is the one place where the port times and counts itself:
   and ``host_syncs``, each point of the window's
   path where the host waits for the device, counted at its call site
   with the syncs it makes on a card (a run on the CPU counts the same
-  points, though nothing waits there).
+  points, though nothing waits there); ``match.pairs`` and
+  ``match.edges``, the pairs the match graph tried and those it kept
+  (``pipeline.matching``, from its host rows), and ``render.patch_px``,
+  the padded patches' pixels of each render's layout, N ph pw
+  (``render.plan_layout``).
 - ``snapshot()`` returns the totals, the counters and the kernels'
   launch counts (``graphs._kernel_counters``).
 - ``recording(stats)``: around a stage that takes a ``stats`` dict. The

@@ -499,14 +499,19 @@ def lm_polish(params, prob: Problem, mask, k: Optional[int] = None):
 def _add_step(prob: Problem, sched: dict, state: dict):
     """Place the next camera of the schedule (add ``state['k']``, a (1,)
     counter): seed its rotation from its pair's (``sched['r_rel']``) and
-    its source camera's, gate the edges it brings by initial RMSE, mask
-    the problem with the edges gated so far and restart the LM there.
-    The JAX package's ``add_step`` of ``_traverse_impl``."""
+    its source camera's, and its focal from its source camera's, as
+    AutoStitch initialises a new image with the focal length of the
+    image it best matches (Brown & Lowe, IJCV 2007, section 4); gate the
+    edges it brings by initial RMSE, mask the problem with the edges
+    gated so far and restart the LM there. The JAX package's
+    ``add_step`` of ``_traverse_impl``, which seeds every focal with the
+    initial median instead: under ``--ba incr`` a view's focal then
+    starts where the LM has already moved its neighbour's."""
     k, best = state["k"], state["best"]
-    r_src = geo.exp_so3(best.index_select(
-        0, sched["src"].index_select(0, k))[0, 3:6])
+    src = best.index_select(0, sched["src"].index_select(0, k))[0]
     r_rel = sched["r_rel"].index_select(0, k)[0]
-    row = torch.cat([sched["lead"], geo.log_so3(geo.mm(r_rel, r_src))])
+    row = torch.cat([src[:3], geo.log_so3(geo.mm(r_rel,
+                                                 geo.exp_so3(src[3:6])))])
     best.index_copy_(0, sched["dst"].index_select(0, k), row[None])
     rmse = prob.edge_rmse(best)
     enabled = state["enabled"]
@@ -625,7 +630,6 @@ def _program(key: Tuple[int, int, int], device: torch.device, mesh,
         rows = max(n - 1, 1)
         sched = dict(dst=torch.zeros(rows, dtype=i64, device=device),
                      src=torch.zeros(rows, dtype=i64, device=device),
-                     lead=torch.zeros(3, dtype=f32, device=device),
                      edge_add=torch.zeros(ep, dtype=i64, device=device),
                      r_rel=torch.zeros((rows, 3, 3), dtype=f32,
                                        device=device))
@@ -718,7 +722,6 @@ def _traverse(imgs, matches, badjust, use_straighten, polish, device,
         intr = geo.intrinsics(focal, (zero, zero))
         kinv = geo.inv3x3(intr)
         lead = torch.stack([intr[0, 0], intr[0, 2], intr[1, 2]])
-        sched["lead"].copy_(lead)
         # each add's relative rotation depends on the focal and its pair
         # homography only: the SVDs (each checks its result with a host
         # sync) run here, one per add as in the loop they come from

@@ -555,6 +555,7 @@ def plan_layout(regions: List[PanoImage], ranges: np.ndarray, blender: str,
     else:
         bottoms[:, 0] = np.clip(bottoms[:, 0], 0, shape[1] - pw)
     bottoms[:, 1] = np.clip(bottoms[:, 1], 0, shape[0] - ph)
+    profiling.count("render.patch_px", n * ph * pw)
     return MosaicLayout(shape, out_hw, bottoms, wins, ph, pw,
                         period if use_wrap else None, resolution, im_range)
 

@@ -21,7 +21,18 @@ from pano360_tpu.features import sift as jsift
 
 from pano360_tpu_torch.features import sift as tsift
 
+from jax_grid_turn import port_grid
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_grid():
+    """The JAX package's grid descriptor turned as the port's
+    (``jax_grid_turn``) for every JAX run of this module."""
+    with port_grid():
+        yield
+
 
 TOL = 1e-5
 

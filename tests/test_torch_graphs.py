@@ -37,9 +37,19 @@ from pano360_tpu_torch import pipeline as tpipe
 from pano360_tpu_torch.features import sift as tsift
 from pano360_tpu_torch.ops.color import bgr2gray
 
+from jax_grid_turn import port_grid
+
 torch.set_num_threads(1)
 
 BATCH = 4                       # pairs per chunk: 10 pairs -> 4, 4, 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_grid():
+    """The JAX package's grid descriptor turned as the port's
+    (``jax_grid_turn``) for every JAX run of this module."""
+    with port_grid():
+        yield
 
 
 @pytest.fixture(scope="module")

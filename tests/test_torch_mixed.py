@@ -38,10 +38,20 @@ from pano360_tpu_torch import pipeline as tpipe
 from pano360_tpu_torch import render as trender
 from pano360_tpu_torch.ops import warp_kernel as TW
 
+from jax_grid_turn import port_grid
+
 torch.set_num_threads(1)
 
 NAME = "views_s1.0"
 SHAPES = [(180, 240), (220, 200), (180, 240), (220, 200)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_grid():
+    """The JAX package's grid descriptor turned as the port's
+    (``jax_grid_turn``) for every JAX run of this module."""
+    with port_grid():
+        yield
 
 
 def _t(a):

@@ -3,7 +3,12 @@ stage and end to end (CPU, three 180x240 views).
 
 One JAX CLI run (module fixture) provides every reference: its SIFT
 features, its match-graph cache, its bundle-adjustment cache and its
-mosaic. Each port stage then takes the JAX output of the stage before
+mosaic. The JAX package turns its grid descriptor the other way from the
+port, so its runs here take the exact transform to the port's turn
+(``jax_grid_turn.port_grid``); the matcher's own tests (knn2, RANSAC,
+``match_pair``, ``match_pairs_batch``) take the JAX package's features
+as it makes them, since what they hold is the matcher on given
+features. Each port stage then takes the JAX output of the stage before
 (``pano360_tpu_torch.convert``) and is held to the JAX output of the
 same stage; RANSAC gets the JAX package's own hypothesis draws, so the
 match graphs compare edge for edge.
@@ -38,6 +43,8 @@ from pano360_tpu_torch import register as treg
 from pano360_tpu_torch import render as trender
 from pano360_tpu_torch.features import sift as tsift
 
+from jax_grid_turn import port_grid
+
 torch.set_num_threads(1)
 
 NAME = "views_s1.0"
@@ -69,18 +76,23 @@ def ref(tmp_path_factory):
     synth.write_dataset(str(ds), imgs)
     jdir = root / "jax"
     jdir.mkdir()
-    mosaic = jcli.run(jcli.build_parser().parse_args(
-        [str(ds), "-s", "1", "--cache-dir", str(jdir)]))
     u8 = jcli.load_images(str(ds), 1)
+
+    def extract():
+        feats = jpipe._gray_extract(jnp.asarray(np.stack(u8)),
+                                    jsift.SiftConfig(max_kpts=4096))
+        return jsift.SiftFeatures(*[np.asarray(a) for a in feats])
+    own_feats = extract()
+    with port_grid():
+        mosaic = jcli.run(jcli.build_parser().parse_args(
+            [str(ds), "-s", "1", "--cache-dir", str(jdir)]))
+        feats = extract()
     kpts, matches = convert.matches_from_npz(str(jdir / f"matches_{NAME}.npz"))
     with open(jdir / f"ba_{NAME}.pkl", "rb") as fid:
         regions = pickle.load(fid)
-    feats = jpipe._gray_extract(jnp.asarray(np.stack(u8)),
-                                jsift.SiftConfig(max_kpts=4096))
-    feats = jsift.SiftFeatures(*[np.asarray(a) for a in feats])
     return dict(root=root, u8=u8, mosaic=mosaic, kpts=kpts, matches=matches,
-                regions=regions, feats=feats, jdir=jdir, rots=rots,
-                focal=focal)
+                regions=regions, feats=feats, own_feats=own_feats, jdir=jdir,
+                rots=rots, focal=focal)
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +134,7 @@ def test_load_images_shrink_matches_jax(ref):
 
 
 def _rootsift_pair(ref, a, b):
-    f = ref["feats"]
+    f = ref["own_feats"]
     desc = np.asarray(jsift.root_sift(jnp.asarray(f.desc)))
     return desc[a], desc[b], f.valid[a], f.valid[b]
 
@@ -143,7 +155,7 @@ def test_ransac_with_jax_draws_matches_jax(ref):
     d1, d2, v1, v2 = _rootsift_pair(ref, 0, 1)
     best, good = (np.asarray(a) for a in jmatch.knn2_matches(
         jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(v1), jnp.asarray(v2)))
-    xy = ref["feats"].xy
+    xy = ref["own_feats"].xy
     p1 = xy[0].astype(np.float32)
     p2 = xy[1][best].astype(np.float32)
     key = jax.random.key(7)
@@ -179,7 +191,7 @@ def _same_pair_match(t, j):
 
 
 def test_match_pair_with_jax_draws_matches_jax(ref):
-    f = ref["feats"]
+    f = ref["own_feats"]
     desc = np.asarray(jsift.root_sift(jnp.asarray(f.desc)))
     key = jax.random.key(5)
     args = (f.xy[0], desc[0], f.valid[0], f.xy[1], desc[1], f.valid[1])
@@ -195,7 +207,7 @@ def test_match_pair_with_jax_draws_matches_jax(ref):
 
 
 def test_match_pairs_batch_with_jax_draws_matches_jax(ref):
-    f = ref["feats"]
+    f = ref["own_feats"]
     desc = np.asarray(jsift.root_sift(jnp.asarray(f.desc)))
     pair_a, pair_b = np.array([0, 1, 2, 0]), np.array([1, 2, 0, 2])
     keys = jax.random.split(jax.random.key(11), len(pair_a))
@@ -344,9 +356,10 @@ def test_cli_equalize_crop_matches_jax(ref, port_run):
     ours = tcli.run_images(ref["u8"], tcli.build_parser().parse_args(
         [args.path, *flags, "--cache-dir", args.cache_dir,
          "--device", "cpu"]), NAME)
-    theirs = jcli.run(jcli.build_parser().parse_args(
-        [str(ref["root"] / "views"), *flags,
-         "--cache-dir", str(ref["jdir"])]))
+    with port_grid():
+        theirs = jcli.run(jcli.build_parser().parse_args(
+            [str(ref["root"] / "views"), *flags,
+             "--cache-dir", str(ref["jdir"])]))
     assert ours.dtype == np.uint8 and ours.shape == theirs.shape
     assert _psnr(ours, theirs) >= 40.0
 

@@ -39,6 +39,8 @@ from pano360_tpu_torch.features import sift as tsift
 from pano360_tpu_torch.measure import recording
 from pano360_tpu_torch.ops import sift_tail as T
 
+from jax_grid_turn import turned
+
 torch.set_num_threads(1)
 
 WRAPPERS = ("refine", "orientation", "descriptors")
@@ -359,12 +361,18 @@ def test_orientation_kernel_order_equals_tree_sum(calls, case, monkeypatch):
 
 
 def _jax_descriptors(args, cfg):
-    one = jax.vmap(lambda *a: jsift._descriptor_from_patch(*a, cfg),
+    """The JAX package's grid descriptors through the exact transform to
+    the port's turn of the grid: mirror(JAX(gx, -gy, ..., -theta))
+    (``jax_grid_turn``)."""
+    one = jax.vmap(lambda *a: turned(*a, cfg),
                    in_axes=(None,) * 7 + (0, None, None))
     return np.asarray(jax.vmap(one)(*_np(*args)))
 
 
 def test_descriptors_plain_matches_jax(calls):
+    """The port's descriptors against the JAX package's turned as the
+    port turns its grid (``jax_grid_turn``), at the recorded keypoints
+    and orientations."""
     args = _flat(calls, "descriptors", 256)
     ours = tsift._descriptors(*args, CFG).numpy()
     theirs = _jax_descriptors(args, JCFG)
