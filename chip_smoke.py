@@ -29,6 +29,13 @@ Phases (any failure exits non-zero):
    kernel's launch, device time with the L2 flushed, bound and plain
    version (no single PyTorch call computes either); the base without
    the upsample (``upscale=False``) bit for bit; ptxas's report;
+   D. RANSAC's scoring (``ops.ransac``: every hypothesis of a chunk of
+   pairs against every correspondence, the first best and its mask) vs
+   the plain scorer, bit for bit (every count, the winner's homography
+   and mask), on the bench world's first chunk of pairs, recorded from
+   one eager match graph: the launch, the device time of its two
+   kernels with the L2 flushed, the bound and the plain version (no
+   single PyTorch call computes it); ptxas's report;
 4. kernel 2 (backward warp) vs its plain version at the bench's render
    layout, bit for bit with no mask flip: the launch with a prepared
    plan, the prepare step (host), the device time per launch, the bound
@@ -40,7 +47,8 @@ Phases (any failure exits non-zero):
    (replays), per-stage seconds, peak device memory (allocated, and
    reserved by where the allocator keeps it), kernel launch
    counts (the warm run's are the main path's: SIFT's front end 4 and
-   12, its tail 36, 4 and 4 inside the replays), three more warm runs'
+   12, its tail 36, 4 and 4 inside the replays, RANSAC's scoring once
+   a chunk of pairs, as in 3 D), three more warm runs'
    stage seconds, registration accuracy against the synthetic ground
    truth, and a cached re-run; SIFT's extraction and the match graph
    replayed against the same steps run eagerly (features and match rows
@@ -53,9 +61,9 @@ Phases (any failure exits non-zero):
 6. profile: one more uncached run of the main path under
    ``torch.profiler``: device busy time, the device's idle share, the
    device operations that take the most time, and the kernels' entries;
-   the launches of the octave kernel and of SIFT's front end and tail in
-   the profile (inside the replays) equal to their counts, the front
-   end's 4 and 12, the tail's 36, 4 and 4;
+   the launches of the octave kernel, of SIFT's front end and tail and
+   of RANSAC's scoring in the profile (inside the replays) equal to
+   their counts, the front end's 4 and 12, the tail's 36, 4 and 4;
 7. render options, each path with the kernel counts set to 0 just
    before it and read just after:
    B. ``-e -c --warp pallas`` on the bench views at known per-view
@@ -81,7 +89,8 @@ Phases (any failure exits non-zero):
       bundle adjustment's gate, LM iterations; a registered run's cached
       re-run must be identical) and the gates are on what no draw
       changes: the native library loaded (SSC runs there), the
-      extraction's counts, and every truly overlapping pair joined by an
+      extraction's counts, no SIFT kernel launched and RANSAC's scoring
+      launched, and every truly overlapping pair joined by an
       edge with enough inliers whose homography gives the true relative
       rotation; then the extraction alone on the 15 full-size bench
       views (seconds, counts, SSC's share), the top device operations
@@ -321,7 +330,12 @@ PROFILED = {"octave_stack": "octave_stack_kernel",
             "sift_small_octave": "p360_sift_small_octave_kernel",
             "sift_refine": "p360_sift_refine_kernel",
             "sift_orient": "p360_sift_orient_kernel",
-            "sift_descr": "p360_sift_descr_kernel"}
+            "sift_descr": "p360_sift_descr_kernel",
+            "ransac_score": "p360_ransac_score_kernel"}
+# RANSAC's scoring: (wrapper, kernel and count name, source, the JAX
+# computation replaced)
+RANSAC_LINE = ("score", "ransac_score", "ransac_score.cu",
+               "pano360_tpu/match.py:245-250 (XLA fusion)")
 # the orientation kernel's block design, which the dense mode's 80x80
 # patches take (phase 9 B; counted as sift_orient)
 BLOCK_ORIENT_KERNEL = "p360_sift_orient_block_kernel"
@@ -476,6 +490,56 @@ def phase_sift_front(torch, u8):
     return out
 
 
+def phase_ransac(torch, u8):
+    """3 D: RANSAC's scoring kernel vs the plain scorer on the bench
+    world's first chunk of pairs, recorded from one eager match graph:
+    every hypothesis's count, the winner's homography and its mask bit
+    for bit; the launch (CUDA events), the device time of its two
+    kernels with the L2 flushed (``torch.profiler``), the bound and the
+    plain version; no single PyTorch call computes it (library null).
+    -> (dict for the kernels line, the match graph's chunks)."""
+    from pano360_tpu_torch import _kernels, pipeline
+    from pano360_tpu_torch.measure import alternate, device_ms, recording
+    from pano360_tpu_torch.ops import ransac as R
+    dev = torch.device("cuda")
+    _, feats = pipeline.upload_extract(u8, dev, capture=False)
+    _, kp, ds, va, _ = pipeline.sift_buffers(u8, feats)
+    with recording(R, ("score",)) as calls:
+        pipeline.match_graph(kp, ds, va, capture=False)
+    torch.cuda.synchronize()
+    chunks = len(calls["score"])
+    args = calls["score"][0][0]
+    b, k, m = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+    got, want = R.score_counts(*args), R.score_ref(*args)
+    same = all(bits_equal(torch, a, c) for a, c in zip(got, want))
+    # a pair whose winner is not finite (a pair with no valid point)
+    # carries its NaNs in both
+    err = max_abs(torch, [torch.nan_to_num(got[0])],
+                  [torch.nan_to_num(want[0])])
+    n_best = int(want[2].max(-1).values.sum())
+    del got, want, calls
+    tp, tk = alternate(lambda: R.score_ref(*args), lambda: R.score(*args),
+                       REPS)
+    td = {part: device_ms(lambda: R.score(*args), f"p360_ransac_{part}",
+                          REPS, flush=True) for part in ("score", "select")}
+    cost = R.ransac_score_cost(b, k, m)
+    log(f"  score, first of {chunks} chunks (B {b}, K {k}, M {m}): bit for "
+        f"bit {same} (max|d| {err}; winners' inliers {n_best}); kernel "
+        f"{tk:.4f} ms, device {td['score']:.4f} + {td['select']:.4f} ms "
+        f"with the L2 flushed, bound {cost['bound_ms']:.5f} ms "
+        f"({cost['bound_by']}: {cost['bytes']} bytes, {cost['flops']} "
+        f"operations), plain {tp:.3f} ms")
+    check(same, f"3 D: the scoring kernel differs from the plain scorer "
+          f"(max|d| {err})")
+    log("  ptxas -v:" + "\n    ".join([""] + [
+        ln.strip() for ln in _kernels.build_log("ransac_score").splitlines()
+        if ": Used" in ln or "spill" in ln]))
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=tk, device_ms=td["score"] + td["select"],
+                plain_ms=tp, bound_ms=cost["bound_ms"],
+                bound_by=cost["bound_by"], library_ms=None), chunks
+
+
 def hold_tail_call(torch, name, args, kw, device_name, phase):
     """One recorded call of a SIFT tail wrapper against its plain version:
     bit for bit (fails otherwise), the launch and the plain version in
@@ -627,12 +691,13 @@ def registration_errors(regs, rots, focal):
 def counters():
     """{kernel: what counts its launches}."""
     from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops import ransac as R
     from pano360_tpu_torch.ops import sift_front as F
     from pano360_tpu_torch.ops import sift_tail as T
     from pano360_tpu_torch.ops import warp_kernel as W
     from pano360_tpu_torch.ops import warp_mip as M
     return {"octave_stack": G, "backward_warp": W, "backward_warp_mip": M,
-            **{c.name: c for c in F.COUNTS + T.COUNTS}}
+            **{c.name: c for c in F.COUNTS + T.COUNTS + R.COUNTS}}
 
 
 def reset_counts():
@@ -644,7 +709,7 @@ def counts() -> dict:
     return {k: c.launches for k, c in counters().items()}
 
 
-def phase_slice(torch, u8, rots, focal):
+def phase_slice(torch, u8, rots, focal, chunks):
     from pano360_tpu_torch import cli
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     runs = {}
@@ -685,6 +750,8 @@ def phase_slice(torch, u8, rots, focal):
     check(all(launches[k] == v for k, v in FRONT_LAUNCHES.items()),
           f"SIFT's front end on the main path: {launches}, not "
           f"{FRONT_LAUNCHES}")
+    check(launches["ransac_score"] == chunks, f"RANSAC's scoring on the "
+          f"main path: {launches['ransac_score']}, not {chunks} chunks")
     for rep in range(3):
         cache = os.path.join(work, f"again{rep}")
         os.makedirs(cache)
@@ -1093,9 +1160,12 @@ def msop_run(torch, label, u8, rots, focal, seed):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = counts()
-    sift = {k: v for k, v in launches.items() if "warp" not in k}
+    sift = {k: v for k, v in launches.items()
+            if "warp" not in k and k != "ransac_score"}
     check(not any(sift.values()), f"A, {label}: MSOP ran SIFT's kernels: "
           f"{sift}")
+    check(launches["ransac_score"] > 0, f"A, {label}: MSOP's match graph "
+          f"did not score RANSAC on the card: {launches}")
     check(os.path.exists(os.path.join(cache, "matches_bench_s1.0.npz")),
           f"A, {label}, seed {seed}: no match graph: {error!r}")
     ba = os.path.join(cache, "ba_bench_s1.0.pkl")
@@ -1615,10 +1685,13 @@ def main():
     tail = phase_sift_tail(torch, u8)
     log("phase 3 C: SIFT's front end, two kernels vs plain")
     front = phase_sift_front(torch, u8)
+    log("phase 3 D: RANSAC's scoring kernel vs plain")
+    score, chunks = phase_ransac(torch, u8)
     log("phase 4: backward_warp kernel vs plain")
     k2 = phase_warp(u8, rots, focal)
     log("phase 5: CLI main path on the bench dataset")
-    launches, warm_s, cache5, ref5 = phase_slice(torch, u8, rots, focal)
+    launches, warm_s, cache5, ref5 = phase_slice(torch, u8, rots, focal,
+                                                 chunks)
     log("phase 6: profile of one more main-path run")
     phase_profile(torch, u8, warm_s)
     log("phase 7 B: render options")
@@ -1663,6 +1736,10 @@ def main():
                                           "library_ms", "device_ms")})
          for rows, line in ((front, SIFT_FRONT_LINE), (tail, SIFT_TAIL_LINE))
          for fn, kernel, src, replaces in line] + [
+        dict(name=RANSAC_LINE[1], route="cuda",
+             source=f"pano360_tpu_torch/csrc/{RANSAC_LINE[2]}",
+             replaces=RANSAC_LINE[3], launches=launches[RANSAC_LINE[1]],
+             **score),
         dict(name="sift_orient_block", route="cuda",
              source="pano360_tpu_torch/csrc/sift_orient.cu",
              replaces="pano360_tpu/features/sift.py:594 and :635 (XLA "

@@ -101,6 +101,11 @@ _SIGNATURES = {
         "p360_sift_small_octave": [_P] * 5 + [_I] * 3 + [_P, _P, _I, _F,
                                                          _F, _I, _P],
     },
+    "ransac_score": {
+        # homs, p1, p2, valid, part, best, mask, counts (or null), b, k,
+        # m, thresh^2, stream
+        "p360_ransac_score": [_P] * 8 + [_I, _I, _I, _F, _P],
+    },
     "backward_warp_mip": {
         # launch scalars (host), level_ptrs (host), origins, params,
         # patches, invalid, stream

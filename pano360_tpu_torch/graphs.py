@@ -33,12 +33,12 @@ from pano360_tpu_torch import profiling
 
 def _kernel_counters():
     """What counts the port's kernels' launches, each in ``launches``:
-    the modules of one kernel each, and SIFT's front end's and tail's
-    counts."""
-    from pano360_tpu_torch.ops import (gauss_octave, sift_front, sift_tail,
-                                       warp_kernel, warp_mip)
+    the modules of one kernel each, and SIFT's front end's and tail's and
+    RANSAC's scoring's counts."""
+    from pano360_tpu_torch.ops import (gauss_octave, ransac, sift_front,
+                                       sift_tail, warp_kernel, warp_mip)
     return ((gauss_octave, warp_kernel, warp_mip) + sift_front.COUNTS
-            + sift_tail.COUNTS)
+            + sift_tail.COUNTS + ransac.COUNTS)
 
 
 class Launches:

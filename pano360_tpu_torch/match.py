@@ -29,6 +29,7 @@ import torch
 
 from pano360_tpu_torch import graphs, profiling
 from pano360_tpu_torch.geometry import inv3x3
+from pano360_tpu_torch.ops import ransac
 
 LOWE_RATIO = 0.7
 N_MIN_MATCH = 8
@@ -118,21 +119,6 @@ def hom_from_4pts(p1, p2):
     return hom / z[..., None, None]
 
 
-def _reproj_errors(hom, p1, p2):
-    """Squared forward reprojection error; hom (..., 3, 3) broadcasts
-    against points (..., M, 2)."""
-    h = hom[..., None, :, :]
-    x, y = p1[..., 0], p1[..., 1]
-    u = h[..., 0, 0] * x + h[..., 0, 1] * y + h[..., 0, 2]
-    v = h[..., 1, 0] * x + h[..., 1, 1] * y + h[..., 1, 2]
-    w = h[..., 2, 0] * x + h[..., 2, 1] * y + h[..., 2, 2]
-    okw = torch.abs(w) > 1e-12
-    inv_w = torch.where(okw, 1.0 / w, 0.0)
-    du = u * inv_w - p2[..., 0]
-    dv = v * inv_w - p2[..., 1]
-    return torch.where(okw, du * du + dv * dv, torch.inf)
-
-
 def _refit_system(p1, p2, w):
     """The weighted normalized DLT system of ``refit_homography``: ->
     (t1, t2, A^T W A (B, 9, 9), bad (B,)). A pair without inliers has no
@@ -213,7 +199,8 @@ def _gather_rows(a, idx):
 
 
 def _hypotheses(p1, p2, valid, draws, thresh: float):
-    """RANSAC's parallel hypotheses over B pairs: -> (the best one (B, 3,
+    """RANSAC's parallel hypotheses over B pairs, scored by
+    ``ops.ransac.score`` (its kernel on a card): -> (the best one (B, 3,
     3), its inlier mask (B, M))."""
     bsz, m = valid.shape
     dev = p1.device
@@ -226,19 +213,13 @@ def _hypotheses(p1, p2, valid, draws, thresh: float):
     s1 = _gather_rows(p1, sample_idx)                     # (B, K, 4, 2)
     s2 = _gather_rows(p2, sample_idx)
     homs = hom_from_4pts(s1, s2)                          # (B, K, 3, 3)
-    errs = _reproj_errors(homs, p1[:, None], p2[:, None])  # (B, K, M)
-    inl = (errs < thresh * thresh) & valid[:, None, :]
-    finite = torch.isfinite(homs.reshape(homs.shape[:2] + (9,))).all(-1)
-    counts = torch.where(finite, inl.sum(-1), 0)
-    best = torch.argmax(counts, dim=-1)
-    ar = torch.arange(bsz, device=dev)
-    return homs[ar, best], inl[ar, best]
+    return ransac.score(homs, p1, p2, valid, thresh)
 
 
 def _final_inliers(p1, p2, valid, hom, best_hom, best_inl, thresh: float):
     """The refit's inliers, or the best hypothesis and its inliers where
     the refit is not finite: -> (hom, inlier mask, n_inliers)."""
-    final_inl = (_reproj_errors(hom, p1, p2) < thresh * thresh) & valid
+    final_inl = (ransac.reproj_errors(hom, p1, p2) < thresh * thresh) & valid
     ok = torch.isfinite(hom.reshape(-1, 9)).all(-1)
     hom = torch.where(ok[:, None, None], hom, best_hom)
     final_inl = torch.where(ok[:, None], final_inl, best_inl)

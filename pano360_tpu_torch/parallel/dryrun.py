@@ -49,13 +49,14 @@ def pipeline(mesh, imgs: List[np.ndarray], device="cuda",
     the peak device memory)."""
     from pano360_tpu_torch import render
     from pano360_tpu_torch.ops import gauss_octave as G
+    from pano360_tpu_torch.ops import ransac as R
     from pano360_tpu_torch.ops import sift_front as F
     from pano360_tpu_torch.ops import sift_tail as T
     from pano360_tpu_torch.ops import warp_kernel as W
     from pano360_tpu_torch.pipeline import idx_to_keypoints, matching
     from pano360_tpu_torch.register import traverse
     dev = torch.device(device) if mesh is None else mesh.device
-    counts = F.COUNTS + T.COUNTS
+    counts = F.COUNTS + T.COUNTS + R.COUNTS
     for c in (G, W) + counts:
         c.launches = 0
     if dev.type == "cuda":

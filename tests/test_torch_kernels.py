@@ -1018,3 +1018,221 @@ def test_sift_front_kernels_reject_bad_input():
         F.small_octave(gray[:, ::2], S.SiftConfig())
     with pytest.raises(ValueError, match="float32"):
         F.small_octave(gray[0], S.SiftConfig())
+
+
+# ---------------------------------------------------------------------------
+# RANSAC's scoring: the wrapper on the CPU, the plain rules, the kernel
+# ---------------------------------------------------------------------------
+
+def _ransac_inputs(b, k, m, seed=0, outliers=0.4, degenerate=8):
+    """A chunk's scoring inputs on the CPU: per pair a homography near a
+    turn about the optical axis, p2 its image of p1 with 1-px noise and a
+    share of outliers, 80 % of the points valid, and K hypotheses from
+    4-point samples (``match.hom_from_4pts``), the first ``degenerate``
+    of each pair from samples with a repeated point (non-finite)."""
+    from pano360_tpu_torch import match as pm
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g)
+    p1 = (rand(b, m, 2) - 0.5) * 1200
+    th = (rand(b) - 0.5) * 0.4
+    hom = torch.zeros((b, 3, 3))
+    hom[:, 0, 0], hom[:, 0, 1] = torch.cos(th), -torch.sin(th)
+    hom[:, 1, 0], hom[:, 1, 1] = torch.sin(th), torch.cos(th)
+    hom[:, :2, 2] = (rand(b, 2) - 0.5) * 400
+    hom[:, 2, :2] = (rand(b, 2) - 0.5) * 2e-4
+    hom[:, 2, 2] = 1.0
+    ph = torch.cat([p1, torch.ones((b, m, 1))], -1) @ hom.transpose(-1, -2)
+    p2 = ph[..., :2] / ph[..., 2:] + torch.randn((b, m, 2), generator=g)
+    out = rand(b, m) < outliers
+    p2 = torch.where(out[..., None], (rand(b, m, 2) - 0.5) * 1200, p2)
+    valid = rand(b, m) < 0.8
+    draws = torch.randint(0, m, (b, k, 4), generator=g)
+    draws[:, :degenerate, 1] = draws[:, :degenerate, 0]
+    pick = draws.reshape(b, -1)[..., None].expand(-1, -1, 2)
+    s1 = torch.gather(p1, 1, pick).reshape(b, k, 4, 2)
+    s2 = torch.gather(p2, 1, pick).reshape(b, k, 4, 2)
+    return (pm.hom_from_4pts(s1, s2).contiguous(), p1.contiguous(),
+            p2.contiguous(), valid.contiguous())
+
+
+def test_ransac_score_cpu_takes_plain_version():
+    from pano360_tpu_torch.ops import ransac as R
+    homs, p1, p2, valid = _ransac_inputs(3, 64, 100)
+    before = R.SCORE.launches
+    best, mask = R.score(homs, p1, p2, valid, 3.0)
+    ref = R.score_ref(homs, p1, p2, valid, 3.0)
+    assert torch.equal(best, ref[0]) and torch.equal(mask, ref[1])
+    assert R.SCORE.launches == before
+    assert int(ref[2].max()) > 20 and int(mask.sum()) > 60
+
+
+@pytest.mark.parametrize("case", ["device", "dtype", "contiguity", "p2 shape",
+                                  "valid dtype", "hom shape", "no points"])
+def test_ransac_score_rejects_bad_input(case):
+    from pano360_tpu_torch.ops import ransac as R
+    homs, p1, p2, valid = _ransac_inputs(2, 16, 40)
+    args = dict(homs=homs, p1=p1, p2=p2, valid=valid)
+    if case == "device":
+        args = {k: v.to("meta") for k, v in args.items()}
+    elif case == "dtype":
+        args["homs"] = homs.double()
+    elif case == "contiguity":
+        args["p1"] = torch.cat([p1, p1], -1)[..., ::2]
+    elif case == "p2 shape":
+        args["p2"] = p2[:, :-1].contiguous()
+    elif case == "valid dtype":
+        args["valid"] = valid.to(torch.uint8)
+    elif case == "hom shape":
+        args["homs"] = homs.reshape(2, 16, 9)
+    else:
+        args.update(p1=p1[:, :0], p2=p2[:, :0], valid=valid[:, :0])
+    want = {"device": "unsupported device", "no points": "at least one"}
+    with pytest.raises(ValueError, match=want.get(case, "must be")):
+        R.score(args["homs"], args["p1"], args["p2"], args["valid"], 3.0)
+
+
+def _scored_rule_case(case):
+    """Hypotheses of one pair whose winner a rule of the plain scorer
+    decides: -> (homs, p1, p2, valid, the winning index, its count)."""
+    m = 50
+    p1 = torch.arange(2 * m, dtype=torch.float32).reshape(1, m, 2)
+    p2 = p1 + 1.0                      # the translation by (1, 1)
+    valid = torch.ones((1, m), dtype=torch.bool)
+    shift = torch.eye(3).repeat(1, 6, 1, 1)
+    shift[..., :2, 2] = 1.0
+    homs = torch.eye(3).repeat(1, 6, 1, 1)    # identity: error 2 < 9
+    homs[0, :, 0, 2] = torch.tensor([9.0, 9.0, 9.0, 9.0, 9.0, 9.0])
+    if case == "ties":                 # 2 and 4 score every point
+        homs[0, 2], homs[0, 4] = shift[0, 0], shift[0, 0]
+        return homs, p1, p2, valid, 2, m
+    if case == "non-finite":           # 1 would score every point
+        homs[0, 1] = shift[0, 0]
+        homs[0, 1, 2, 0] = torch.inf
+        homs[0, 3] = shift[0, 0]
+        homs[0, 3, 0, 2] = 1.5         # error 0.25: every point
+        homs[0, 5] = shift[0, 0]
+        homs[0, 5, 2, 2] = torch.nan
+        return homs, p1, p2, valid, 3, m
+    valid[:] = False                   # nothing scores: index 0
+    homs[0, 3] = shift[0, 0]
+    return homs, p1, p2, valid, 0, 0
+
+
+@pytest.mark.parametrize("case", ["ties", "non-finite", "nothing"])
+def test_ransac_score_plain_rules(case):
+    """The rules the kernel reproduces: the first index of the largest
+    count wins, a hypothesis with a non-finite entry counts 0, and index
+    0 wins when nothing scores."""
+    from pano360_tpu_torch.ops import ransac as R
+    homs, p1, p2, valid, win, n = _scored_rule_case(case)
+    best, mask, counts = R.score_counts(homs, p1, p2, valid, 3.0)
+    assert int(torch.argmax(counts[0])) == win and int(counts[0, win]) == n
+    assert torch.equal(best[0], homs[0, win]) and int(mask.sum()) == n
+    if case == "non-finite":
+        assert int(counts[0, 1]) == 0 and int(counts[0, 5]) == 0
+    if case == "nothing":
+        assert not counts.any()
+
+
+def _hold_ransac(homs, p1, p2, valid, thresh=3.0):
+    """The kernel against the plain scorer on the card: every count, the
+    winner's homography (bits) and its mask."""
+    from pano360_tpu_torch.ops import ransac as R
+    dev = _cuda()
+    args = [t.to(dev) for t in (homs, p1, p2, valid)]
+    before = R.SCORE.launches
+    got = R.score_counts(*args, thresh)
+    want = R.score_ref(*args, thresh)
+    assert R.SCORE.launches == before + 1
+    assert torch.equal(got[2], want[2])
+    assert _bits(got[0], want[0]) and torch.equal(got[1], want[1])
+    best, mask = R.score(*args, thresh)
+    assert _bits(best, want[0]) and torch.equal(mask, want[1])
+    return want[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k,m", [(16, 2048, 2048), (4, 2048, 4096),
+                                   (3, 2048, 64), (2, 2048, 1000),
+                                   (5, 300, 1000), (1, 1, 1)])
+def test_ransac_score_kernel_matches_plain_on_card(b, k, m):
+    counts = _hold_ransac(*_ransac_inputs(b, k, m, seed=b * k + m,
+                                          degenerate=min(8, k - 1)))
+    assert m < 8 or int(counts.max()) > 0.2 * m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ties", "non-finite", "nothing"])
+def test_ransac_score_kernel_rules_on_card(case):
+    homs, p1, p2, valid, win, n = _scored_rule_case(case)
+    counts = _hold_ransac(homs, p1, p2, valid)
+    assert int(torch.argmax(counts[0])) == win and int(counts[0, win]) == n
+
+
+@pytest.mark.gpu
+def test_ransac_score_kernel_ties_and_invalid_pair_on_card():
+    """Copies of each pair's hypotheses at later indices (ties at every
+    count), one pair with no valid point, non-finite hypotheses spread
+    over the tiles."""
+    homs, p1, p2, valid = _ransac_inputs(4, 1024, 700, seed=11)
+    homs = torch.cat([homs, homs.flip(1)], 1).contiguous()
+    valid[2] = False
+    homs[:, 300:2048:97, 1, 1] = torch.nan
+    homs[:, 5:2048:131, 2, 0] = -torch.inf
+    counts = _hold_ransac(homs, p1, p2, valid)
+    assert not counts[2].any() and int(counts.max()) > 100
+
+
+@pytest.mark.gpu
+def test_ransac_score_kernel_at_the_w_guard_on_card():
+    """|w| at the guard, the float nearest 1e-12 (not above it: no point
+    counts) and the next float up (every point an inlier), either sign,
+    with p2 where the hypothesis sends p1."""
+    dev = _cuda()
+    c0 = np.float32(1e-12)
+    ws = [c0, np.nextafter(c0, np.float32(1)), -c0,
+          -np.nextafter(c0, np.float32(1)), np.nextafter(c0, np.float32(0))]
+    m = 300
+    p1 = (torch.rand((1, m, 2), generator=torch.Generator().manual_seed(2))
+          - 0.5) * 100
+    for w in ws:
+        homs = torch.eye(3).repeat(1, 4, 1, 1)
+        homs[0, 1, 2, 2] = float(w)
+        p2 = (p1.to(dev) * (1.0 / torch.tensor(float(w), device=dev)))
+        valid = torch.ones((1, m), dtype=torch.bool)
+        counts = _hold_ransac(homs, p1, p2.cpu(), valid)
+        above = abs(float(w)) > float(c0)
+        assert int(counts[0, 1]) == (m if above else 0), (w, counts)
+
+
+@pytest.mark.gpu
+def test_match_graph_kernel_equals_plain_eager_on_card(monkeypatch):
+    """A world of ``cmu2_15x1mp``'s shape (15 views of 864x1152, overlap
+    0.45) through ``match_all_pairs`` replayed (the kernel) against the
+    same steps run eagerly with the plain scorer, on the same uniforms:
+    every row bit for bit (``idx``, ``inlier``, ``hom``, ``n_inliers``,
+    ``ok``); one kernel call a chunk in a replay."""
+    from pano360_tpu_torch import pipeline
+    from pano360_tpu_torch.ops import ransac as R
+    dev = _cuda()
+    imgs, _, _ = synth.make_views(n_views=15, shape=(864, 1152),
+                                  overlap=0.45, seed=42)
+    u8 = [(im * 255).astype(np.uint8) for im in imgs]
+    _, feats = pipeline.upload_extract(u8, dev)
+    _, kp, ds, va, _ = pipeline.sift_buffers(u8, feats)
+    cap = kp.shape[1]
+    chunks = -(-105 // max(1, min(16, (1 << 28) // (cap * cap * 4))))
+    kernel = pipeline.match_graph(kp, ds, va, seed=5)
+    before = R.SCORE.launches
+    again = pipeline.match_graph(kp, ds, va, seed=5)
+    assert R.SCORE.launches - before == chunks
+    monkeypatch.setattr(R, "score",
+                        lambda *a: R.score_ref(*a)[:2])
+    plain = pipeline.match_graph(kp, ds, va, seed=5, capture=False)
+    assert R.SCORE.launches - before == chunks
+    for a, b, c in zip(kernel, again, plain):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert a.tobytes() == b.tobytes() == c.tobytes()
+    assert int(kernel.ok.sum()) >= 14
