@@ -48,7 +48,8 @@ Phases (any failure exits non-zero):
    reserved by where the allocator keeps it), kernel launch
    counts (the warm run's are the main path's: SIFT's front end 4 and
    12, its tail 36, 4 and 4 inside the replays, RANSAC's scoring once
-   a chunk of pairs, as in 3 D), three more warm runs'
+   a chunk of pairs, as in 3 D; neither the mip warp nor the
+   orientation's block design), three more warm runs'
    stage seconds, registration accuracy against the synthetic ground
    truth, and a cached re-run; SIFT's extraction and the match graph
    replayed against the same steps run eagerly (features and match rows
@@ -64,8 +65,8 @@ Phases (any failure exits non-zero):
    the launches of the octave kernel, of SIFT's front end and tail and
    of RANSAC's scoring in the profile (inside the replays) equal to
    their counts, the front end's 4 and 12, the tail's 36, 4 and 4;
-7. render options, each path with the kernel counts set to 0 just
-   before it and read just after:
+7. render options, each path with the kernel counts
+   (``_kernels.LAUNCHES``) set to 0 just before it and read just after:
    B. ``-e -c --warp pallas`` on the bench views at known per-view
       exposures (cold and warm, uncached): 15 of 15 placed, the
       recovered gain ratios of adjacent views, the mip plan (``ok``,
@@ -132,8 +133,9 @@ Phases (any failure exits non-zero):
       beside the grid descriptor's (time, peak memory): the same
       keypoints, descriptors of unit norm; the CLI with
       ``PANO_SIFT_DESCR=dense`` registers within phase 5's bounds and
-      launches the orientation kernel (its launches are the block
-      design's in the kernels line) but not the grid descriptor's; one
+      launches the orientation kernel's block design
+      (``sift_orient_block``, its launches in the kernels line) but not
+      the grid descriptor; one
       ``upscale=False`` extraction (keypoints, time);
 10. the kernels line.
 
@@ -142,7 +144,7 @@ uniform sizes, to its uniform branch on the bench stack (within 1e-6;
 they are not bit-equal on the card).
 
 Times: CUDA events over ``REPS`` calls (a warp's and ``grid_sample``'s
-over ``measure.WARP_REPS``), kernel and plain version in turns; a
+over 50), kernel and plain version in turns; a
 warp's ``ms`` is its launch with a prepared plan, its
 ``device_ms`` the kernel alone (``torch.profiler``, the L2 flushed
 before each launch, so that the bound's device-memory rate applies;
@@ -323,6 +325,9 @@ SIFT_FRONT = tuple(row[0] for row in SIFT_FRONT_LINE)
 # the base once per upload batch (4), each of the 3 small octaves (6-8)
 # once per batch
 FRONT_LAUNCHES = dict(sift_base=4, sift_small_octave=12)
+# the kernels the default path does not take: the mip warp (``--warp
+# pallas``) and the orientation's block design (``descr_mode='dense'``)
+OFF_MAIN_PATH = ("backward_warp_mip", "sift_orient_block")
 # device names of the kernels whose launches phase 6 holds to the profile
 # (the orientation's: its grid design, a warp per keypoint)
 PROFILED = {"octave_stack": "octave_stack_kernel",
@@ -688,29 +693,9 @@ def registration_errors(regs, rots, focal):
         rel_rot_errors_deg(regs, rots)
 
 
-def counters():
-    """{kernel: what counts its launches}."""
-    from pano360_tpu_torch.ops import gauss_octave as G
-    from pano360_tpu_torch.ops import ransac as R
-    from pano360_tpu_torch.ops import sift_front as F
-    from pano360_tpu_torch.ops import sift_tail as T
-    from pano360_tpu_torch.ops import warp_kernel as W
-    from pano360_tpu_torch.ops import warp_mip as M
-    return {"octave_stack": G, "backward_warp": W, "backward_warp_mip": M,
-            **{c.name: c for c in F.COUNTS + T.COUNTS + R.COUNTS}}
-
-
-def reset_counts():
-    for c in counters().values():
-        c.launches = 0
-
-
-def counts() -> dict:
-    return {k: c.launches for k, c in counters().items()}
-
-
 def phase_slice(torch, u8, rots, focal, chunks):
     from pano360_tpu_torch import cli
+    from pano360_tpu_torch._kernels import LAUNCHES
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     runs = {}
     walls = {}
@@ -722,15 +707,15 @@ def phase_slice(torch, u8, rots, focal, chunks):
              "--cache-dir", cache])
         timer = cli.StageTimer()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
         t0 = time.time()
         mosaic = cli.run_images(u8, args, "bench_s1.0", timer)
         torch.cuda.synchronize()
         total = time.time() - t0
         walls[label] = total
-        launches = counts()
-        check(launches.pop("backward_warp_mip") == 0,
-              "the default path took the mip warp")
+        launches = dict(LAUNCHES)
+        off = {k: launches.pop(k) for k in OFF_MAIN_PATH}
+        check(not any(off.values()), f"the default path took {off}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         reserved = torch.cuda.max_memory_reserved() / 2 ** 30
         stages = {k: round(v, 4) for k, v in timer.stages.items()}
@@ -952,15 +937,16 @@ def run_cli(torch, imgs, flags, cache, label, timer=None):
     """One ``cli.run_images`` with every kernel count set to 0 just
     before it: -> (mosaic, {kernel: launches}, seconds)."""
     from pano360_tpu_torch import cli
+    from pano360_tpu_torch._kernels import LAUNCHES
     args = cli.build_parser().parse_args([cache, *flags, "--cache-dir",
                                           cache])
     timer = timer or cli.StageTimer()
-    reset_counts()
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     t0 = time.time()
     mosaic = cli.run_images(imgs, args, "bench_s1.0", timer)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = counts()
+    launches = dict(LAUNCHES)
     stages = {k: round(v, 4) for k, v in timer.stages.items()}
     log(f"  {label}: {' '.join(flags)}: {wall:.3f} s; stages {stages}; "
         f"launches {launches}; mosaic {mosaic.shape}")
@@ -1145,12 +1131,13 @@ def msop_run(torch, label, u8, rots, focal, seed):
     (non-finite cameras end in the SVD of the next add or in the
     render)."""
     from pano360_tpu_torch import cli
+    from pano360_tpu_torch._kernels import LAUNCHES
     cache = tempfile.mkdtemp(prefix="chip_smoke_msop_")
     flags = BASE_FLAGS + ["--detector", "msop", "--seed", str(seed)]
     args = cli.build_parser().parse_args([cache, *flags, "--cache-dir",
                                           cache])
     timer = cli.StageTimer()
-    reset_counts()
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     mosaic = error = None
     t0 = time.time()
     try:
@@ -1159,7 +1146,7 @@ def msop_run(torch, label, u8, rots, focal, seed):
         error = exc
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = counts()
+    launches = dict(LAUNCHES)
     sift = {k: v for k, v in launches.items()
             if "warp" not in k and k != "ransac_score"}
     check(not any(sift.values()), f"A, {label}: MSOP ran SIFT's kernels: "
@@ -1441,8 +1428,9 @@ def mesh_run(torch, label, u8, ref, rots, focal, opts=(), extra=()):
             f"launches {r['launches']}; peak device memory "
             f"{r['peak_gib']:.2f} GiB")
     check(cmp["ok"], f"9 A, {label}: the mesh run differs: {cmp}")
-    check(all(v > 0 for r in res["ranks"] for v in r["launches"].values()),
-          f"9 A, {label}: a rank launched no kernel: "
+    check(all(v > 0 for r in res["ranks"] for k, v in r["launches"].items()
+              if k not in OFF_MAIN_PATH),
+          f"9 A, {label}: a rank did not launch every kernel: "
           f"{[r['launches'] for r in res['ranks']]}")
     f_err, r_err = cams_errors(res["cams"], rots, focal)
     log(f"  focal max rel err {f_err:.5f}; rel-rot err mean "
@@ -1479,7 +1467,7 @@ def phase_mesh(torch, u8, rots, focal, ref5):
     cache = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     mosaic, launches, _ = run_cli(torch, u8, BASE_FLAGS + ["--mesh", "2"],
                                   cache, "--mesh 2 on one GPU")
-    check(all(v > 0 for k, v in launches.items() if k != "backward_warp_mip"),
+    check(all(v > 0 for k, v in launches.items() if k not in OFF_MAIN_PATH),
           f"9 A: --mesh 2 on one GPU did not run in this process: "
           f"{launches}")
     check(mosaic.shape == ref5["mosaic"].shape,
@@ -1542,10 +1530,10 @@ def phase_dense(torch, u8, rots, focal):
                                  "PANO_SIFT_DESCR=dense", timer)
     finally:
         del os.environ["PANO_SIFT_DESCR"]
-    check(launches["sift_orient"] >= 1 and launches["sift_descr"] == 0,
-          f"9 B: under dense the orientation kernel runs and the grid "
-          f"descriptor's does not: {launches}")
-    block["launches"] = launches["sift_orient"]
+    check(launches["sift_orient_block"] >= 1 and launches["sift_descr"] == 0,
+          f"9 B: under dense the orientation kernel's block design runs and "
+          f"the grid descriptor does not: {launches}")
+    block["launches"] = launches["sift_orient_block"]
     regs = cli.load_ba_cache(os.path.join(cache, "ba_bench_s1.0.pkl"))
     f_err, r_err = registration_errors(regs, rots, focal)
     log(f"  {len(regs)} of {BENCH_VIEWS} placed; focal max rel err "
@@ -1568,28 +1556,19 @@ def phase_dense(torch, u8, rots, focal):
     return block
 
 
-def busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, -float("inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
 def phase_profile(torch, u8, warm_s: float):
     """One more uncached run of ``cli.run_images`` (the main path) under
     torch.profiler: each SIFT kernel's launches in the profile (all
     inside the replays) equal to its count."""
     from pano360_tpu_torch import cli
+    from pano360_tpu_torch._kernels import LAUNCHES
     cache = tempfile.mkdtemp(prefix="chip_smoke_prof_")
     args = cli.build_parser().parse_args(
         [cache, *BASE_FLAGS, "--cache-dir", cache])
-    reset_counts()
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     by_name = profile_device(
         torch, lambda: cli.run_images(u8, args, "bench_s1.0"), warm_s)
-    launches = counts()
+    launches = dict(LAUNCHES)
     if by_name is None:
         log(f"  launches counted {launches}; in the profile: not measured")
         return
@@ -1617,6 +1596,8 @@ def profile_device(torch, fn, warm_s=None):
     us, count)}, or None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from portbench.trace import busy_us
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()

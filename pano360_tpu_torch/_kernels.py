@@ -8,8 +8,11 @@ repository root and rebuilt when their source, the shared headers
 (``csrc/*.cuh``) or the flags change (a content hash names each file).
 
 Each C entry point takes raw device pointers, sizes and the CUDA stream
-and returns ``cudaGetLastError()`` after its launch; ``check`` turns a
-non-zero code into an exception. ``build_log`` returns what ``nvcc``
+and returns ``cudaGetLastError()`` after its launch. Every launch goes
+through ``launch``, which turns a non-zero code into an exception and
+counts the launch in ``LAUNCHES``, the one registry of kernel launches
+(``graphs.Launches`` adds a captured step's at each replay;
+``profiling.snapshot`` reports it). ``build_log`` returns what ``nvcc``
 (with ptxas's ``-v`` report of registers, shared memory and spills)
 printed when it built a library, kept in a ``.log`` file beside it.
 """
@@ -115,6 +118,14 @@ _SIGNATURES = {
 }
 
 
+_PREFIX = "p360_"
+# launches of every entry point since the process began, by its name
+# without the prefix: the wrappers count here, and nowhere else
+LAUNCHES: Dict[str, int] = {name[len(_PREFIX):]: 0
+                            for entries in _SIGNATURES.values()
+                            for name in entries}
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cand = os.path.join(home, "bin", "nvcc")
@@ -198,10 +209,14 @@ def lib() -> types.SimpleNamespace:
         return _LIB
 
 
-def check(code: int, name: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def launch(entry: str, *args) -> None:
+    """Call the kernel entry point ``entry`` (``p360_<name>``) of ``lib()``
+    with ``args``: raise if it returned a CUDA error code, else count one
+    launch in ``LAUNCHES[name]``."""
+    code = getattr(lib(), entry)(*args)
     if code != 0:
-        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+        raise RuntimeError(f"{entry}: CUDA error {code} at launch")
+    LAUNCHES[entry[len(_PREFIX):]] += 1
 
 
 def stream_ptr(device) -> int:
@@ -213,6 +228,6 @@ def stream_ptr(device) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-__all__ = ["build", "lib", "check", "stream_ptr", "library_path",
-           "build_log", "BUILD_DIR", "NVCC_FLAGS", "WarpView", "MipLaunch",
-           "MAX_LEVELS"]
+__all__ = ["build", "lib", "launch", "LAUNCHES", "stream_ptr",
+           "library_path", "build_log", "BUILD_DIR", "NVCC_FLAGS", "WarpView",
+           "MipLaunch", "MAX_LEVELS"]

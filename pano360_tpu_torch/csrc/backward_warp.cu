@@ -26,7 +26,7 @@
 // pixels' taps lie 5 texels apart, so a sector carries 1.4 used texels
 // of its two. At the 4000-px cap (~1x) every sector's two texels are
 // used and the kernel comes near its bound; at the bench layout it does
-// not, and `python -m pano360_tpu_torch.measure --warps` prints both
+// not, and `chip_smoke.py` phase 4 prints both at the bench layout
 // (device time with the L2 flushed, against the bound and the sector
 // count).
 //

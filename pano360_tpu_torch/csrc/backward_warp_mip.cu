@@ -23,8 +23,8 @@
 // flushed before each launch, the kernel reads its level from device
 // memory and the bound applies; in the render, build_mips writes the 20
 // MB level just before the launch, so the level is mostly in the 50 MB L2
-// and the launch takes less than that bound. `python -m
-// pano360_tpu_torch.measure --warps` prints both times.
+// and the launch takes less than that bound. `chip_smoke.py` phase 7 B
+// prints both times.
 //
 // The design: one block per 32x128 output tile of one region, the plan's
 // own unit. One thread loads the tile's (oy, ox, lvl), level base

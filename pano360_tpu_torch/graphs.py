@@ -14,56 +14,45 @@ stream, and each step's outputs are read or copied before another step
 of the pool replays: a later capture may place its buffers where an
 earlier one kept its temporaries.
 
-Kernel launches: a kernel's wrapper counts each launch in its module's
-``launches``, but a replay does not call the wrapper. ``Launches`` takes
-back what the wrappers counted while a step was captured (nothing ran
-then) and adds it again at each replay.
+Kernel launches: a kernel's wrapper counts each launch in
+``_kernels.LAUNCHES``, but a replay does not call the wrapper.
+``Launches`` takes back what the wrappers counted while a step was
+captured (nothing ran then) and adds it again at each replay.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict
 
 import numpy as np
 import torch
 
 from pano360_tpu_torch import profiling
-
-
-def _kernel_counters():
-    """What counts the port's kernels' launches, each in ``launches``:
-    the modules of one kernel each, and SIFT's front end's and tail's and
-    RANSAC's scoring's counts."""
-    from pano360_tpu_torch.ops import (gauss_octave, ransac, sift_front,
-                                       sift_tail, warp_kernel, warp_mip)
-    return ((gauss_octave, warp_kernel, warp_mip) + sift_front.COUNTS
-            + sift_tail.COUNTS + ransac.COUNTS)
+from pano360_tpu_torch._kernels import LAUNCHES
 
 
 class Launches:
-    """Kernel launches of a captured step, per replay."""
+    """Kernel launches of a captured step, per replay: {kernel: n}."""
 
-    def __init__(self, counters: Sequence):
-        self.counters = tuple(counters)
-        self.per_replay = [0] * len(self.counters)
+    def __init__(self):
+        self.per_replay: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def capturing(self):
         """Around a capture: records what the wrappers count inside, and
         takes it back."""
-        before = [c.launches for c in self.counters]
+        before = dict(LAUNCHES)
         try:
             yield
         finally:
-            self.per_replay = [c.launches - b
-                               for c, b in zip(self.counters, before)]
-            for c, b in zip(self.counters, before):
-                c.launches = b
+            self.per_replay = {k: n - before[k] for k, n in LAUNCHES.items()
+                               if n != before[k]}
+            LAUNCHES.update(before)
 
     def replayed(self):
-        for c, k in zip(self.counters, self.per_replay):
-            c.launches += k
+        for k, n in self.per_replay.items():
+            LAUNCHES[k] += n
 
 
 _STREAMS: Dict[int, torch.cuda.Stream] = {}
@@ -111,15 +100,15 @@ class Replayed:
     def __init__(self, fn: Callable[[dict], None], state: dict, pool=None):
         self.fn, self.state, self.pool, self.graph = fn, state, pool, None
         self.device = next(iter(state.values())).device
-        self.launches = Launches(_kernel_counters())
+        self.counted = Launches()
 
     def __call__(self):
         with torch.cuda.device(self.device):
             if self.graph is None:
                 self.graph = capture(self.fn, self.state, self.pool,
-                                     self.launches)
+                                     self.counted)
             self.graph.replay()
-        self.launches.replayed()
+        self.counted.replayed()
         profiling.count("graphs.replays")
 
 

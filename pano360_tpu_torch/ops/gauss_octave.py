@@ -22,7 +22,6 @@ import torch
 from pano360_tpu_torch import _kernels, graphs
 
 MAX_TAPS = 64          # per-layer tap capacity of the CUDA kernel
-launches = 0           # CUDA kernel launches (main-path evidence)
 
 # the card's peaks for the bound (NVIDIA H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -270,20 +269,10 @@ def _check_base(base: torch.Tensor, taps):
 def octave_stack(base: torch.Tensor, taps, score_cfg=None):
     """One octave: the CUDA kernel for a CUDA tensor, the plain version
     for a CPU tensor. ``score_cfg``: optional (thresh, edge_r, border)."""
-    global launches
     if base.device.type == "cpu":
         return octave_stack_ref(base, taps, score_cfg)
     if base.device.type != "cuda":
         raise ValueError(f"octave_stack: unsupported device {base.device}")
-    out = launch(_kernels.lib().p360_octave_stack, base, taps, score_cfg)
-    launches += 1
-    return out
-
-
-def launch(entry, base: torch.Tensor, taps, score_cfg=None):
-    """Run ``entry`` (a ``p360_octave_stack`` C entry point: this
-    package's, or another build of the source with the same interface)
-    on a CUDA base; allocates the outputs. Counts no launch."""
     c_taps, c_ksizes = _check_base(base, taps)
     n, h, w = base.shape
     nl = len(taps)
@@ -296,12 +285,11 @@ def launch(entry, base: torch.Tensor, taps, score_cfg=None):
         thresh, edge_r, border = score_cfg
         score = torch.empty((n, nl - 2, h, w), dtype=base.dtype,
                             device=base.device)
-    code = entry(
-        base.data_ptr(), gauss.data_ptr(), dog.data_ptr(),
-        score.data_ptr() if score is not None else None, n, h, w,
-        c_taps, c_ksizes, nl, float(thresh), float(edge_r), int(border),
-        _kernels.stream_ptr(base.device))
-    _kernels.check(code, "p360_octave_stack")
+    _kernels.launch(
+        "p360_octave_stack", base.data_ptr(), gauss.data_ptr(),
+        dog.data_ptr(), score.data_ptr() if score is not None else None, n,
+        h, w, c_taps, c_ksizes, nl, float(thresh), float(edge_r),
+        int(border), _kernels.stream_ptr(base.device))
     if score is None:
         return gauss, dog
     return gauss, dog, score

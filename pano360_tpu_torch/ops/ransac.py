@@ -16,9 +16,9 @@ allocated here, with no host sync, so that a CUDA graph captures it);
 another device raises. On the card the kernel equals the plain version
 bit for bit: every count, the winner, its homography and its mask (the
 error operation by operation, separate multiplies and adds, the IEEE
-reciprocal). ``COUNTS`` holds the calls (one a chunk of pairs; each
-launches both kernels); ``ransac_score_cost`` gives a call's least bytes
-and operations and its bound on an H100.
+reciprocal). ``_kernels.LAUNCHES["ransac_score"]`` counts the calls (one
+a chunk of pairs; each launches both kernels); ``ransac_score_cost``
+gives a call's least bytes and operations and its bound on an H100.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import torch
 
 from pano360_tpu_torch import _kernels
 from pano360_tpu_torch.ops.gauss_octave import bound
-from pano360_tpu_torch.ops.sift_tail import Count, _check, _on_card
+from pano360_tpu_torch.ops.sift_tail import _check, _on_card
 
 SPLIT = 256             # points a block of the score kernel takes (PTS)
 # f32 operations a (hypothesis, point) test: u, v and w (two multiplies
@@ -34,9 +34,6 @@ SPLIT = 256             # points a block of the score kernel takes (PTS)
 # multiply and a subtraction each), the squared error (two multiplies and
 # an add) and the threshold's compare
 TEST_OPS = 23
-
-SCORE = Count("ransac_score")
-COUNTS = (SCORE,)
 
 
 def reproj_errors(hom, p1, p2):
@@ -74,13 +71,11 @@ def _launch(homs, p1, p2, valid, thresh: float, counts: bool):
     mask = torch.empty((b, m), dtype=torch.bool, device=dev)
     cnt = (torch.empty((b, k), dtype=torch.int32, device=dev) if counts
            else None)
-    code = _kernels.lib().p360_ransac_score(
-        homs.data_ptr(), p1.data_ptr(), p2.data_ptr(), valid.data_ptr(),
-        part.data_ptr(), best.data_ptr(), mask.data_ptr(),
+    _kernels.launch(
+        "p360_ransac_score", homs.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+        valid.data_ptr(), part.data_ptr(), best.data_ptr(), mask.data_ptr(),
         None if cnt is None else cnt.data_ptr(), b, k, m,
         float(thresh) * float(thresh), _kernels.stream_ptr(dev))
-    _kernels.check(code, "p360_ransac_score")
-    SCORE.launches += 1
     return best, mask, cnt
 
 
@@ -128,4 +123,4 @@ def ransac_score_cost(b: int, k: int, m: int) -> dict:
 
 
 __all__ = ["score", "score_ref", "score_counts", "reproj_errors",
-           "ransac_score_cost", "COUNTS", "SPLIT", "TEST_OPS"]
+           "ransac_score_cost", "SPLIT", "TEST_OPS"]

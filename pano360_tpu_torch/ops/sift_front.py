@@ -24,9 +24,9 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 no host sync, so that a CUDA graph captures it); another device raises.
 On the card each kernel equals its plain version bit for bit: built with
 ``-fmad=false``, each sum begun with its first term and added in
-ascending tap order, as ``ops.filters.conv_axis`` does. ``COUNTS`` holds
-each kernel's launches; ``base_cost`` and ``small_octave_cost`` give a
-call's least bytes and operations and its bound on an H100.
+ascending tap order, as ``ops.filters.conv_axis`` does. Each launch
+counts in ``_kernels.LAUNCHES``; ``base_cost`` and ``small_octave_cost``
+give a call's least bytes and operations and its bound on an H100.
 """
 from __future__ import annotations
 
@@ -42,7 +42,6 @@ from pano360_tpu_torch.ops.filters import (blur_bhw, cv2_sift_ksize,
                                            gaussian_kernel1d)
 from pano360_tpu_torch.ops.gauss_octave import bound, chain_taps
 from pano360_tpu_torch.ops.resize import upsample2x_bilinear
-from pano360_tpu_torch.ops.sift_tail import Count
 
 BASE_MAX_TAPS = 31      # the base kernel's tap capacity (csrc/sift_base.cu)
 SMALL_MAX_TAPS = 63     # the small-octave kernel's, per layer
@@ -53,10 +52,6 @@ SMALL_MAX_LAYERS = 8
 # passes go through device memory
 SMALL_SMEM_PLANES = 6
 SMEM_MAX = 232448 - 4 * SMALL_MAX_LAYERS * SMALL_MAX_TAPS
-
-BASE = Count("sift_base")
-SMALL = Count("sift_small_octave")
-COUNTS = (BASE, SMALL)
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
@@ -112,11 +107,9 @@ def base_image(gray: torch.Tensor, cfg) -> torch.Tensor:
     up = 2 if cfg.upscale else 1
     out = torch.empty((n, up * h, up * w), dtype=torch.float32,
                       device=gray.device)
-    code = _kernels.lib().p360_sift_base(
-        gray.data_ptr(), out.data_ptr(), n, h, w, int(cfg.upscale), taps, k,
-        _kernels.stream_ptr(gray.device))
-    _kernels.check(code, "p360_sift_base")
-    BASE.launches += 1
+    _kernels.launch(
+        "p360_sift_base", gray.data_ptr(), out.data_ptr(), n, h, w,
+        int(cfg.upscale), taps, k, _kernels.stream_ptr(gray.device))
     return out
 
 
@@ -169,12 +162,11 @@ def small_octave(base: torch.Tensor, cfg):
     scratch = None if small_octave_in_shared(h, w) else torch.empty(
         (n, h, w), dtype=torch.float32, device=dev)
     thresh, edge_r, border = score_cfg(cfg)
-    code = _kernels.lib().p360_sift_small_octave(
-        base.data_ptr(), gauss.data_ptr(), dog.data_ptr(), score.data_ptr(),
+    _kernels.launch(
+        "p360_sift_small_octave", base.data_ptr(), gauss.data_ptr(),
+        dog.data_ptr(), score.data_ptr(),
         None if scratch is None else scratch.data_ptr(), n, h, w, taps,
         ksizes, nl, thresh, edge_r, border, _kernels.stream_ptr(dev))
-    _kernels.check(code, "p360_sift_small_octave")
-    SMALL.launches += 1
     return gauss, dog, score
 
 
@@ -207,4 +199,4 @@ def small_octave_cost(n: int, h: int, w: int, cfg) -> dict:
 
 __all__ = ["base_image", "base_image_ref", "small_octave", "small_octave_ref",
            "small_octave_in_shared", "base_delta", "score_cfg", "base_cost",
-           "small_octave_cost", "COUNTS"]
+           "small_octave_cost"]

@@ -26,8 +26,9 @@ On the card each kernel equals its plain version bit for bit: built with
 ``-fmad=false``, with IEEE division and square root and the math
 library's ``atan2f``, ``expf``, ``sinf`` and ``cosf``, and summing in
 the halving order (``geometry.tree_sum``) that the plain versions use.
-``COUNTS`` holds each kernel's launches; the ``*_cost`` helpers give a
-call's least bytes and operations and its bound on an H100.
+Each launch counts in ``_kernels.LAUNCHES`` under its entry point's
+name; the ``*_cost`` helpers give a call's least bytes and operations
+and its bound on an H100.
 """
 from __future__ import annotations
 
@@ -50,19 +51,6 @@ NEWTON_OPS = 130
 REFINE_OPS = 180
 ORIENT_OPS = 20
 DESCR_OPS = 70
-
-
-class Count:
-    """One kernel's launches (what ``graphs.Launches`` reads and sets)."""
-
-    def __init__(self, name: str):
-        self.name, self.launches = name, 0
-
-
-REFINE = Count("sift_refine")
-ORIENT = Count("sift_orient")
-DESCR = Count("sift_descr")
-COUNTS = (REFINE, ORIENT, DESCR)
 
 
 def _plain():
@@ -95,12 +83,6 @@ def _check(name: str, device, **args):
                 f"{t.device}")
 
 
-def _launch(count: Count, entry: str, *args):
-    code = getattr(_kernels.lib(), entry)(*args)
-    _kernels.check(code, entry)
-    count.launches += 1
-
-
 def refine(dog, l0, y0, x0, cfg):
     """Newton refinement of (N, C) candidates (layer, y, x) in the (N,
     S+2, H, W) DoG stack: -> (l, y, x int64 (N, C), offs (N, C, 3) f32,
@@ -124,11 +106,12 @@ def refine(dog, l0, y0, x0, cfg):
     contrast = torch.empty((n, c), dtype=torch.float32, device=dev)
     ok = torch.empty((n, c), dtype=torch.bool, device=dev)
     r = cfg.edge_thresh
-    _launch(REFINE, "p360_sift_refine", dog.data_ptr(), l0.data_ptr(),
-            y0.data_ptr(), x0.data_ptr(), l.data_ptr(), y.data_ptr(),
-            x.data_ptr(), offs.data_ptr(), contrast.data_ptr(), ok.data_ptr(),
-            n, c, s, h, w, cfg.img_border, cfg.refine_iters,
-            cfg.contrast_thresh, r, (r + 1) ** 2, _kernels.stream_ptr(dev))
+    _kernels.launch(
+        "p360_sift_refine", dog.data_ptr(), l0.data_ptr(), y0.data_ptr(),
+        x0.data_ptr(), l.data_ptr(), y.data_ptr(), x.data_ptr(),
+        offs.data_ptr(), contrast.data_ptr(), ok.data_ptr(), n, c, s, h, w,
+        cfg.img_border, cfg.refine_iters, cfg.contrast_thresh, r,
+        (r + 1) ** 2, _kernels.stream_ptr(dev))
     return l, y, x, offs, contrast, ok
 
 
@@ -148,7 +131,8 @@ def orientation(gx, gy, y, x, pcy, pcx, sig, oh, ow, cfg):
     patches anchored at (pcy + 1, pcx + 1): -> (angles (M, 2) f32, valid
     (M, 2) bool). The kernel takes 36 bins, two orientations and
     psg^2 <= 8192: 64x64 patches take its warp-per-keypoint design,
-    others its block-per-keypoint one (both counted as ``ORIENT``)."""
+    others its block-per-keypoint one (``p360_sift_orient_block``,
+    counted as ``sift_orient_block``)."""
     if not _on_card(gx, "orientation"):
         sift = _plain()
         return sift._peak_angles(sift._orientation_hist(
@@ -164,11 +148,11 @@ def orientation(gx, gy, y, x, pcy, pcx, sig, oh, ow, cfg):
     valid = torch.empty((m, 2), dtype=torch.bool, device=dev)
     nb = cfg.ori_bins
     entry = "p360_sift_orient" if psg == 64 else "p360_sift_orient_block"
-    _launch(ORIENT, entry, gx.data_ptr(), gy.data_ptr(),
-            y.data_ptr(), x.data_ptr(), pcy.data_ptr(), pcx.data_ptr(),
-            oh.data_ptr(), ow.data_ptr(), sig.data_ptr(), angles.data_ptr(),
-            valid.data_ptr(), m, psg, nb / (2 * math.pi),
-            2 * math.pi / nb, _kernels.stream_ptr(dev))
+    _kernels.launch(
+        entry, gx.data_ptr(), gy.data_ptr(), y.data_ptr(), x.data_ptr(),
+        pcy.data_ptr(), pcx.data_ptr(), oh.data_ptr(), ow.data_ptr(),
+        sig.data_ptr(), angles.data_ptr(), valid.data_ptr(), m, psg,
+        nb / (2 * math.pi), 2 * math.pi / nb, _kernels.stream_ptr(dev))
     return angles, valid
 
 
@@ -190,12 +174,12 @@ def descriptors(gx, gy, yf, xf, pcy, pcx, sig, angle, oh, ow, cfg):
                          "orientations over 16x16 samples")
     dev = gx.device
     desc = torch.empty((m, no, 128), dtype=torch.float32, device=dev)
-    _launch(DESCR, "p360_sift_descr", gx.data_ptr(), gy.data_ptr(),
-            yf.data_ptr(), xf.data_ptr(), sig.data_ptr(), pcy.data_ptr(),
-            pcx.data_ptr(), oh.data_ptr(), ow.data_ptr(), angle.data_ptr(),
-            desc.data_ptr(), m, no, psg, 2 * math.pi,
-            cfg.descr_ori_bins / (2 * math.pi), cfg.descr_mag_thresh,
-            _kernels.stream_ptr(dev))
+    _kernels.launch(
+        "p360_sift_descr", gx.data_ptr(), gy.data_ptr(), yf.data_ptr(),
+        xf.data_ptr(), sig.data_ptr(), pcy.data_ptr(), pcx.data_ptr(),
+        oh.data_ptr(), ow.data_ptr(), angle.data_ptr(), desc.data_ptr(), m,
+        no, psg, 2 * math.pi, cfg.descr_ori_bins / (2 * math.pi),
+        cfg.descr_mag_thresh, _kernels.stream_ptr(dev))
     return desc
 
 
@@ -284,5 +268,5 @@ def descriptors_cost(yf, xf, pcy, pcx, sig, angle, oh, ow, psg: int,
                  DESCR_OPS * m * no * p * p)
 
 
-__all__ = ["refine", "orientation", "descriptors", "COUNTS", "refine_cost",
+__all__ = ["refine", "orientation", "descriptors", "refine_cost",
            "orientation_cost", "descriptors_cost"]

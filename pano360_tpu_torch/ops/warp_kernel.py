@@ -27,7 +27,6 @@ from pano360_tpu_torch import _kernels
 from pano360_tpu_torch.geometry import CylProj, SphProj
 from pano360_tpu_torch.ops.warp import reflect_index, safe_floor
 
-launches = 0           # CUDA kernel launches (main-path evidence)
 PARAM_FLOATS = 20      # one region's packed parameters (csrc/warp_common.cuh)
 MAX_GRID = 65535       # regions, and the exact kernel's patch rows
 # float operations of one patch pixel, as the plain version does them:
@@ -376,10 +375,10 @@ def _launch_cuda(imgs: torch.Tensor, plan: WarpPlan):
                           device=dev)
     invalid = torch.empty((n, plan.ph, plan.pw), dtype=torch.bool,
                           device=dev)
-    code = _kernels.lib().p360_backward_warp(
-        plan.c_launch, imgs.data_ptr(), h, w, plan.params.data_ptr(),
-        patches.data_ptr(), invalid.data_ptr(), _kernels.stream_ptr(dev))
-    _kernels.check(code, "p360_backward_warp")
+    _kernels.launch(
+        "p360_backward_warp", plan.c_launch, imgs.data_ptr(), h, w,
+        plan.params.data_ptr(), patches.data_ptr(), invalid.data_ptr(),
+        _kernels.stream_ptr(dev))
     return patches, invalid
 
 
@@ -387,11 +386,8 @@ def launch_warp(imgs: torch.Tensor, plan: WarpPlan):
     """The exact warp of ``imgs`` with a prepared plan: the CUDA kernel
     for a CUDA stack, the plain version for a CPU one. -> (patches (N,
     ph, pw, 4), invalid (N, ph, pw) bool)."""
-    global launches
     if imgs.is_cuda:
-        out = _launch_cuda(imgs, plan)
-        launches += 1
-        return out
+        return _launch_cuda(imgs, plan)
     if imgs.device.type != "cpu":
         raise ValueError(f"backward_warp: unsupported device {imgs.device}")
     if plan.device.type != "cpu":

@@ -43,8 +43,6 @@ MAX_LEVELS = _kernels.MAX_LEVELS   # the CUDA kernel's parameter block
 # int cast keeps every fraction
 _COORD_LIM = float(2 ** 24)
 
-launches = 0           # CUDA kernel launches (main-path evidence)
-
 
 def _level_dims(img_shape: Tuple[int, int], lvl: int):
     """(true, padded) dims of mip level ``lvl`` (ceil-halved, then aligned
@@ -415,11 +413,10 @@ def _launch_cuda(mips: List[torch.Tensor], plan: MipWarpPlan):
                           device=dev)
     invalid = torch.empty((plan.n, plan.ph, plan.pw), dtype=torch.bool,
                           device=dev)
-    code = _kernels.lib().p360_backward_warp_mip(
-        plan.c_launch, ptrs, plan.origins_dev.data_ptr(),
-        plan.params.data_ptr(), patches.data_ptr(), invalid.data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "p360_backward_warp_mip")
+    _kernels.launch(
+        "p360_backward_warp_mip", plan.c_launch, ptrs,
+        plan.origins_dev.data_ptr(), plan.params.data_ptr(),
+        patches.data_ptr(), invalid.data_ptr(), _kernels.stream_ptr(dev))
     return patches, invalid
 
 
@@ -427,11 +424,8 @@ def launch_mip_warp(mips: List[torch.Tensor], plan: MipWarpPlan):
     """The mip-sampled warp of ``build_mips`` levels with a prepared
     plan: the CUDA kernel for CUDA levels, the plain version for CPU
     ones. -> (patches (N, ph, pw, 4), invalid (N, ph, pw) bool)."""
-    global launches
     if mips[0].is_cuda:
-        out = _launch_cuda(mips, plan)
-        launches += 1
-        return out
+        return _launch_cuda(mips, plan)
     if mips[0].device.type != "cpu":
         raise ValueError("backward_warp_mip: unsupported device "
                          f"{mips[0].device}")

@@ -48,17 +48,11 @@ def pipeline(mesh, imgs: List[np.ndarray], device="cuda",
     stages' seconds, the seconds in collectives, the kernel launches,
     the peak device memory)."""
     from pano360_tpu_torch import render
-    from pano360_tpu_torch.ops import gauss_octave as G
-    from pano360_tpu_torch.ops import ransac as R
-    from pano360_tpu_torch.ops import sift_front as F
-    from pano360_tpu_torch.ops import sift_tail as T
-    from pano360_tpu_torch.ops import warp_kernel as W
+    from pano360_tpu_torch._kernels import LAUNCHES
     from pano360_tpu_torch.pipeline import idx_to_keypoints, matching
     from pano360_tpu_torch.register import traverse
     dev = torch.device(device) if mesh is None else mesh.device
-    counts = F.COUNTS + T.COUNTS + R.COUNTS
-    for c in (G, W) + counts:
-        c.launches = 0
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     extra, secs = {}, {}
@@ -82,9 +76,7 @@ def pipeline(mesh, imgs: List[np.ndarray], device="cuda",
                 gather_seconds=0.0 if mesh is None else
                 mesh.stats.get("gather_seconds", 0.0),
                 gathers=0 if mesh is None else mesh.stats.get("gathers", 0),
-                launches={"octave_stack": G.launches,
-                          "backward_warp": W.launches,
-                          **{c.name: c.launches for c in counts}},
+                launches=dict(LAUNCHES),
                 peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
                           if dev.type == "cuda" else None))
     ranks = [mine] if mesh is None else mesh.all_gather_object(mine)

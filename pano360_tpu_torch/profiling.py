@@ -20,7 +20,7 @@ The recorder is the one place where the port times and counts itself:
   the padded patches' pixels of each render's layout, N ph pw
   (``render.plan_layout``).
 - ``snapshot()`` returns the totals, the counters and the kernels'
-  launch counts (``graphs._kernel_counters``).
+  launch counts (``_kernels.LAUNCHES``, by entry point).
 - ``recording(stats)``: around a stage that takes a ``stats`` dict. The
   spans closed inside go into ``stats["spans"]`` as (name, parent,
   start_ns, end_ns), and ``stats["totals"]`` receives ``snapshot()`` as
@@ -51,6 +51,8 @@ import logging
 import pstats
 import time
 from typing import Dict, List, Optional
+
+from pano360_tpu_torch._kernels import LAUNCHES
 
 LOG = logging.getLogger(__name__)
 
@@ -122,12 +124,9 @@ def count(name: str, k: int = 1):
 def snapshot() -> dict:
     """The process's totals: {"spans": {name: {"count", "total_ns",
     "self_ns"}}, "counters": {name: n}, "launches": {kernel: n}}."""
-    from pano360_tpu_torch.graphs import _kernel_counters
-    launches = {getattr(c, "name", None) or c.__name__.rsplit(".", 1)[-1]:
-                c.launches for c in _kernel_counters()}
     return {"spans": {k: {"count": c, "total_ns": t, "self_ns": s}
                       for k, (c, t, s) in _TOTALS.items()},
-            "counters": dict(_COUNTERS), "launches": launches}
+            "counters": dict(_COUNTERS), "launches": dict(LAUNCHES)}
 
 
 @contextlib.contextmanager

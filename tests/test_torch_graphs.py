@@ -31,7 +31,7 @@ from pano360_tpu import pipeline as jpipe
 from pano360_tpu import synth
 from pano360_tpu.features import sift as jsift
 
-from pano360_tpu_torch import graphs
+from pano360_tpu_torch import _kernels, graphs
 from pano360_tpu_torch import match as tmatch
 from pano360_tpu_torch import pipeline as tpipe
 from pano360_tpu_torch.features import sift as tsift
@@ -72,22 +72,26 @@ def jax_feats(world):
     return jsift.SiftFeatures(*[np.asarray(a) for a in f])
 
 
-def test_launches_counted_per_replay():
+def test_launches_counted_per_replay(monkeypatch):
     """A kernel's wrapper counts its launch, a replay calls no wrapper:
     what the wrappers counted inside the capture is taken back and added
     at each replay."""
-    counter = SimpleNamespace(launches=0)
+    monkeypatch.setattr(_kernels, "_LIB",
+                        SimpleNamespace(p360_sift_base=lambda: 0))
+    monkeypatch.setitem(_kernels.LAUNCHES, "sift_base", 0)
 
     def step():                 # a step whose wrappers count 3 launches
-        counter.launches += 3
+        for _ in range(3):
+            _kernels.launch("p360_sift_base")
     step()                      # the eager run before the capture
-    launches = graphs.Launches([counter])
+    launches = graphs.Launches()
     with launches.capturing():
         step()
-    assert counter.launches == 3 and launches.per_replay == [3]
+    assert _kernels.LAUNCHES["sift_base"] == 3
+    assert launches.per_replay == {"sift_base": 3}
     for _ in range(4):
         launches.replayed()
-    assert counter.launches == 3 + 4 * 3
+    assert _kernels.LAUNCHES["sift_base"] == 3 + 4 * 3
 
 
 @pytest.mark.parametrize("batch", [0, 1])

@@ -16,13 +16,15 @@ and tanf); SIFT's front end (the base image, the small octaves) bit for
 bit, every output plane.
 """
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from pano360_tpu_torch import render
+from pano360_tpu_torch import _kernels, render
 from pano360_tpu_torch import synth
+from pano360_tpu_torch._kernels import LAUNCHES
 from pano360_tpu_torch.features import sift as S
 from pano360_tpu_torch.ops import gauss_octave as G
 from pano360_tpu_torch.ops import sift_front as F
@@ -67,13 +69,34 @@ def _on(dev, args):
 # Wrappers on the CPU
 # ---------------------------------------------------------------------------
 
+def test_launch_counts_under_its_name_and_raises_on_an_error(monkeypatch):
+    """``_kernels.launch`` calls the library's entry point with its
+    arguments: a launch that returns 0 counts once under the entry's name
+    without ``p360_``, and a CUDA error code raises and counts nothing."""
+    codes, seen = iter([0, 1]), []
+
+    def entry(*args):
+        seen.append(args)
+        return next(codes)
+    monkeypatch.setattr(_kernels, "_LIB",
+                        SimpleNamespace(p360_ransac_score=entry))
+    monkeypatch.setitem(LAUNCHES, "ransac_score", 0)
+    before = dict(LAUNCHES)
+    _kernels.launch("p360_ransac_score", 7, 2.0, None)
+    assert seen == [(7, 2.0, None)]
+    assert LAUNCHES == dict(before, ransac_score=1)
+    with pytest.raises(RuntimeError, match="p360_ransac_score: CUDA error 1"):
+        _kernels.launch("p360_ransac_score")
+    assert len(seen) == 2 and LAUNCHES == dict(before, ransac_score=1)
+
+
 def test_octave_stack_cpu_tensor_takes_plain_version(octave_base):
-    before = G.launches
+    before = LAUNCHES["octave_stack"]
     outs = G.octave_stack(octave_base, TAPS, SCORE_CFG)
     refs = G.octave_stack_ref(octave_base, TAPS, SCORE_CFG)
     for a, b in zip(outs, refs):
         assert torch.equal(a, b)
-    assert G.launches == before
+    assert LAUNCHES["octave_stack"] == before
 
 
 def test_octave_stack_rejects_unknown_device():
@@ -89,12 +112,12 @@ def test_octave_stack_ref_refuses_illegal_pad():
 
 def test_backward_warp_cpu_tensor_takes_plain_version(warp_scene):
     args, wins, period, cyl = warp_scene
-    before = W.launches
+    before = LAUNCHES["backward_warp"]
     a = W.backward_warp(*args, wins=wins, period=period, cylindrical=cyl)
     b = W.backward_warp_ref(*args, wins=wins, period=period,
                             cylindrical=cyl)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert W.launches == before
+    assert LAUNCHES["backward_warp"] == before
     assert (~a[1]).sum() > 1000
 
 
@@ -102,9 +125,9 @@ def test_backward_warp_mixed_cpu_takes_plain_version(mixed_scene):
     """Per-image true sizes through the wrapper on CPU tensors: the plain
     version's result, no launch; the true sizes change the result."""
     args, kw = mixed_scene
-    before = W.launches
+    before = LAUNCHES["backward_warp"]
     out, bad = W.backward_warp(*args, **kw)
-    assert W.launches == before
+    assert LAUNCHES["backward_warp"] == before
     ref, ref_bad = W.backward_warp_ref(*args, **kw)
     assert torch.equal(out, ref) and torch.equal(bad, ref_bad)
     padded, _ = W.backward_warp_ref(*args, **dict(kw, shapes=None))
@@ -115,11 +138,11 @@ def test_backward_warp_mixed_cpu_takes_plain_version(mixed_scene):
 
 
 def test_backward_warp_mip_cpu_tensor_takes_plain_version(mip_scene):
-    before = M.launches
+    before = LAUNCHES["backward_warp_mip"]
     a = mip_call(M.backward_warp_mip, mip_scene)
     b = mip_call(M.backward_warp_mip_ref, mip_scene)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert M.launches == before
+    assert LAUNCHES["backward_warp_mip"] == before
     assert (~a[1]).sum() > 500
 
 
@@ -160,11 +183,11 @@ def test_warp_ref_handles_rays_near_horizon():
 def _check_octave(base, score_cfg, taps=TAPS, exact=False):
     """The kernel against its plain version: within 1e-5 and 0.1 % score
     flips, or (``exact``) every output plane bit for bit."""
-    before = G.launches
+    before = LAUNCHES["octave_stack"]
     outs = G.octave_stack(base, taps, score_cfg)
     refs = G.octave_stack_ref(base, taps, score_cfg)
     torch.cuda.synchronize()
-    assert G.launches == before + 1
+    assert LAUNCHES["octave_stack"] == before + 1
     if exact:
         assert len(outs) == len(refs)
         for a, b in zip(outs, refs):
@@ -279,9 +302,9 @@ def _exact_case(warp_scene, case):
 @pytest.mark.parametrize("periodic", [False, True])
 def test_backward_warp_kernel_matches_plain_on_card(warp_scene, periodic):
     args, kw = _exact_case(warp_scene, "periodic" if periodic else "")
-    before = W.launches
+    before = LAUNCHES["backward_warp"]
     kernel = W.backward_warp(*args, **kw)
-    assert W.launches == before + 1
+    assert LAUNCHES["backward_warp"] == before + 1
     _equal_warps(kernel, W.backward_warp_ref(*args, **kw), 1000)
 
 
@@ -304,9 +327,9 @@ def test_backward_warp_kernel_per_image_dims_exact(mixed_scene, periodic):
     if periodic:
         kw = dict(kw, period=small[-1] // 3 + 7)
     args = (rgba.to(_cuda()), *small)
-    before = W.launches
+    before = LAUNCHES["backward_warp"]
     kernel = W.backward_warp(*args, **kw)
-    assert W.launches == before + 1
+    assert LAUNCHES["backward_warp"] == before + 1
     _equal_warps(kernel, W.backward_warp_ref(*args, **kw), 1000)
     padded = W.backward_warp(*args, **dict(kw, shapes=None))
     assert not torch.equal(padded[0], kernel[0])
@@ -341,9 +364,9 @@ def test_backward_warp_plan_reused_same_bits(warp_scene):
 @pytest.mark.gpu
 def test_backward_warp_mip_kernel_matches_plain_on_card(mip_scene):
     dev = _cuda()
-    before = M.launches
+    before = LAUNCHES["backward_warp_mip"]
     kernel = mip_call(M.backward_warp_mip, mip_scene, dev)
-    assert M.launches == before + 1
+    assert LAUNCHES["backward_warp_mip"] == before + 1
     _equal_warps(kernel, mip_call(M.backward_warp_mip_ref, mip_scene, dev),
                  500)
 
@@ -419,7 +442,7 @@ def test_warp_patches_makes_no_host_sync(warp):
                           lay.pw)[1], "the scene must plan mip levels"
     render.warp_patches(imgs, projs, lay, geometry.SphProj, warp)  # warm-up
     torch.cuda.synchronize()
-    before = (W.launches, M.launches)
+    before = (LAUNCHES["backward_warp"], LAUNCHES["backward_warp_mip"])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.set_sync_debug_mode("error")
@@ -438,7 +461,8 @@ def test_warp_patches_makes_no_host_sync(warp):
              and span.start <= e.time_range.start <= span.end}
     assert "cudaMemcpyAsync" in calls, calls     # the runtime is traced
     assert not calls & set(SYNC_CALLS), calls
-    counts = (W.launches - before[0], M.launches - before[1])
+    counts = (LAUNCHES["backward_warp"] - before[0],
+              LAUNCHES["backward_warp_mip"] - before[1])
     assert counts == ((1, 0) if warp == "auto" else (0, 1))
     small = (projs, lay.bottoms, lay.resolution, lay.im_range[0])
     kw = dict(wins=lay.wins, period=lay.period)
@@ -635,12 +659,12 @@ def test_features_replayed_equal_eager_on_card():
     u8 = [(im * 255).astype(np.uint8) for im in imgs]
     pairs = [(a, b) for a in range(5) for b in range(a + 1, 5)]
     out, launches = {}, {}
-    counts = (G,) + F.COUNTS + T.COUNTS
+    counts = ("octave_stack", "sift_base", "sift_small_octave",
+              "sift_refine", "sift_orient", "sift_descr")
     for capture in (True, False, True):     # capture, eager, replay only
-        for c in counts:
-            c.launches = 0
+        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
         stack, feats = pipeline.upload_extract(u8, dev, capture=capture)
-        launches[capture] = [c.launches for c in counts]
+        launches[capture] = [LAUNCHES[k] for k in counts]
         _, kp, ds, va, _ = pipeline.sift_buffers(u8, feats)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -893,13 +917,13 @@ def _front_bits(name, arg, cfg):
     plain version on the card, bit for bit; -> its outputs."""
     fn = getattr(F, name)
     plain = getattr(F, f"{name}_ref")
-    count = F.BASE if name == "base_image" else F.SMALL
-    before = count.launches
+    count = "sift_base" if name == "base_image" else "sift_small_octave"
+    before = LAUNCHES[count]
     got = _tuple(fn(arg, cfg))
     again = _tuple(fn(arg, cfg))
     want = _tuple(plain(arg, cfg))
     torch.cuda.synchronize()
-    assert count.launches == before + 2
+    assert LAUNCHES[count] == before + 2
     assert all(_bits(a, b) and _bits(a, c)
                for a, b, c in zip(got, want, again)), name
     return got
@@ -1060,11 +1084,11 @@ def _ransac_inputs(b, k, m, seed=0, outliers=0.4, degenerate=8):
 def test_ransac_score_cpu_takes_plain_version():
     from pano360_tpu_torch.ops import ransac as R
     homs, p1, p2, valid = _ransac_inputs(3, 64, 100)
-    before = R.SCORE.launches
+    before = LAUNCHES["ransac_score"]
     best, mask = R.score(homs, p1, p2, valid, 3.0)
     ref = R.score_ref(homs, p1, p2, valid, 3.0)
     assert torch.equal(best, ref[0]) and torch.equal(mask, ref[1])
-    assert R.SCORE.launches == before
+    assert LAUNCHES["ransac_score"] == before
     assert int(ref[2].max()) > 20 and int(mask.sum()) > 60
 
 
@@ -1142,10 +1166,10 @@ def _hold_ransac(homs, p1, p2, valid, thresh=3.0):
     from pano360_tpu_torch.ops import ransac as R
     dev = _cuda()
     args = [t.to(dev) for t in (homs, p1, p2, valid)]
-    before = R.SCORE.launches
+    before = LAUNCHES["ransac_score"]
     got = R.score_counts(*args, thresh)
     want = R.score_ref(*args, thresh)
-    assert R.SCORE.launches == before + 1
+    assert LAUNCHES["ransac_score"] == before + 1
     assert torch.equal(got[2], want[2])
     assert _bits(got[0], want[0]) and torch.equal(got[1], want[1])
     best, mask = R.score(*args, thresh)
@@ -1225,13 +1249,13 @@ def test_match_graph_kernel_equals_plain_eager_on_card(monkeypatch):
     cap = kp.shape[1]
     chunks = -(-105 // max(1, min(16, (1 << 28) // (cap * cap * 4))))
     kernel = pipeline.match_graph(kp, ds, va, seed=5)
-    before = R.SCORE.launches
+    before = LAUNCHES["ransac_score"]
     again = pipeline.match_graph(kp, ds, va, seed=5)
-    assert R.SCORE.launches - before == chunks
+    assert LAUNCHES["ransac_score"] - before == chunks
     monkeypatch.setattr(R, "score",
                         lambda *a: R.score_ref(*a)[:2])
     plain = pipeline.match_graph(kp, ds, va, seed=5, capture=False)
-    assert R.SCORE.launches - before == chunks
+    assert LAUNCHES["ransac_score"] - before == chunks
     for a, b, c in zip(kernel, again, plain):
         assert a.dtype == c.dtype and a.shape == c.shape
         assert a.tobytes() == b.tobytes() == c.tobytes()

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from pano360_tpu_torch import cli, graphs, pipeline, profiling, register
+from pano360_tpu_torch import _kernels, cli, graphs, pipeline, profiling
+from pano360_tpu_torch import register
 from pano360_tpu_torch import render
 from pano360_tpu_torch import synth
 
@@ -97,9 +98,13 @@ def test_recording_keeps_spans_totals_and_counters():
     assert totals["counters"]["t.counter"] >= 4
     assert totals["spans"]["t.a"]["count"] >= 1
     assert "t.none" not in [s[0] for s in stats["spans"]]
-    assert {"gauss_octave", "warp_kernel", "warp_mip", "sift_base",
-            "sift_small_octave", "sift_refine", "sift_orient",
-            "sift_descr"} <= set(totals["launches"])
+    # every kernel entry point by its name, and no other key
+    assert set(totals["launches"]) == {
+        name[len("p360_"):] for entries in _kernels._SIGNATURES.values()
+        for name in entries} == {
+        "octave_stack", "backward_warp", "backward_warp_mip", "sift_refine",
+        "sift_orient", "sift_orient_block", "sift_descr", "sift_base",
+        "sift_small_octave", "ransac_score"}
     later = profiling.snapshot()
     assert profiling.delta(later, totals)["counters"]["t.counter"] == 0
 

@@ -22,6 +22,7 @@ from pano360_tpu import synth
 from pano360_tpu.features import sift as jsift
 from pano360_tpu.ops.color import bgr2gray as jbgr2gray
 
+from pano360_tpu_torch._kernels import LAUNCHES
 from pano360_tpu_torch.features import sift as tsift
 from pano360_tpu_torch.ops import gauss_octave as TG
 from pano360_tpu_torch.ops import sift_front as F
@@ -85,11 +86,11 @@ def test_base_image_matches_jax(upscale, shape, src):
 def test_base_image_cpu_tensor_takes_plain_version():
     gray = torch.from_numpy(_field((33, 65)))
     cfg = tsift.SiftConfig()
-    before = F.BASE.launches
+    before = LAUNCHES["sift_base"]
     assert torch.equal(F.base_image(gray, cfg), F.base_image_ref(gray, cfg))
     assert torch.equal(tsift._base_image(gray, cfg),
                        F.base_image_ref(gray, cfg))
-    assert F.BASE.launches == before
+    assert LAUNCHES["sift_base"] == before
 
 
 def test_base_delta_and_taps():
@@ -160,13 +161,13 @@ def test_small_octave_other_chains_match_jax(n_layers):
 def test_small_octave_cpu_tensor_takes_plain_version():
     base = torch.from_numpy(_field((27, 36)))
     cfg = tsift.SiftConfig()
-    before = F.SMALL.launches
+    before = LAUNCHES["sift_small_octave"]
     outs = F.small_octave(base, cfg)
     gauss = tsift._gaussian_stack(base, cfg)
     refs = (gauss, gauss[:, 1:] - gauss[:, :-1], TG._extrema_score(
         gauss[:, 1:] - gauss[:, :-1], *F.score_cfg(cfg)))
     assert all(torch.equal(a, b) for a, b in zip(outs, refs))
-    assert F.SMALL.launches == before
+    assert LAUNCHES["sift_small_octave"] == before
 
 
 def test_gauss_and_dog_scores_every_octave():

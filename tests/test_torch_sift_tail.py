@@ -35,6 +35,7 @@ from pano360_tpu import synth
 from pano360_tpu.features import sift as jsift
 
 from pano360_tpu_torch import pipeline as tpipe
+from pano360_tpu_torch._kernels import LAUNCHES
 from pano360_tpu_torch.features import sift as tsift
 from pano360_tpu_torch.measure import recording
 from pano360_tpu_torch.ops import sift_tail as T
@@ -139,9 +140,9 @@ def test_refine_takes_no_field(calls, octave):
     candidate visits it) equals the plain steps on the dense field, bit
     for bit, at every recorded octave, and launches nothing here."""
     args, kw = calls["refine"][octave]
-    before = [c.launches for c in T.COUNTS]
+    before = dict(LAUNCHES)
     outs = T.refine(*args, **kw)
-    assert [c.launches for c in T.COUNTS] == before
+    assert LAUNCHES == before
     assert all(torch.equal(a, b)
                for a, b in zip(outs, _plain_refine(*args, **kw)))
 
@@ -416,13 +417,13 @@ def test_peak_angles_ties_take_the_lower_bin():
 @pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_cpu_takes_plain_version(calls, name):
     args, kw = calls[name][0]
-    before = [c.launches for c in T.COUNTS]
+    before = dict(LAUNCHES)
     out = getattr(T, name)(*args, **kw)
     plain = dict(refine=_plain_refine,
                  orientation=lambda *a, cfg: tsift._peak_angles(
                      tsift._orientation_hist(*a, cfg), cfg),
                  descriptors=tsift._descriptors)[name](*args, **kw)
-    assert [c.launches for c in T.COUNTS] == before
+    assert LAUNCHES == before
     out = out if isinstance(out, tuple) else (out,)
     plain = plain if isinstance(plain, tuple) else (plain,)
     assert all(torch.equal(a, b) for a, b in zip(out, plain))

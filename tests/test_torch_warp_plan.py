@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from pano360_tpu_torch._kernels import LAUNCHES
 from pano360_tpu_torch.ops import warp_kernel as W
 from pano360_tpu_torch.ops import warp_mip as M
 from pano360_tpu_torch.ops.warp import reflect_index
@@ -306,12 +307,12 @@ def test_launch_warp_cpu_plan_takes_plain_version(warp_scene):
     plan = W.prepare_warp(projs.numpy(), bottoms.numpy(), wins.numpy(),
                           res.numpy(), rmin.numpy(), ph, pw, period, cyl,
                           "cpu")
-    before = W.launches
+    before = LAUNCHES["backward_warp"]
     a = W.launch_warp(rgba, plan)
     b = W.backward_warp_ref(rgba, projs, bottoms, res, rmin, ph, pw,
                             wins=wins, period=period, cylindrical=cyl)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    assert W.launches == before
+    assert LAUNCHES["backward_warp"] == before
 
 
 def _mip_plan(sc, **over):
