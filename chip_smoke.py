@@ -36,6 +36,12 @@ Phases (any failure exits non-zero):
    one eager match graph: the launch, the device time of its two
    kernels with the L2 flushed, the bound and the plain version (no
    single PyTorch call computes it); ptxas's report;
+   E. the multiband blend's blur (``ops.band_blur``) vs the plain
+   ``gaussian_blur``, bit for bit, on a stack of the rig cell's shape
+   (33 patches of 352x1408x4, random, invalid corners zeroed) at the
+   blend's four sigmas (33, 57, 73, 87 taps): each level's launch, the
+   device time of its two kernels with the L2 flushed, the bound and
+   the plain version, and the four levels' sums; ptxas's report;
 4. kernel 2 (backward warp) vs its plain version at the bench's render
    layout, bit for bit with no mask flip: the launch with a prepared
    plan, the prepare step (host), the device time per launch, the bound
@@ -48,7 +54,8 @@ Phases (any failure exits non-zero):
    reserved by where the allocator keeps it), kernel launch
    counts (the warm run's are the main path's: SIFT's front end 4 and
    12, its tail 36, 4 and 4 inside the replays, RANSAC's scoring once
-   a chunk of pairs, as in 3 D; neither the mip warp nor the
+   a chunk of pairs, as in 3 D, the blend's blur once a level, 4;
+   neither the mip warp nor the
    orientation's block design), three more warm runs'
    stage seconds, registration accuracy against the synthetic ground
    truth, and a cached re-run; SIFT's extraction and the match graph
@@ -63,8 +70,9 @@ Phases (any failure exits non-zero):
    ``torch.profiler``: device busy time, the device's idle share, the
    device operations that take the most time, and the kernels' entries;
    the launches of the octave kernel, of SIFT's front end and tail and
-   of RANSAC's scoring in the profile (inside the replays) equal to
-   their counts, the front end's 4 and 12, the tail's 36, 4 and 4;
+   of RANSAC's scoring in the profile (inside the replays) and of the
+   blend's blur (its rows kernel) equal to their counts, the front
+   end's 4 and 12, the tail's 36, 4 and 4, the blur's 4;
 7. render options, each path with the kernel counts
    (``_kernels.LAUNCHES``) set to 0 just before it and read just after:
    B. ``-e -c --warp pallas`` on the bench views at known per-view
@@ -325,6 +333,15 @@ SIFT_FRONT = tuple(row[0] for row in SIFT_FRONT_LINE)
 # the base once per upload batch (4), each of the 3 small octaves (6-8)
 # once per batch
 FRONT_LAUNCHES = dict(sift_base=4, sift_small_octave=12)
+# the blend's blur: (kernel and count name, source, the JAX computation
+# replaced); its calls a panorama (one a blurred level of the multiband
+# blend's 5), the blend's sigmas, and the rig cell's patch stack
+BAND_LINE = ("band_blur", "band_blur.cu",
+             "pano360_tpu/render.py:593 (XLA fusion of gaussian_blur)")
+BAND_LAUNCHES = 4
+BAND_SIGMAS = tuple(float(np.sqrt(2 * lvl + 1.0) * 4)
+                    for lvl in range(BAND_LAUNCHES))
+RIG_STACK = (33, 352, 1408, 4)
 # the kernels the default path does not take: the mip warp (``--warp
 # pallas``) and the orientation's block design (``descr_mode='dense'``)
 OFF_MAIN_PATH = ("backward_warp_mip", "sift_orient_block")
@@ -336,7 +353,8 @@ PROFILED = {"octave_stack": "octave_stack_kernel",
             "sift_refine": "p360_sift_refine_kernel",
             "sift_orient": "p360_sift_orient_kernel",
             "sift_descr": "p360_sift_descr_kernel",
-            "ransac_score": "p360_ransac_score_kernel"}
+            "ransac_score": "p360_ransac_score_kernel",
+            "band_blur": "p360_band_blur_rows_kernel"}
 # RANSAC's scoring: (wrapper, kernel and count name, source, the JAX
 # computation replaced)
 RANSAC_LINE = ("score", "ransac_score", "ransac_score.cu",
@@ -545,6 +563,67 @@ def phase_ransac(torch, u8):
                 bound_by=cost["bound_by"], library_ms=None), chunks
 
 
+def phase_band_blur(torch):
+    """3 E: the blend's blur vs ``gaussian_blur`` on a random stack of the
+    rig cell's shape (each patch's invalid corner zeroed, its alpha 0 or
+    1) at the blend's four sigmas: bit for bit; each level's launch (CUDA
+    events), the device time of its rows and columns kernels with the L2
+    flushed, the bound and the plain version; no single PyTorch call
+    computes it (library null). -> dict for the kernels line, the four
+    levels summed."""
+    from pano360_tpu_torch import _kernels
+    from pano360_tpu_torch.measure import alternate, device_ms
+    from pano360_tpu_torch.ops.band_blur import band_blur, band_blur_cost
+    from pano360_tpu_torch.ops.filters import auto_ksize, gaussian_blur
+    g = torch.Generator(device="cuda").manual_seed(BENCH_SEED)
+    x = torch.rand(RIG_STACK, generator=g, device="cuda")
+    x[..., 3] = (x[..., 3] > 0.3).to(torch.float32)
+    n, h, w, _ = RIG_STACK
+    for i in range(n):
+        x[i, :(i * 11) % h + 1, :(i * 43) % w + 1] = 0.0
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes_ms=0.0,
+               flops_ms=0.0, library_ms=None, max_abs_err=0.0)
+    for sigma in BAND_SIGMAS:
+        k = auto_ksize(sigma)
+        got, want = band_blur(x, sigma), gaussian_blur(x, sigma)
+        same = bits_equal(torch, got, want)
+        err = max_abs(torch, [got], [want])
+        del got, want
+        tp, tk = alternate(lambda: gaussian_blur(x, sigma),
+                           lambda: band_blur(x, sigma), REPS)
+        td = {part: device_ms(lambda: band_blur(x, sigma),
+                              f"p360_band_blur_{part}", REPS, flush=True)
+              for part in ("rows", "cols")}
+        cost = band_blur_cost(n, h, w, k)
+        log(f"  sigma {sigma:.3f} ({k} taps) on {RIG_STACK}: bit for bit "
+            f"{same} (max|d| {err}); kernel {tk:.4f} ms, device "
+            f"{td['rows']:.4f} + {td['cols']:.4f} ms with the L2 flushed, "
+            f"bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}: "
+            f"{cost['bytes']} bytes, {cost['flops']} operations; "
+            f"{100 * cost['bound_ms'] / (td['rows'] + td['cols']):.1f} % of "
+            f"it), plain {tp:.3f} ms")
+        check(same, f"3 E: band_blur at sigma {sigma} differs from "
+              f"gaussian_blur (max|d| {err})")
+        for key, v in (("ms", tk), ("device_ms", td["rows"] + td["cols"]),
+                       ("plain_ms", tp), ("bytes_ms", cost["bytes_ms"]),
+                       ("flops_ms", cost["flops_ms"])):
+            tot[key] += v
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    tot["bound_ms"] = max(tot["bytes_ms"], tot["flops_ms"])
+    tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["flops_ms"]
+                       else "operations")
+    log(f"  the four levels: kernel {tot['ms']:.4f} ms, device "
+        f"{tot['device_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+        f"({100 * tot['bound_ms'] / tot['device_ms']:.1f} %), plain "
+        f"{tot['plain_ms']:.3f} ms")
+    log("  ptxas -v:" + "\n    ".join([""] + [
+        ln.strip() for ln in _kernels.build_log("band_blur").splitlines()
+        if ": Used" in ln or "spill" in ln]))
+    del x
+    torch.cuda.empty_cache()
+    return tot
+
+
 def hold_tail_call(torch, name, args, kw, device_name, phase):
     """One recorded call of a SIFT tail wrapper against its plain version:
     bit for bit (fails otherwise), the launch and the plain version in
@@ -737,6 +816,8 @@ def phase_slice(torch, u8, rots, focal, chunks):
           f"{FRONT_LAUNCHES}")
     check(launches["ransac_score"] == chunks, f"RANSAC's scoring on the "
           f"main path: {launches['ransac_score']}, not {chunks} chunks")
+    check(launches["band_blur"] == BAND_LAUNCHES, f"the blend's blur on the "
+          f"main path: {launches['band_blur']}, not {BAND_LAUNCHES}")
     for rep in range(3):
         cache = os.path.join(work, f"again{rep}")
         os.makedirs(cache)
@@ -1148,7 +1229,7 @@ def msop_run(torch, label, u8, rots, focal, seed):
     wall = time.time() - t0
     launches = dict(LAUNCHES)
     sift = {k: v for k, v in launches.items()
-            if "warp" not in k and k != "ransac_score"}
+            if k == "octave_stack" or k.startswith("sift_")}
     check(not any(sift.values()), f"A, {label}: MSOP ran SIFT's kernels: "
           f"{sift}")
     check(launches["ransac_score"] > 0, f"A, {label}: MSOP's match graph "
@@ -1558,8 +1639,9 @@ def phase_dense(torch, u8, rots, focal):
 
 def phase_profile(torch, u8, warm_s: float):
     """One more uncached run of ``cli.run_images`` (the main path) under
-    torch.profiler: each SIFT kernel's launches in the profile (all
-    inside the replays) equal to its count."""
+    torch.profiler: each profiled kernel's launches in the profile equal
+    to its count (SIFT's and RANSAC's inside the replays, the blend's
+    blur eager)."""
     from pano360_tpu_torch import cli
     from pano360_tpu_torch._kernels import LAUNCHES
     cache = tempfile.mkdtemp(prefix="chip_smoke_prof_")
@@ -1576,9 +1658,8 @@ def phase_profile(torch, u8, warm_s: float):
         seen = [v for k, v in by_name.items() if key in k]
         n_seen = sum(c for _, c in seen)
         per = sum(t for t, _ in seen) / 1e3 / max(n_seen, 1)
-        log(f"  {kernel} inside the replays: {launches[kernel]} launches "
-            f"counted, {n_seen} in the profile, {per:.4f} ms per launch on "
-            "the device")
+        log(f"  {kernel}: {launches[kernel]} launches counted, {n_seen} "
+            f"in the profile, {per:.4f} ms per launch on the device")
         check(n_seen == launches[kernel], f"{kernel}'s count "
               f"{launches[kernel]} is not the profile's {n_seen}")
     check(all(launches[k] == v for k, v in TAIL_LAUNCHES.items()),
@@ -1587,6 +1668,8 @@ def phase_profile(torch, u8, warm_s: float):
     check(all(launches[k] == v for k, v in FRONT_LAUNCHES.items()),
           f"SIFT's front end in the profiled run: {launches}, not "
           f"{FRONT_LAUNCHES}")
+    check(launches["band_blur"] == BAND_LAUNCHES, f"the blend's blur in the "
+          f"profiled run: {launches['band_blur']}, not {BAND_LAUNCHES}")
 
 
 def profile_device(torch, fn, warm_s=None):
@@ -1668,6 +1751,8 @@ def main():
     front = phase_sift_front(torch, u8)
     log("phase 3 D: RANSAC's scoring kernel vs plain")
     score, chunks = phase_ransac(torch, u8)
+    log("phase 3 E: the multiband blend's blur vs plain")
+    band = phase_band_blur(torch)
     log("phase 4: backward_warp kernel vs plain")
     k2 = phase_warp(u8, rots, focal)
     log("phase 5: CLI main path on the bench dataset")
@@ -1721,6 +1806,12 @@ def main():
              source=f"pano360_tpu_torch/csrc/{RANSAC_LINE[2]}",
              replaces=RANSAC_LINE[3], launches=launches[RANSAC_LINE[1]],
              **score),
+        dict(name=BAND_LINE[0], route="cuda",
+             source=f"pano360_tpu_torch/csrc/{BAND_LINE[1]}",
+             replaces=BAND_LINE[2], launches=launches[BAND_LINE[0]],
+             **{k: band[k] for k in ("max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}),
         dict(name="sift_orient_block", route="cuda",
              source="pano360_tpu_torch/csrc/sift_orient.cu",
              replaces="pano360_tpu/features/sift.py:594 and :635 (XLA "

@@ -109,6 +109,10 @@ _SIGNATURES = {
         # m, thresh^2, stream
         "p360_ransac_score": [_P] * 8 + [_I, _I, _I, _F, _P],
     },
+    "band_blur": {
+        # in, mid, out, n, h, w, taps(host), k, stream
+        "p360_band_blur": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    },
     "backward_warp_mip": {
         # launch scalars (host), level_ptrs (host), origins, params,
         # patches, invalid, stream

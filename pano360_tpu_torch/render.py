@@ -9,7 +9,8 @@ the weights, the pairwise overlap warps, the backward warp (the CUDA
 kernels on the card: ``ops.warp_kernel.launch_warp``, exact, and
 ``ops.warp_mip.launch_mip_warp``, mip-sampled for ``warp="pallas"``)
 and the blend. Multiband blends bands from DoGs of each patch with
-sigma = sqrt(2l+1)*4 and sharp argmax-weight seams; periodic canvases
+sigma = sqrt(2l+1)*4 (the blur: ``ops.band_blur``, a CUDA kernel on the
+card) and sharp argmax-weight seams; periodic canvases
 paste on an x-extended canvas and fold the spilled strip back.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from pano360_tpu_torch import geometry as geo
 from pano360_tpu_torch import profiling
-from pano360_tpu_torch.ops.filters import gaussian_blur
+from pano360_tpu_torch.ops.band_blur import band_blur
 from pano360_tpu_torch.ops.warp import bilinear_taps, perspective_maps
 from pano360_tpu_torch.ops.warp_kernel import launch_warp, prepare_warp
 from pano360_tpu_torch.ops.warp_mip import (build_mips, launch_mip_warp,
@@ -443,7 +444,7 @@ def blend_multiband(patches, masks, bottoms, shape, n_levels: int = 5,
         sigma = float(np.sqrt(2 * lvl + 1.0) * 4)
         is_last = lvl == n_levels - 1
         if not is_last:
-            blurred = gaussian_blur(patches, sigma)
+            blurred = band_blur(patches, sigma)
             tiles_rgb = prevs[..., :3] - blurred[..., :3]
             tiles_a = blurred[..., 3]
         else:

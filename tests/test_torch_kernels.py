@@ -13,7 +13,8 @@ multiply and add in both versions; the kernel is built with
 mip-sampled) bit for bit, patches and masks (the same products summed
 in the same order, -fmad=false, IEEE divisions, the accurate sinf, cosf
 and tanf); SIFT's front end (the base image, the small octaves) bit for
-bit, every output plane.
+bit, every output plane; the multiband blend's blur bit for bit, and the
+blend with it bit for bit the blend with the plain blur.
 """
 import math
 from types import SimpleNamespace
@@ -1260,3 +1261,195 @@ def test_match_graph_kernel_equals_plain_eager_on_card(monkeypatch):
         assert a.dtype == c.dtype and a.shape == c.shape
         assert a.tobytes() == b.tobytes() == c.tobytes()
     assert int(kernel.ok.sum()) >= 14
+
+
+# ---------------------------------------------------------------------------
+# The multiband blend's blur: the wrapper on the CPU, the kernel, the blend
+# ---------------------------------------------------------------------------
+
+# the blend's four blurred levels: sigma sqrt(2 l + 1) 4 (33, 57, 73, 87 taps)
+BAND_SIGMAS = tuple(float(np.sqrt(2 * lvl + 1.0) * 4) for lvl in range(4))
+RIG_STACK = (33, 352, 1408)     # nsh_rig_33x1mp's patch stack (N, ph, pw)
+
+
+def _stack(n, h, w, seed=0, dev="cpu"):
+    """An (n, h, w, 4) float32 patch stack in [0, 1] whose last channel is
+    a 0/1 mask, with each patch's invalid corner zeroed as the warp
+    leaves it."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, h, w, 4), generator=g)
+    x[..., 3] = (x[..., 3] > 0.3).to(torch.float32)
+    for i in range(n):
+        x[i, :(i * 7) % h + 1, :(i * 13) % w + 1] = 0.0
+    return x.to(dev)
+
+
+@pytest.mark.parametrize("sigma", BAND_SIGMAS)
+def test_band_blur_cpu_takes_plain_version(sigma):
+    from pano360_tpu_torch.ops import band_blur as B
+    from pano360_tpu_torch.ops.filters import gaussian_blur
+    x = _stack(2, 20, 24)
+    before = LAUNCHES["band_blur"]
+    got = B.band_blur(x, sigma)
+    assert _bits(got, gaussian_blur(x, sigma))
+    assert LAUNCHES["band_blur"] == before
+
+
+@pytest.mark.parametrize("case", ["device", "dtype", "channels", "rank",
+                                  "contiguity", "taps", "sigma", "empty"])
+def test_band_blur_rejects_bad_input(case):
+    """Each refusal raises and says what it got."""
+    from pano360_tpu_torch.ops import band_blur as B
+    x, sigma = _stack(2, 20, 24), 4.0
+    want = {"device": "unsupported device meta",
+            "dtype": r"got \(2, 20, 24, 4\) torch.float64",
+            "channels": r"got \(2, 20, 24, 3\)",
+            "rank": r"got \(20, 24, 4\)",
+            "contiguity": "must be a contiguous",
+            "taps": r"takes 1..127 taps, got 129 \(sigma 15.9\)",
+            "sigma": r"got 161 \(sigma 20.0\)",
+            "empty": "got N=0, H=20, W=24"}[case]
+    if case == "device":
+        x = x.to("meta")
+    elif case == "dtype":
+        x = x.double()
+    elif case == "channels":
+        x = x[..., :3].contiguous()
+    elif case == "rank":
+        x = x[0]
+    elif case == "contiguity":
+        x = x.transpose(1, 2)
+    elif case == "taps":               # the first sigma past 127 taps
+        sigma = 15.9
+    elif case == "sigma":
+        sigma = 20.0
+    else:
+        x = x[:0]
+    with pytest.raises(ValueError, match=want):
+        B.band_blur(x, sigma)
+
+
+def test_band_blur_cost_on_the_rig_stack():
+    """2 x 16 bytes a pixel and 2 (2k - 1) operations a value: the rig's
+    first level is bound by its bytes, the other three by operations, and
+    the four together by 0.998 ms."""
+    from pano360_tpu_torch.ops import band_blur as B
+    from pano360_tpu_torch.ops.filters import auto_ksize
+    px = int(np.prod(RIG_STACK))
+    ks = [auto_ksize(s) for s in BAND_SIGMAS]
+    assert ks == [33, 57, 73, 87]
+    costs = [B.band_blur_cost(*RIG_STACK, k) for k in ks]
+    for k, c in zip(ks, costs):
+        assert c["bytes"] == 32 * px == 523370496
+        assert c["flops"] == 2 * (2 * k - 1) * 4 * px
+        assert c["bound_ms"] == pytest.approx(
+            max(c["bytes"] / 3.35e9, c["flops"] / 67e9), rel=1e-12)
+    assert [c["bound_by"] for c in costs] == ["bytes"] + ["operations"] * 3
+    assert sum(c["flops"] for c in costs) == 8 * px * 496 == 64_897_941_504
+    assert abs(sum(c["bound_ms"] for c in costs) - 0.99792) < 1e-5
+
+
+def test_band_blur_entry_is_registered():
+    assert _kernels._SIGNATURES["band_blur"]["p360_band_blur"]
+    assert "band_blur" in LAUNCHES
+
+
+def test_blend_multiband_blurs_each_level_through_band_blur(monkeypatch):
+    """On a CPU sweep the blend calls ``band_blur`` once a blurred level,
+    at the level's sigma, on the (N, ph, pw, 4) stack."""
+    from torch_warp_scenes import regions as sweep
+    calls = []
+
+    def recorded(x, sigma):
+        calls.append((tuple(x.shape), sigma))
+        return band_blur(x, sigma)
+    band_blur = render.band_blur
+    monkeypatch.setattr(render, "band_blur", recorded)
+    render.stitch(sweep(3, (60, 80), 0.5), device="cpu")
+    assert [s for _, s in calls] == list(BAND_SIGMAS)
+    assert len({shape for shape, _ in calls}) == 1
+    assert calls[0][0][0] == 3 and calls[0][0][3] == 4
+
+
+def _hold_band_blur(x, sigma):
+    """The kernel against the plain blur on the card, bit for bit: one
+    launch counted a call."""
+    from pano360_tpu_torch.ops import band_blur as B
+    from pano360_tpu_torch.ops.filters import gaussian_blur
+    before = LAUNCHES["band_blur"]
+    got = B.band_blur(x, sigma)
+    assert LAUNCHES["band_blur"] == before + 1
+    assert got.is_contiguous() and got.shape == x.shape
+    want = gaussian_blur(x, sigma)
+    assert _bits(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sigma", BAND_SIGMAS)
+def test_band_blur_kernel_matches_plain_on_the_rig_stack(sigma):
+    _hold_band_blur(_stack(*RIG_STACK, seed=3, dev=_cuda()), sigma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sigma", [BAND_SIGMAS[0], BAND_SIGMAS[3]])
+@pytest.mark.parametrize("n,h,w", [(3, 97, 300), (2, 20, 24), (1, 352, 1408),
+                                   (4, 65, 257), (2, 1, 5), (1, 130, 1),
+                                   (1, 1, 1)])
+def test_band_blur_kernel_ragged_shapes(n, h, w, sigma):
+    """ph and pw off the tiles (64 rows, 32 and 256 columns), pads wider
+    than the axis (a 20 x 24 patch at 87 taps), N = 1, axes of one."""
+    _hold_band_blur(_stack(n, h, w, seed=n + h + w, dev=_cuda()), sigma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sigma,ksize", [(0.01, 1), (0.1, 3), (0.5, 5),
+                                         (0.8, 7), (1.0, 9), (15.8, 127)])
+def test_band_blur_kernel_other_tap_counts(sigma, ksize):
+    """Fewer taps than a thread's 8 outputs, and the capacity."""
+    from pano360_tpu_torch.ops.filters import auto_ksize
+    assert auto_ksize(sigma) == ksize
+    _hold_band_blur(_stack(2, 70, 300, seed=9, dev=_cuda()), sigma)
+
+
+def _rig_regions():
+    """``tests/test_torch_rig.py``'s 7-view rig at its true cameras."""
+    from portbench.world import make_world
+    from pano360_tpu_torch.register import PanoImage
+    from test_torch_rig import TRAFFIC
+    world = make_world(TRAFFIC, 20261017, 0, torch.device("cpu"))
+    intr = np.diag([world.focal, world.focal, 1.0])
+    return [PanoImage(v, r, intr.copy())
+            for v, r in zip(world.views, world.rots)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["sweep", "periodic", "rig"])
+def test_blend_with_the_kernel_equals_the_plain_blur_on_card(scene,
+                                                             monkeypatch):
+    """``render.stitch`` on the card with the kernel, then with the plain
+    blur in its place: each level's blurred stack bit for bit, the same
+    mosaic, 4 launches a blend."""
+    from torch_warp_scenes import regions as sweep
+    from pano360_tpu_torch.ops.filters import gaussian_blur
+    dev = _cuda()
+    regs, max_res = {"sweep": lambda: (sweep(3, (120, 160), 0.5), 1400),
+                     "periodic": lambda: (sweep(8, (120, 320), 0.1), 400),
+                     "rig": lambda: (_rig_regions(), 1400)}[scene]()
+    runs = []
+    for blur in (render.band_blur, gaussian_blur):
+        levels = []
+
+        def recorded(x, sigma, blur=blur):
+            levels.append(blur(x, sigma))
+            return levels[-1]
+        monkeypatch.setattr(render, "band_blur", recorded)
+        before = LAUNCHES["band_blur"]
+        mosaic = render.stitch(regs, max_resolution=max_res, device=dev)
+        runs.append((mosaic, levels, LAUNCHES["band_blur"] - before))
+    (kern, k_levels, k_count), (plain, p_levels, p_count) = runs
+    assert (k_count, p_count) == (4, 0)
+    assert len(k_levels) == len(p_levels) == 4
+    for a, b in zip(k_levels, p_levels):
+        assert _bits(a, b)
+    assert kern.shape == plain.shape and np.array_equal(kern, plain)
+    assert kern.any()
