@@ -33,7 +33,8 @@ Phases (any failure exits non-zero):
    pairs against every correspondence, the first best and its mask) vs
    the plain scorer, bit for bit (every count, the winner's homography
    and mask), on the bench world's first chunk of pairs, recorded from
-   one eager match graph: the launch, the device time of its two
+   one eager match graph (with the graph's first top-2 call, for F): the
+   launch, the device time of its two
    kernels with the L2 flushed, the bound and the plain version (no
    single PyTorch call computes it); ptxas's report;
    E. the multiband blend's blur (``ops.band_blur``) vs the plain
@@ -42,6 +43,18 @@ Phases (any failure exits non-zero):
    blend's four sigmas (33, 57, 73, 87 taps): each level's launch, the
    device time of its two kernels with the L2 flushed, the bound and
    the plain version, and the four levels' sums; ptxas's report;
+   F. the match's top-2 search (``ops.knn2``) vs the plain chain and
+   float64 on the bench world's first chunk of pairs (recorded in D:
+   the main path's RootSIFT rows and ragged masks; its numbers go to
+   the kernels line), then at MSOP's chunk (one pair of 8192 64-d rows,
+   6,500 valid a side) and the rig's (16 pairs of 2048 RootSIFT rows,
+   1,950 valid a side), random descriptors of each kind with noisy
+   copies: no row a float32 search may not give
+   (``measure.knn2_misses``; the gate), the rows that differ from
+   float64 and from the chain; the launch, the device time of its norms,
+   search and merge kernels with the L2 flushed, the bound over the
+   valid columns and the plain version (no single PyTorch call computes
+   it); ptxas's report;
 4. kernel 2 (backward warp) vs its plain version at the bench's render
    layout, bit for bit with no mask flip: the launch with a prepared
    plan, the prepare step (host), the device time per launch, the bound
@@ -53,8 +66,9 @@ Phases (any failure exits non-zero):
    (replays), per-stage seconds, peak device memory (allocated, and
    reserved by where the allocator keeps it), kernel launch
    counts (the warm run's are the main path's: SIFT's front end 4 and
-   12, its tail 36, 4 and 4 inside the replays, RANSAC's scoring once
-   a chunk of pairs, as in 3 D, the blend's blur once a level, 4;
+   12, its tail 36, 4 and 4 inside the replays, RANSAC's scoring and
+   the top-2 search once a chunk of pairs, as in 3 D, the blend's blur
+   once a level, 4;
    neither the mip warp nor the
    orientation's block design), three more warm runs'
    stage seconds, registration accuracy against the synthetic ground
@@ -69,8 +83,9 @@ Phases (any failure exits non-zero):
 6. profile: one more uncached run of the main path under
    ``torch.profiler``: device busy time, the device's idle share, the
    device operations that take the most time, and the kernels' entries;
-   the launches of the octave kernel, of SIFT's front end and tail and
-   of RANSAC's scoring in the profile (inside the replays) and of the
+   the launches of the octave kernel, of SIFT's front end and tail, of
+   RANSAC's scoring and the top-2 search in the profile (inside the
+   replays) and of the
    blend's blur (its rows kernel) equal to their counts, the front
    end's 4 and 12, the tail's 36, 4 and 4, the blur's 4;
 7. render options, each path with the kernel counts
@@ -98,8 +113,9 @@ Phases (any failure exits non-zero):
       bundle adjustment's gate, LM iterations; a registered run's cached
       re-run must be identical) and the gates are on what no draw
       changes: the native library loaded (SSC runs there), the
-      extraction's counts, no SIFT kernel launched and RANSAC's scoring
-      launched, and every truly overlapping pair joined by an
+      extraction's counts, no SIFT kernel launched, RANSAC's scoring and
+      the top-2 search launched, and every truly overlapping pair joined
+      by an
       edge with enough inliers whose homography gives the true relative
       rotation; then the extraction alone on the 15 full-size bench
       views (seconds, counts, SSC's share), the top device operations
@@ -354,11 +370,20 @@ PROFILED = {"octave_stack": "octave_stack_kernel",
             "sift_orient": "p360_sift_orient_kernel",
             "sift_descr": "p360_sift_descr_kernel",
             "ransac_score": "p360_ransac_score_kernel",
+            "knn2": "p360_knn2_kernel",
             "band_blur": "p360_band_blur_rows_kernel"}
 # RANSAC's scoring: (wrapper, kernel and count name, source, the JAX
 # computation replaced)
 RANSAC_LINE = ("score", "ransac_score", "ransac_score.cu",
                "pano360_tpu/match.py:245-250 (XLA fusion)")
+# the match's top-2 search: (kernel and count name, source, the JAX
+# computation replaced) and the chunks phase 3 F times: (label, pairs,
+# rows a side, width, valid rows a side), MSOP's one pair at width 8192
+# (~6,500 keypoints a view) and the rig's 16 pairs at 2048 (~1,950)
+KNN2_LINE = ("knn2", "knn2.cu",
+             "pano360_tpu/match.py:57 knn2_matches (XLA fusion around the "
+             "matrix product)")
+KNN2_CHUNKS = (("MSOP", 1, 8192, 64, 6500), ("rig", 16, 2048, 128, 1950))
 # the orientation kernel's block design, which the dense mode's 80x80
 # patches take (phase 9 B; counted as sift_orient)
 BLOCK_ORIENT_KERNEL = "p360_sift_orient_block_kernel"
@@ -520,18 +545,24 @@ def phase_ransac(torch, u8):
     for bit; the launch (CUDA events), the device time of its two
     kernels with the L2 flushed (``torch.profiler``), the bound and the
     plain version; no single PyTorch call computes it (library null).
-    -> (dict for the kernels line, the match graph's chunks)."""
+    The same match graph's first top-2 call is recorded for 3 F.
+    -> (dict for the kernels line, the match graph's chunks, that call's
+    arguments)."""
     from pano360_tpu_torch import _kernels, pipeline
     from pano360_tpu_torch.measure import alternate, device_ms, recording
+    from pano360_tpu_torch.ops import knn2 as K
     from pano360_tpu_torch.ops import ransac as R
     dev = torch.device("cuda")
     _, feats = pipeline.upload_extract(u8, dev, capture=False)
     _, kp, ds, va, _ = pipeline.sift_buffers(u8, feats)
-    with recording(R, ("score",)) as calls:
+    with recording(R, ("score",)) as calls, \
+            recording(K, ("knn2",)) as top2:
         pipeline.match_graph(kp, ds, va, capture=False)
     torch.cuda.synchronize()
     chunks = len(calls["score"])
     args = calls["score"][0][0]
+    top2_args = top2["knn2"][0][0]
+    del top2
     b, k, m = args[0].shape[0], args[0].shape[1], args[1].shape[1]
     got, want = R.score_counts(*args), R.score_ref(*args)
     same = all(bits_equal(torch, a, c) for a, c in zip(got, want))
@@ -560,7 +591,7 @@ def phase_ransac(torch, u8):
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=tk, device_ms=td["score"] + td["select"],
                 plain_ms=tp, bound_ms=cost["bound_ms"],
-                bound_by=cost["bound_by"], library_ms=None), chunks
+                bound_by=cost["bound_by"], library_ms=None), chunks, top2_args
 
 
 def phase_band_blur(torch):
@@ -622,6 +653,75 @@ def phase_band_blur(torch):
     del x
     torch.cuda.empty_cache()
     return tot
+
+
+def hold_knn2(torch, label, d1, d2, v1, v2):
+    """One chunk of the top-2 search against the plain chain and float64:
+    no row a float32 search may not give (the gate); the launch (CUDA
+    events), the device time of its norms, search and merge kernels with
+    the L2 flushed, the bound over the chunk's valid columns and the plain
+    version. -> dict for the kernels line (an index output: the rows off
+    float64 beyond the margin and the rows differing from the plain
+    chain, no error magnitude)."""
+    from pano360_tpu_torch.measure import alternate, device_ms, knn2_misses
+    from pano360_tpu_torch.ops.knn2 import knn2, knn2_cost, knn2_ref, slices
+    (b, m1, d), m2 = d1.shape, d2.shape[1]
+    got, want = knn2(d1, d2, v1, v2, 0.7), knn2_ref(d1, d2, v1, v2, 0.7)
+    (k_wrong, k_differ), (p_wrong, p_differ) = knn2_misses(
+        [got, want], d1, d2, v1, v2)
+    between = int((v1 & ((got[0] != want[0]) | (got[1] != want[1]))).sum())
+    n_good = int(got[1].sum())
+    del got, want
+    tp, tk = alternate(lambda: knn2_ref(d1, d2, v1, v2, 0.7),
+                       lambda: knn2(d1, d2, v1, v2, 0.7), REPS)
+    td = {part: device_ms(lambda: knn2(d1, d2, v1, v2, 0.7),
+                          f"p360_knn2_{part}", REPS, flush=True)
+          for part in ("norms", "kernel", "merge")}
+    cols = int(v2.sum())
+    cost = knn2_cost(b, m1, m2, d, cols=cols)
+    dev_ms = sum(td.values())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"  {label} chunk (B {b}, M1 {m1}, M2 {m2}, D {d}; valid rows "
+        f"{int(v1.sum())} and columns {cols} in all; "
+        f"{slices(b, m1, m2, sms)} slices): rows off float64 beyond the "
+        f"margin {k_wrong} (chain {p_wrong}); rows differing from float64 "
+        f"{k_differ} (chain {p_differ}), from the chain {between}; good "
+        f"{n_good}; kernel {tk:.4f} ms, device {td['norms']:.4f} + "
+        f"{td['kernel']:.4f} + {td['merge']:.4f} ms (norms, search, merge) "
+        f"with the L2 flushed, bound {cost['bound_ms']:.4f} ms over the "
+        f"valid columns ({cost['bound_by']}: {cost['bytes']} bytes, "
+        f"{cost['flops']} operations; {100 * cost['bound_ms'] / dev_ms:.1f}"
+        f" % of it), plain {tp:.3f} ms")
+    check(k_wrong == 0, f"3 F: {label}: {k_wrong} rows off float64 beyond "
+          "the rounding margin")
+    return dict(rows_off_float64=k_wrong, rows_differing=between, ms=tk,
+                device_ms=dev_ms, plain_ms=tp, bound_ms=cost["bound_ms"],
+                bound_by=cost["bound_by"], library_ms=None)
+
+
+def phase_knn2(torch, bench_args):
+    """3 F: the top-2 search (``hold_knn2``) on the bench world's first
+    chunk of pairs (``bench_args``, recorded in 3 D: the main path's
+    RootSIFT rows and ragged masks), then at MSOP's and the rig's chunks
+    (``KNN2_CHUNKS``, random rows with a valid prefix a side); no single
+    PyTorch call computes it (library null). -> dict for the kernels
+    line, of the bench's chunk (the others logged)."""
+    from pano360_tpu_torch import _kernels
+    from pano360_tpu_torch.measure import knn2_inputs
+    d1, d2, v1, v2 = bench_args[:4]
+    row = hold_knn2(torch, "bench", d1, d2, v1, v2)
+    for label, b, m, d, n_valid in KNN2_CHUNKS:
+        d1, d2, v1, v2 = (t.cuda() for t in knn2_inputs(
+            b, m, m, d, seed=BENCH_SEED, ragged=False))
+        v1[:, n_valid:] = False
+        v2[:, n_valid:] = False
+        hold_knn2(torch, label, d1, d2, v1, v2)
+        del d1, d2, v1, v2
+        torch.cuda.empty_cache()
+    log("  ptxas -v:" + "\n    ".join([""] + [
+        ln.strip() for ln in _kernels.build_log("knn2").splitlines()
+        if ": Used" in ln or "spill" in ln]))
+    return row
 
 
 def hold_tail_call(torch, name, args, kw, device_name, phase):
@@ -816,6 +916,8 @@ def phase_slice(torch, u8, rots, focal, chunks):
           f"{FRONT_LAUNCHES}")
     check(launches["ransac_score"] == chunks, f"RANSAC's scoring on the "
           f"main path: {launches['ransac_score']}, not {chunks} chunks")
+    check(launches["knn2"] == chunks, f"the top-2 search on the main "
+          f"path: {launches['knn2']}, not {chunks} chunks")
     check(launches["band_blur"] == BAND_LAUNCHES, f"the blend's blur on the "
           f"main path: {launches['band_blur']}, not {BAND_LAUNCHES}")
     for rep in range(3):
@@ -1232,8 +1334,9 @@ def msop_run(torch, label, u8, rots, focal, seed):
             if k == "octave_stack" or k.startswith("sift_")}
     check(not any(sift.values()), f"A, {label}: MSOP ran SIFT's kernels: "
           f"{sift}")
-    check(launches["ransac_score"] > 0, f"A, {label}: MSOP's match graph "
-          f"did not score RANSAC on the card: {launches}")
+    check(launches["ransac_score"] > 0 and launches["knn2"] > 0,
+          f"A, {label}: MSOP's match graph did not score RANSAC or search "
+          f"the top-2 on the card: {launches}")
     check(os.path.exists(os.path.join(cache, "matches_bench_s1.0.npz")),
           f"A, {label}, seed {seed}: no match graph: {error!r}")
     ba = os.path.join(cache, "ba_bench_s1.0.pkl")
@@ -1750,9 +1853,12 @@ def main():
     log("phase 3 C: SIFT's front end, two kernels vs plain")
     front = phase_sift_front(torch, u8)
     log("phase 3 D: RANSAC's scoring kernel vs plain")
-    score, chunks = phase_ransac(torch, u8)
+    score, chunks, top2_args = phase_ransac(torch, u8)
     log("phase 3 E: the multiband blend's blur vs plain")
     band = phase_band_blur(torch)
+    log("phase 3 F: the match's top-2 search vs plain and float64")
+    top2 = phase_knn2(torch, top2_args)
+    del top2_args
     log("phase 4: backward_warp kernel vs plain")
     k2 = phase_warp(u8, rots, focal)
     log("phase 5: CLI main path on the bench dataset")
@@ -1806,6 +1912,10 @@ def main():
              source=f"pano360_tpu_torch/csrc/{RANSAC_LINE[2]}",
              replaces=RANSAC_LINE[3], launches=launches[RANSAC_LINE[1]],
              **score),
+        dict(name=KNN2_LINE[0], route="cuda",
+             source=f"pano360_tpu_torch/csrc/{KNN2_LINE[1]}",
+             replaces=KNN2_LINE[2], launches=launches[KNN2_LINE[0]],
+             **top2),
         dict(name=BAND_LINE[0], route="cuda",
              source=f"pano360_tpu_torch/csrc/{BAND_LINE[1]}",
              replaces=BAND_LINE[2], launches=launches[BAND_LINE[0]],

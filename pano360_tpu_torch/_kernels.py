@@ -109,6 +109,11 @@ _SIGNATURES = {
         # m, thresh^2, stream
         "p360_ransac_score": [_P] * 8 + [_I, _I, _I, _F, _P],
     },
+    "knn2": {
+        # desc1, desc2, valid1, valid2, norms, part, best, good, b, m1, m2,
+        # d, slices, ratio, stream
+        "p360_knn2": [_P] * 8 + [_I] * 5 + [_F, _P],
+    },
     "band_blur": {
         # in, mid, out, n, h, w, taps(host), k, stream
         "p360_band_blur": [_P, _P, _P, _I, _I, _I, _P, _I, _P],

@@ -1,8 +1,9 @@
 """Descriptor matching and RANSAC homographies (counterpart of
 ``pano360_tpu.match``).
 
-Exact brute-force top-2 matching by L2 distance (one batched matrix
-product per chunk of pairs) with Lowe's ratio test, then a
+Exact brute-force top-2 matching by L2 distance with Lowe's ratio test
+(``ops.knn2``: one kernel per chunk of pairs on a card, a batched matrix
+product and its chain on the CPU), then a
 fixed-hypothesis parallel RANSAC: K 4-point samples -> closed-form
 homographies -> inlier counts -> argmax, and a weighted DLT +
 Gauss-Newton refit on the winning inlier set. Every function is batched
@@ -29,7 +30,7 @@ import torch
 
 from pano360_tpu_torch import graphs, profiling
 from pano360_tpu_torch.geometry import inv3x3
-from pano360_tpu_torch.ops import ransac
+from pano360_tpu_torch.ops import knn2, ransac
 
 LOWE_RATIO = 0.7
 N_MIN_MATCH = 8
@@ -51,23 +52,9 @@ class PairMatch(NamedTuple):
 
 def knn2_matches(desc1, desc2, valid1, valid2, ratio: float = LOWE_RATIO):
     """Top-2 L2 matches of each desc1 row against desc2 (batched over B):
-    returns (best_idx (B, M1), good (B, M1))."""
-    d1 = desc1.to(torch.float32)
-    d2 = desc2.to(torch.float32)
-    sq1 = torch.sum(d1 * d1, dim=-1, keepdim=True)
-    sq2 = torch.sum(d2 * d2, dim=-1)
-    cross = torch.matmul(d1, d2.transpose(-1, -2))
-    dist2 = sq1 + sq2[..., None, :] - 2.0 * cross
-    dist2 = torch.clamp(dist2, min=0.0)
-    dist2 = torch.where(valid2[..., None, :], dist2, torch.inf)
-    d1min, best_idx = torch.min(dist2, dim=-1)
-    cols = torch.arange(dist2.shape[-1], device=dist2.device)
-    masked = torch.where(cols == best_idx[..., None], torch.inf, dist2)
-    d2min = torch.min(masked, dim=-1).values
-    best = torch.sqrt(d1min)
-    second = torch.sqrt(d2min)
-    good = valid1 & (best < ratio * second) & torch.isfinite(second)
-    return best_idx, good
+    returns (best_idx (B, M1), good (B, M1)). On a card one kernel
+    (``ops.knn2``); on the CPU the plain chain, ``knn2.knn2_ref``."""
+    return knn2.knn2(desc1, desc2, valid1, valid2, ratio)
 
 
 def _normalization(pts, w):

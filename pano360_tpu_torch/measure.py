@@ -12,6 +12,9 @@
   (``measure_exact``, ``measure_mip``): bit-identity and mask flips, the
   prepare step, the launch beside ``grid_sample`` on the same sample
   grid, the device time and the bound.
+- The match's top-2 search: a chunk's inputs (``knn2_inputs``) and, held
+  to float64's answer within the rows' rounding margins, the rows a
+  float32 search gets wrong or differs on (``knn2_misses``).
 - Witnesses: ``host_syncs`` (the host syncs of a call, by the line of the
   package that made them, from ``torch.cuda.set_sync_debug_mode``) and
   ``recording`` (the arguments of a module's functions as they are
@@ -30,6 +33,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from pano360_tpu_torch.ops.knn2 import rounding_margin
 
 _BENCH = dict(n_views=15, shape=(864, 1152), overlap=0.45, seed=42)
 # back-to-back launches per timing of a warp (and of grid_sample beside
@@ -334,6 +339,75 @@ def measure_mip(rgba, small, lay, reps: int = _WARP_REPS):
     else:
         row["ms"], row["library_ms"] = timed(kernel, reps), None
     return row
+
+
+def knn2_inputs(b, m1, m2, d, seed=0, ragged=True):
+    """A chunk's inputs on the CPU: D 64 MSOP-like rows (zero mean, unit
+    variance), else RootSIFT-like (non-negative, unit norm); desc1 holds
+    noisy copies of desc2's rows for 60 % of its rows (so that the ratio
+    test passes on many) and fresh rows for the rest; ``ragged``: each
+    pair's desc2 valid up to its own count (at least half) with a few
+    invalid rows among them, 90 % of desc1 valid."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rows(n):
+        x = torch.randn((b, n, d), generator=g)
+        if d == 64:
+            x = x - x.mean(-1, keepdim=True)
+            return x / x.std(-1, keepdim=True, unbiased=False)
+        x = x.abs()
+        return x / x.norm(dim=-1, keepdim=True)
+    desc2 = rows(m2)
+    pick = torch.randint(0, m2, (b, m1), generator=g)
+    near = torch.gather(desc2, 1, pick[..., None].expand(-1, -1, d))
+    near = near + 0.3 * rows(m1) * (1.0 if d == 64 else 0.1)
+    copy = torch.rand((b, m1), generator=g) < 0.6
+    desc1 = torch.where(copy[..., None], near, rows(m1))
+    valid1 = torch.ones((b, m1), dtype=torch.bool)
+    valid2 = torch.ones((b, m2), dtype=torch.bool)
+    if ragged:
+        valid1 = torch.rand((b, m1), generator=g) < 0.9
+        n2 = torch.randint(max(1, m2 // 2), m2 + 1, (b,), generator=g)
+        valid2 = torch.arange(m2)[None] < n2[:, None]
+        valid2 &= torch.rand((b, m2), generator=g) >= 0.05
+        valid2[torch.arange(b), n2 - 1] = True
+    return desc1, desc2, valid1, valid2
+
+
+def knn2_misses(results, desc1, desc2, valid1, valid2, ratio=0.7):
+    """Each ``(best_idx, good)`` of ``results`` against float64's top-2,
+    one pair at a time: -> per result (the valid rows a float32 search
+    may not give: an index that is no exact nearest within twice the
+    rows' rounding margin, or a test that differs from the exact one
+    where the distances lie farther than the margin's reach from the
+    ratio's line; the valid rows that differ from the exact index or
+    test at all)."""
+    out = [[0, 0] for _ in results]
+    d = desc1.shape[-1]
+    for p in range(desc1.shape[0]):
+        a, c = desc1[p].double(), desc2[p].double()
+        sq1, sq2 = (a * a).sum(-1), (c * c).sum(-1)
+        dist = torch.clamp(sq1[:, None] + sq2[None] - 2.0 * a @ c.T, min=0.0)
+        dist = torch.where(valid2[p][None], dist, torch.inf)
+        d1, idx = dist.min(-1)
+        cols = torch.arange(dist.shape[-1], device=dist.device)
+        d2 = torch.where(cols == idx[:, None], torch.inf,
+                         dist).min(-1).values
+        good = (valid1[p] & (d1.sqrt() < ratio * d2.sqrt())
+                & torch.isfinite(d2))
+        margin = rounding_margin(sq1, torch.where(valid2[p], sq2, 0.0).max(),
+                                 d)
+        reach = 1.7 * margin.sqrt() + 2.0 ** -21 * (d1.sqrt() + d2.sqrt())
+        clear = (d1.sqrt() - ratio * d2.sqrt()).abs() > reach
+        clear |= ~torch.isfinite(d2)
+        for k, (bi, g) in enumerate(results):
+            picked = torch.gather(dist, -1, bi[p][:, None])[:, 0]
+            far = picked > d1 + 2 * margin
+            out[k][0] += int((valid1[p] & (far | (clear & (g[p] != good))))
+                             .sum())
+            out[k][1] += int((valid1[p] & ((bi[p] != idx) | (g[p] != good)))
+                             .sum())
+    return [tuple(o) for o in out]
 
 
 def _sync_site(filename: str, lineno: int) -> str:

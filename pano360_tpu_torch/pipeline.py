@@ -303,7 +303,9 @@ def match_graph(kp_buf, ds_buf, va_buf, seed: int = 0,
     ``match.match_all_pairs``: -> ``PairMatch`` of host arrays, one row
     per pair. The RANSAC draws come from ``draw_fn`` or from a
     ``torch.Generator`` on the buffers' device seeded with ``seed``; the
-    pairs per chunk are bounded by the distance-matrix memory."""
+    pairs per chunk are bounded by the plain top-2's distance-matrix
+    memory (the card's kernel, ``ops.knn2``, holds no such matrix; the
+    bound also sets how the RANSAC uniforms are drawn, chunk by chunk)."""
     n, cap = kp_buf.shape[:2]
     pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
     generator = None

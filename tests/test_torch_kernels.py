@@ -27,6 +27,7 @@ from pano360_tpu_torch import _kernels, render
 from pano360_tpu_torch import synth
 from pano360_tpu_torch._kernels import LAUNCHES
 from pano360_tpu_torch.features import sift as S
+from pano360_tpu_torch.measure import knn2_inputs, knn2_misses
 from pano360_tpu_torch.ops import gauss_octave as G
 from pano360_tpu_torch.ops import sift_front as F
 from pano360_tpu_torch.ops import sift_tail as T
@@ -1453,3 +1454,389 @@ def test_blend_with_the_kernel_equals_the_plain_blur_on_card(scene,
         assert _bits(a, b)
     assert kern.shape == plain.shape and np.array_equal(kern, plain)
     assert kern.any()
+
+
+# ---------------------------------------------------------------------------
+# The match's top-2 search: the wrapper on the CPU, the plain rules, the
+# kernel against float64 and against the plain chain
+# ---------------------------------------------------------------------------
+
+
+def test_knn2_cpu_takes_plain_version():
+    from pano360_tpu_torch import match as pm
+    from pano360_tpu_torch.ops import knn2 as K
+    args = knn2_inputs(3, 100, 90, 64, seed=4)
+    before = LAUNCHES["knn2"]
+    got = K.knn2(*args, 0.7)
+    want = K.knn2_ref(*args, 0.7)
+    via = pm.knn2_matches(*args)
+    assert LAUNCHES["knn2"] == before
+    for a, b in ((got, want), (via, want)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert got[0].dtype == torch.int64 and got[1].dtype == torch.bool
+    assert 30 < int(got[1].sum()) < 300
+
+
+@pytest.mark.parametrize("case", ["device", "width", "wide", "rank",
+                                  "valid dtype", "valid shape", "pairs",
+                                  "no columns", "int descriptors"])
+def test_knn2_refuses_what_the_kernel_cannot_take(case):
+    """The checks a CUDA tensor meets before a launch (``_checked``, run
+    here on CPU tensors), and an unknown device."""
+    from pano360_tpu_torch.ops import knn2 as K
+    d1, d2, v1, v2 = knn2_inputs(2, 20, 30, 64)
+    want = "must be"
+    if case == "device":
+        with pytest.raises(ValueError, match="unsupported device"):
+            K.knn2(*(t.to("meta") for t in (d1, d2, v1, v2)), 0.7)
+        return
+    if case == "width":
+        d1, d2, want = d1[..., :40], d2[..., :40], "multiple of 32"
+    elif case == "wide":
+        d1, d2, want = d1.repeat(1, 1, 3), d2.repeat(1, 1, 3), "up to 128"
+    elif case == "rank":
+        d1 = d1[0]
+    elif case == "valid dtype":
+        v2 = v2.to(torch.uint8)
+    elif case == "valid shape":
+        v1 = v1[:, :-1]
+    elif case == "pairs":
+        d2, v2 = d2[:1], v2[:1]
+    elif case == "no columns":
+        d2, v2, want = d2[:, :0], v2[:, :0], "at least one"
+    else:
+        d1 = d1.to(torch.int32)
+    with pytest.raises(ValueError, match=want):
+        K._checked(d1, d2, v1, v2)
+
+
+@pytest.mark.parametrize("b,m1,m2,sms,want", [
+    (1, 8192, 8192, 132, 4),      # MSOP: 64 row tiles, 64 column tiles
+    (16, 2048, 2048, 132, 1),     # the rig's chunk: 256 blocks
+    (16, 1024, 1024, 132, 2),     # the bench world's chunk
+    (9, 2048, 2048, 132, 3),      # a last, short chunk: 432 blocks
+    (1, 64, 64, 132, 1), (1, 1000, 64, 132, 1)])
+def test_knn2_slices(b, m1, m2, sms, want):
+    """The column slices fill the card's two blocks a multiprocessor in
+    as few waves of as few tiles as the shapes allow, the fewest slices
+    among equals, never more than the column tiles."""
+    from pano360_tpu_torch.ops import knn2 as K
+    s = K.slices(b, m1, m2, sms)
+    assert s == want
+    tiles = -(-m2 // K.COLS)
+    assert 1 <= s <= tiles
+
+
+def test_knn2_cost_at_the_chunks_of_the_main_path():
+    """MSOP's chunk (6,500 of 8,192 columns valid) and the rig's (1,950 of
+    2,048 a pair), bound by operations over the valid columns: the cross
+    term's 2 D a (row, valid column) and the distance's two, 0.103 and
+    0.246 ms at 67 TFLOP/s; with every column valid, 0.130 ms."""
+    from pano360_tpu_torch.ops import knn2 as K
+    msop = K.knn2_cost(1, 8192, 8192, 64, cols=6500)
+    assert msop["bound_by"] == "operations"
+    assert msop["flops"] == (2 * 8192 * 6500 * 64 + 2 * (8192 + 6500) * 64
+                             + 2 * 8192 * 6500 + 3 * 8192)
+    assert msop["bytes"] == 4 * (8192 + 6500) * 64 + 16384 + 9 * 8192
+    assert 0.1030 < msop["bound_ms"] < 0.1037
+    rig = K.knn2_cost(16, 2048, 2048, 128, cols=16 * 1950)
+    assert rig["bound_by"] == "operations"
+    assert 0.2460 < rig["bound_ms"] < 0.2466
+    full = K.knn2_cost(1, 8192, 8192, 64)
+    assert full == K.knn2_cost(1, 8192, 8192, 64, cols=8192)
+    assert 0.128 < full["bound_ms"] < 0.132
+
+
+def test_knn2_entry_is_registered():
+    assert _kernels._SIGNATURES["knn2"]["p360_knn2"]
+    assert "knn2" in LAUNCHES
+
+
+def _knn2_rule_case(case):
+    """One pair whose answer a rule of the plain chain decides, on
+    integer descriptors (every distance exact in float32): -> (inputs,
+    the index and test of row 0)."""
+    d = 64
+    desc2 = torch.zeros((1, 6, d))
+    for j in range(6):
+        desc2[0, j, j] = 4.0 + j
+    desc1 = torch.zeros((1, 2, d))
+    desc1[0, 0, 3] = 7.0               # nearest to column 3
+    valid1 = torch.ones((1, 2), dtype=torch.bool)
+    valid2 = torch.ones((1, 6), dtype=torch.bool)
+    if case == "duplicates":           # columns 3 and 5 the same row
+        desc2[0, 5] = desc2[0, 3]
+        return (desc1, desc2, valid1, valid2), 3, False
+    if case == "one valid column":
+        valid2[:] = False
+        valid2[0, 4] = True
+        return (desc1, desc2, valid1, valid2), 4, False
+    if case == "no valid column":
+        valid2[:] = False
+        return (desc1, desc2, valid1, valid2), 0, False
+    if case == "invalid row":
+        valid1[0, 0] = False
+        return (desc1, desc2, valid1, valid2), 3, False
+    return (desc1, desc2, valid1, valid2), 3, True     # "clear"
+
+
+KNN2_RULES = ["clear", "duplicates", "one valid column", "no valid column",
+              "invalid row"]
+
+
+@pytest.mark.parametrize("case", KNN2_RULES)
+def test_knn2_plain_rules(case):
+    """The rules the kernel reproduces: the first index of the smallest
+    distance; a second column at the nearest's distance fails the test;
+    a row with one valid column fails it; a row with none takes index 0
+    and fails; an invalid row fails."""
+    from pano360_tpu_torch.ops import knn2 as K
+    args, idx, good = _knn2_rule_case(case)
+    bi, g = K.knn2_ref(*args, 0.7)
+    assert int(bi[0, 0]) == idx and bool(g[0, 0]) == good
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_knn2_rounding_margin_bounds_the_plain_distances(d):
+    """The stated margin holds the plain chain's float32 squared distances
+    to float64's on every valid (row, column), with room: the largest
+    gap stays under a tenth of it."""
+    from pano360_tpu_torch.ops import knn2 as K
+    d1, d2, v1, v2 = knn2_inputs(2, 300, 400, d, seed=d, ragged=False)
+    a, c = d1.double(), d2.double()
+    exact = ((a[:, :, None] - c[:, None]) ** 2).sum(-1)
+    s1, s2 = (d1 * d1).sum(-1), (d2 * d2).sum(-1)
+    f32 = torch.clamp(s1[..., None] + s2[:, None] - 2.0 * (d1 @ d2.mT),
+                      min=0.0)
+    margin = K.rounding_margin(s1.double()[..., None],
+                               s2.double()[:, None], d)
+    gap = (f32.double() - exact).abs()
+    assert (gap <= 0.1 * margin).all(), float((gap / margin).max())
+
+
+def _hold_knn2(args, ratio=0.7):
+    """The kernel on the card against float64 and against the plain chain
+    run there: one launch; no row a float32 search may not give, for
+    either; -> (the kernel's rows that differ from float64, the chain's,
+    the rows where the two differ, the kernel's result)."""
+    from pano360_tpu_torch.ops import knn2 as K
+    dev = _cuda()
+    args = [t.to(dev) for t in args]
+    before = LAUNCHES["knn2"]
+    got = K.knn2(*args, ratio)
+    assert LAUNCHES["knn2"] == before + 1
+    plain = K.knn2_ref(*args, ratio)
+    (k_wrong, k_differ), (p_wrong, p_differ) = knn2_misses(
+        [got, plain], *args, ratio)
+    assert (k_wrong, p_wrong) == (0, 0), (k_wrong, p_wrong)
+    between = int((args[2] & ((got[0] != plain[0])
+                              | (got[1] != plain[1]))).sum())
+    return k_differ, p_differ, between, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,m", [(1, 64), (16, 64), (1, 1000), (16, 1000),
+                                 (1, 2048), (16, 2048), (1, 8192),
+                                 (16, 8192)])
+def test_knn2_kernel_against_float64_and_plain_on_card(b, m, d):
+    """Ragged masks, M a tile multiple or not, one pair or sixteen: every
+    valid row's index an exact nearest within the margin and its test the
+    exact one off the ratio's line; no more rows differing from float64
+    at all than the chain's, and few differing from the chain."""
+    args = knn2_inputs(b, m, m, d, seed=b * m + d)
+    k_differ, p_differ, between, got = _hold_knn2(args)
+    rows = int(args[2].sum())
+    assert k_differ <= p_differ, (k_differ, p_differ, rows)
+    assert between <= max(2, rows // 1000), between
+    assert int(got[1].sum()) > 0.1 * rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_knn2_kernel_ranks_near_ties_as_float64_on_card(d):
+    """desc2's second half a copy of its first moved by ~1e-6, desc1 noisy
+    copies of the first half: each row's two nearest lie within float32
+    rounding of each other, so the plain chain's rounding picks either;
+    the kernel ranks the two on their float64 distances and gives
+    float64's index and test on every row."""
+    from pano360_tpu_torch.ops import knn2 as K
+    dev = _cuda()
+    b, m = 4, 1024
+    d1, d2, v1, v2 = knn2_inputs(b, m, m, d, seed=d, ragged=False)
+    g = torch.Generator().manual_seed(d + 1)
+    half = m // 2
+    d2[:, half:] = d2[:, :half] + 1e-6 * torch.randn((b, half, d),
+                                                      generator=g)
+    pick = torch.randint(0, half, (b, m), generator=g)
+    d1 = torch.gather(d2, 1, pick[..., None].expand(-1, -1, d))
+    d1 = d1 + 0.05 * torch.randn((b, m, d), generator=g) * d1.abs().mean()
+    args = [t.to(dev) for t in (d1, d2, v1, v2)]
+    got = K.knn2(*args, 0.7)
+    plain = K.knn2_ref(*args, 0.7)
+    (k_wrong, k_differ), (p_wrong, p_differ) = knn2_misses(
+        [got, plain], *args)
+    assert (k_wrong, k_differ) == (0, 0), (k_wrong, k_differ, p_differ)
+    assert p_wrong == 0 and p_differ > 0, p_differ
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,m1,m2,d", [(1, 64, 64, 64), (3, 300, 1000, 64),
+                                       (16, 1024, 777, 128),
+                                       (2, 8192, 4100, 64), (1, 5, 3, 32)])
+def test_knn2_kernel_equals_plain_on_exact_integers_on_card(b, m1, m2, d):
+    """Small integer descriptors make every norm, dot product and distance
+    exact in float32 in both versions, and ties frequent: the kernel must
+    give the plain chain's indices and tests bit for bit (the first
+    index of a tie; a second column at the nearest's distance fails the
+    test), with ragged masks and M1 != M2."""
+    from pano360_tpu_torch.ops import knn2 as K
+    dev = _cuda()
+    g = torch.Generator().manual_seed(b + m1 + m2 + d)
+    desc1 = torch.randint(-3, 4, (b, m1, d), generator=g).float()
+    desc2 = torch.randint(-3, 4, (b, m2, d), generator=g).float()
+    desc1[:, ::7] = desc2[:, :1].expand(-1, len(range(0, m1, 7)), -1)
+    desc2[:, -1] = desc2[:, 0]                  # a duplicate column
+    valid1 = torch.rand((b, m1), generator=g) < 0.9
+    valid2 = torch.rand((b, m2), generator=g) < 0.8
+    valid2[:, 0] = True
+    args = [t.to(dev) for t in (desc1, desc2, valid1, valid2)]
+    got = K.knn2(*args, 0.7)
+    want = K.knn2_ref(*args, 0.7)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", KNN2_RULES)
+def test_knn2_kernel_rules_on_card(case):
+    from pano360_tpu_torch.ops import knn2 as K
+    dev = _cuda()
+    args, idx, good = _knn2_rule_case(case)
+    args = [t.to(dev) for t in args]
+    bi, g = K.knn2(*args, 0.7)
+    want = K.knn2_ref(*args, 0.7)
+    assert torch.equal(bi, want[0]) and torch.equal(g, want[1])
+    assert int(bi[0, 0]) == idx and bool(g[0, 0]) == good
+
+
+@pytest.mark.gpu
+def test_knn2_kernel_rows_and_columns_without_a_valid_partner_on_card():
+    """Pairs whose desc2 is all invalid (every index 0, no test passed),
+    valid only in an inner tile, or valid only at its last column; every
+    desc1 row invalid."""
+    from pano360_tpu_torch.ops import knn2 as K
+    dev = _cuda()
+    d1, d2, v1, v2 = knn2_inputs(4, 700, 900, 128, seed=5, ragged=False)
+    v2[0] = False
+    v2[1] = False
+    v2[1, 300:420] = True
+    v2[2] = False
+    v2[2, -1] = True
+    v1[3] = False
+    args = [t.to(dev) for t in (d1, d2, v1, v2)]
+    bi, g = K.knn2(*args, 0.7)
+    assert not bi[0].any() and not g[0].any() and not g[3].any()
+    assert bool(((bi[1] >= 300) & (bi[1] < 420)).all())
+    assert bool((bi[2] == 899).all()) and not g[2].any()
+    k_differ, p_differ, _, _ = _hold_knn2([t.cpu() for t in args])
+    assert k_differ <= p_differ, (k_differ, p_differ)
+
+
+@pytest.mark.gpu
+def test_knn2_kernel_slices_change_no_bit_on_card(monkeypatch):
+    """One slice, the chosen count and many: the same indices and tests."""
+    from pano360_tpu_torch.ops import knn2 as K
+    dev = _cuda()
+    args = [t.to(dev) for t in knn2_inputs(2, 3000, 8192, 64, seed=8)]
+    runs = []
+    for s in (None, 1, 7, 64):
+        if s is not None:
+            monkeypatch.setattr(K, "slices", lambda *a, s=s: s)
+        runs.append(K.knn2(*args, 0.7))
+    for bi, g in runs[1:]:
+        assert torch.equal(bi, runs[0][0]) and torch.equal(g, runs[0][1])
+
+
+@pytest.mark.gpu
+def test_knn2_kernel_replayed_equals_eager_on_card():
+    """A chunk's search captured in a CUDA graph (``graphs.Replayed``)
+    and replayed on new inputs copied into its static buffers: equal to
+    the eager call on them; one launch counted a replay."""
+    from pano360_tpu_torch import graphs
+    from pano360_tpu_torch.ops import knn2 as K
+    dev = _cuda()
+
+    def step(state):
+        state["best"], state["good"] = K.knn2(
+            state["d1"], state["d2"], state["v1"], state["v2"], 0.7)
+    first = [t.to(dev) for t in knn2_inputs(16, 2048, 2048, 128, seed=1)]
+    state = dict(zip(("d1", "d2", "v1", "v2"), first))
+    replay = graphs.Replayed(step, state)
+    replay()
+    for seed in (2, 3):
+        new = [t.to(dev) for t in knn2_inputs(16, 2048, 2048, 128,
+                                               seed=seed)]
+        for k, t in zip(("d1", "d2", "v1", "v2"), new):
+            state[k].copy_(t)
+        before = LAUNCHES["knn2"]
+        replay()
+        assert LAUNCHES["knn2"] == before + 1
+        eager = K.knn2(*new, 0.7)
+        assert torch.equal(state["best"], eager[0])
+        assert torch.equal(state["good"], eager[1])
+
+
+def _cell_world_features(cell):
+    """World 0 of a benchmark cell (its fixed seed) on the card and the
+    match graph's buffers of its detector: -> (kp, desc, valid)."""
+    import json
+    import os
+    from pano360_tpu_torch import pipeline
+    from portbench.run import FIXED_SEED
+    from portbench.world import make_world
+    dev = _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    spec = next(w for w in bench["workloads"] if w["name"] == cell)
+    conf = next(c for c in bench["configs"] if c["name"] == spec["config"])
+    traffic = json.load(open(os.path.join(root, "portbench", "workloads",
+                                          spec["traffic"] + ".json")))
+    flags = json.load(open(os.path.join(root, conf["file"])))["flags"]
+    views = make_world(traffic, FIXED_SEED, 0, dev).views
+    if "msop" in flags:
+        feats = pipeline.msop_extract(views, dev)
+        return feats.kp, feats.desc, feats.valid
+    _, feats = pipeline.upload_extract(views, dev, capture=False)
+    _, kp, ds, va, _ = pipeline.sift_buffers(views, feats)
+    return kp, ds, va
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["cmu1_msop_15x1mp", "nsh_rig_33x1mp",
+                                  "cmu2_15x1mp", "uav_12x1mp",
+                                  "lunchroom_10x1.5mp"])
+def test_knn2_kernel_on_the_cells_world_0_on_card(cell):
+    """Every pair of a cell's world 0 in the match graph's chunks: the
+    kernel differs from float64 on no more rows than the cuBLAS chain
+    does, and on no row beyond a float32 search's margin; the replayed
+    match graph launches it once a chunk."""
+    from pano360_tpu_torch import pipeline
+    kp, ds, va = _cell_world_features(cell)
+    n, cap = kp.shape[:2]
+    pairs = torch.tensor([(a, b) for a in range(n) for b in range(a + 1, n)],
+                         device=kp.device)
+    batch = max(1, min(16, (1 << 28) // (cap * cap * 4)))
+    k_all = p_all = rows = 0
+    for lo in range(0, len(pairs), batch):
+        pa, pb = pairs[lo:lo + batch, 0], pairs[lo:lo + batch, 1]
+        args = [ds[pa], ds[pb], va[pa], va[pb]]
+        k_differ, p_differ, _, _ = _hold_knn2([t.cpu() for t in args])
+        k_all, p_all = k_all + k_differ, p_all + p_differ
+        rows += int(va[pa].sum())
+    print(f"{cell}: rows differing from float64: kernel {k_all}, chain "
+          f"{p_all}, of {rows} valid rows")
+    assert k_all <= p_all, (cell, k_all, p_all)
+    pipeline.match_graph(kp, ds, va, seed=3)
+    before = LAUNCHES["knn2"]
+    pipeline.match_graph(kp, ds, va, seed=3)
+    assert LAUNCHES["knn2"] - before == -(-len(pairs) // batch)

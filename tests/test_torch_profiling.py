@@ -104,7 +104,7 @@ def test_recording_keeps_spans_totals_and_counters():
         for name in entries} == {
         "octave_stack", "backward_warp", "backward_warp_mip", "sift_refine",
         "sift_orient", "sift_orient_block", "sift_descr", "sift_base",
-        "sift_small_octave", "ransac_score", "band_blur"}
+        "sift_small_octave", "ransac_score", "band_blur", "knn2"}
     later = profiling.snapshot()
     assert profiling.delta(later, totals)["counters"]["t.counter"] == 0
 
